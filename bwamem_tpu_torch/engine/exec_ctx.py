@@ -1,0 +1,25 @@
+"""Where the port's pipeline runs its device stages.
+
+The JAX package resolves its routing from environment variables and a
+host-device link probe (bwamem_tpu/engine/exec_ctx.py); the port names its
+device explicitly and has no probe.  ``min_device_jobs`` keeps the
+reference's small-wave routing (bwamem_tpu/engine/extend_batch.py
+HOST_FALLBACK_JOBS): a wave with fewer jobs runs on the host, where a launch
+and two copies would cost more than the DP itself.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from bwamem_tpu.engine.extend_batch import HOST_FALLBACK_JOBS
+
+
+@dataclass(frozen=True)
+class ExecConfig:
+    device: torch.device
+    min_device_jobs: int = HOST_FALLBACK_JOBS
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", torch.device(self.device))

@@ -1,0 +1,222 @@
+"""Wave-batched chain extension on the port's device.
+
+The counterpart of bwamem_tpu/engine/extend_batch.py: every read's (chain,
+seed) tasks advance in lockstep, one task per read per wave, and each wave's
+banded extensions run as one batch.  Per-read seed order, contained-seed
+pruning (``_prune``) and band-doubling retries are the reference's; the
+reference's ``_run_kernel`` reaches JAX, so the wave runner and the two
+functions that call it are the port's own.  A wave of at least
+``exec_cfg.min_device_jobs`` jobs goes to the device kernel
+(``ops.extend.ksw_extend_batch_np``), a smaller one to the host C++
+``native_ksw`` (or the Python oracle without it).
+"""
+from __future__ import annotations
+
+import time
+from typing import List
+
+import numpy as np
+
+from bwamem_tpu.engine import native_ksw
+from bwamem_tpu.engine.extend import MAX_BAND_TRY, AlnReg, ksw_extend2
+from bwamem_tpu.engine.extend_batch import _prep_read, _prune
+
+from ..ops.extend import ksw_extend_batch_np
+from .exec_ctx import ExecConfig
+from .state import device_scoring
+
+
+class WaveStats:
+    """Counts of extension jobs and waves by where they ran, the host-clock
+    seconds spent in each kind of wave (a device wave's include packing, the
+    copies and the kernel), and the largest device wave's inputs (so a
+    benchmark can time the kernel on it)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.device_extend_jobs = 0
+        self.host_extend_jobs = 0
+        self.device_extend_waves = 0
+        self.host_extend_waves = 0
+        self.device_wave_seconds = 0.0
+        self.host_wave_seconds = 0.0
+        self.largest_wave = None  # (jobs, h0s, ws, bonuses)
+
+    def device_share(self) -> float:
+        n = self.device_extend_jobs + self.host_extend_jobs
+        return self.device_extend_jobs / n if n else 0.0
+
+
+STATS = WaveStats()
+
+
+def _host_wave(opt, jobs, bonuses, ws, h0s):
+    if native_ksw.available():
+        return native_ksw.extend_batch(
+            jobs, opt.mat, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
+            opt.zdrop, h0s, ws, bonuses,
+        )
+    out = []
+    for (q, t), b, w, h0 in zip(jobs, bonuses, ws, h0s):
+        r = ksw_extend2(q, t, opt.mat, opt.o_del, opt.e_del, opt.o_ins,
+                        opt.e_ins, w, b, opt.zdrop, h0)
+        out.append(dict(score=r.score, qle=r.qle, tle=r.tle, gtle=r.gtle,
+                        gscore=r.gscore, max_off=r.max_off))
+    return out
+
+
+def _run_kernel(opt, jobs, bonuses, ws, h0s, exec_cfg: ExecConfig, scoring):
+    """One batched ksw_extend2 wave; jobs = list of (qseq, tseq)."""
+    n = len(jobs)
+    t0 = time.perf_counter()
+    if n < exec_cfg.min_device_jobs:
+        out = _host_wave(opt, jobs, bonuses, ws, h0s)
+        STATS.host_extend_waves += 1
+        STATS.host_extend_jobs += n
+        STATS.host_wave_seconds += time.perf_counter() - t0
+        return out
+    out = ksw_extend_batch_np(
+        [q for q, _ in jobs], [t for _, t in jobs], scoring, h0s, ws, bonuses,
+    )
+    STATS.device_extend_waves += 1
+    STATS.device_extend_jobs += n
+    STATS.device_wave_seconds += time.perf_counter() - t0
+    if STATS.largest_wave is None or n > len(STATS.largest_wave[0]):
+        STATS.largest_wave = (list(jobs), list(h0s), list(ws), list(bonuses))
+    return out
+
+
+def _extend_side(opt, pend, side: str, exec_cfg: ExecConfig, scoring):
+    """One direction's extensions, with band-doubling retries, for the
+    pending (state, task, reg, qseq, tseq, h0) list."""
+    if not pend:
+        return
+    bonus = opt.pen_clip5 if side == "left" else opt.pen_clip3
+    todo = list(range(len(pend)))
+    results = [None] * len(pend)
+    aw = [opt.w] * len(pend)
+    prev_score = [None] * len(pend)
+    for attempt in range(MAX_BAND_TRY):
+        if not todo:
+            break
+        jobs = [(pend[i][3], pend[i][4]) for i in todo]
+        h0s = [pend[i][5] for i in todo]
+        ws = [opt.w << attempt] * len(todo)
+        res = _run_kernel(opt, jobs, [bonus] * len(todo), ws, h0s, exec_cfg,
+                          scoring)
+        nxt = []
+        for i, r in zip(todo, res):
+            aw[i] = opt.w << attempt
+            keep_going = (
+                attempt + 1 < MAX_BAND_TRY
+                and r["score"] != prev_score[i]
+                and r["max_off"] >= (aw[i] >> 1) + (aw[i] >> 2)
+            )
+            results[i] = r
+            prev_score[i] = r["score"]
+            if keep_going:
+                nxt.append(i)
+        todo = nxt
+    for i, (st, task, a, qs, ts, h0) in enumerate(pend):
+        r = results[i]
+        s = task.chain.seeds[task.seed_idx]
+        if side == "left":
+            a.score = r["score"]
+            if r["gscore"] <= 0 or r["gscore"] <= a.score - opt.pen_clip5:
+                a.qb = s.qbeg - r["qle"]
+                a.rb = s.rbeg - r["tle"]
+                a.truesc = a.score
+            else:
+                a.qb = 0
+                a.rb = s.rbeg - r["gtle"]
+                a.truesc = r["gscore"]
+            a._aw0 = aw[i]
+        else:
+            sc0 = h0
+            a.score = r["score"]
+            rmax0 = st.rmax[task.ci][0]
+            qe = s.qbeg + s.len
+            re_off = s.rbeg + s.len - rmax0
+            if r["gscore"] <= 0 or r["gscore"] <= a.score - opt.pen_clip3:
+                a.qe = qe + r["qle"]
+                a.re = rmax0 + re_off + r["tle"]
+                a.truesc += a.score - sc0
+            else:
+                a.qe = len(st.query)
+                a.re = rmax0 + re_off + r["gtle"]
+                a.truesc += r["gscore"] - sc0
+            a._aw1 = aw[i]
+
+
+def chain2aln_batch(opt, idx, reads: List[np.ndarray], chains_list,
+                    exec_cfg: ExecConfig) -> List[List[AlnReg]]:
+    """Extend every read's chains; regions per read, identical to the
+    reference's sequential chain2aln loop."""
+    scoring = device_scoring(opt, exec_cfg.device)
+    states = [
+        _prep_read(opt, idx, q, chains) for q, chains in zip(reads, chains_list)
+    ]
+    while True:
+        # phase 1: each read's next unpruned task, and its left job
+        left_pend = []
+        current = []  # (state, task, reg) of the reads active this wave
+        for st in states:
+            qlen = len(st.query)
+            task = None
+            while st.task_i < len(st.tasks):
+                t = st.tasks[st.task_i]
+                st.task_i += 1
+                if not _prune(opt, st, t.ci, t, qlen):
+                    task = t
+                    break
+            if task is None:
+                continue
+            s = task.chain.seeds[task.seed_idx]
+            a = AlnReg()
+            a.w = opt.w
+            a._aw0 = a._aw1 = opt.w
+            a.score = a.truesc = -1
+            a.rid = task.chain.rid
+            rmax0, _ = st.rmax[task.ci]
+            if s.qbeg:
+                qs = st.query[: s.qbeg][::-1].copy()
+                ts = st.rseq[task.ci][: s.rbeg - rmax0][::-1].copy()
+                left_pend.append((st, task, a, qs, ts, s.len * opt.a))
+            else:
+                a.score = a.truesc = s.len * opt.a
+                a.qb = 0
+                a.rb = s.rbeg
+            current.append((st, task, a))
+        if not current:
+            break
+        _extend_side(opt, left_pend, "left", exec_cfg, scoring)
+        # phase 2: right extensions
+        right_pend = []
+        for st, task, a in current:
+            qlen = len(st.query)
+            s = task.chain.seeds[task.seed_idx]
+            rmax0 = st.rmax[task.ci][0]
+            if s.qbeg + s.len != qlen:
+                qe = s.qbeg + s.len
+                re_off = s.rbeg + s.len - rmax0
+                right_pend.append((st, task, a, st.query[qe:],
+                                   st.rseq[task.ci][re_off:], a.score))
+            else:
+                a.qe = qlen
+                a.re = s.rbeg + s.len
+        _extend_side(opt, right_pend, "right", exec_cfg, scoring)
+        # phase 3: finalize the regions
+        for st, task, a in current:
+            c = task.chain
+            a.seedcov = sum(
+                t.len for t in c.seeds
+                if t.qbeg >= a.qb and t.qbeg + t.len <= a.qe
+                and t.rbeg >= a.rb and t.rbeg + t.len <= a.re
+            )
+            a.w = max(a._aw0, a._aw1)
+            a.seedlen0 = c.seeds[task.seed_idx].len
+            a.frac_rep = c.frac_rep
+            st.regs.append(a)
+    return [st.regs for st in states]

@@ -1,0 +1,131 @@
+"""The port's BwaMemAligner (extension waves on the CPU through the plain
+PyTorch version) against bwamem_tpu's host aligner: equal records, read for
+read, on a synthetic genome and on the golden rotavirus reads."""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from bwamem_tpu import BwaMemAligner as HostAligner
+from bwamem_tpu import BwaMemIndex, BwaMemPairEndStats
+from bwamem_tpu.index import image
+from bwamem_tpu.index.build import build_index
+from bwamem_tpu.utils.fasta import Fasta, FastaContig
+from bwamem_tpu.utils.synth import simulate_pairs, synthetic_genome
+from bwamem_tpu_torch import BwaMemAligner
+from bwamem_tpu_torch.engine.extend_batch import STATS
+from bwamem_tpu_torch.ops import extend as ext
+
+ROTAVIRUS = os.path.join(os.path.dirname(__file__), "fixtures",
+                         "rotavirus.bwa.img")
+# BwaMemIndexTest.java's reads (tests/test_api_golden.py)
+READ_L1 = b"GGCTTTTAATGCTTTTCAGTGGTTGCTGCTCAAGATGGAGTCTACTCAGCAGATGGTAAGCTCTATTATT"
+READ_SNV = b"GGCTTTTAATGCTTTTCAGTGCTAGGTGCTCAAGATGGAGTCTACTCAGCAGATGGTAAGCTCTATTATT"
+READ_RC = b"AATAATAGAGCTTACCATCTGCTGAGTAGACTCCATCTTGAGCAGCAACCACTGAAAAGCATTAAAAGCC"
+READ_DEL = b"AATACTTCTTTTGAAGCTGCAGTTGTTGCTGCCTTCAACATTAGAATTAATGGGTATTCAATATGATT"
+READ_P2 = b"TTGTTTTTAACACCAGAGTCATCCATCACATAATCAAATTTACTTTTAACTCTGGTAAATACTTCATTGT"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain version's small row ops lose to thread start-up, and the
+    suite runs several workers at once: keep torch to one thread here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _records(aligner, reads):
+    return [[vars(a) for a in r] for r in aligner.align_seqs(reads)]
+
+
+def _pe_mode(aligner, mode, stats=(350, 35)):
+    aligner.align_pairs()
+    if mode == "fixed":
+        aligner.set_proper_pair_end_stats(BwaMemPairEndStats.of(*stats))
+    elif mode == "none":
+        aligner.dont_infer_pair_end_stats()
+
+
+@pytest.fixture(scope="module")
+def genome(tmp_path_factory):
+    codes = synthetic_genome(200_000, np.random.default_rng(7))
+    img = str(tmp_path_factory.mktemp("g") / "g.img")
+    image.write_image(img, build_index(Fasta([FastaContig("chr", "", codes)])))
+    index = BwaMemIndex(img)
+    yield index, simulate_pairs(codes, np.random.default_rng(9), 200)
+    index.close()
+
+
+@pytest.mark.parametrize("mode", ["se", "inferred", "fixed"])
+def test_records_match_host_aligner(genome, mode):
+    index, reads = genome
+    host = HostAligner(index)
+    port = BwaMemAligner(index, device="cpu", min_device_jobs=1)
+    if mode != "se":
+        _pe_mode(host, mode)
+        _pe_mode(port, mode)
+    STATS.reset()
+    before = ext.LAUNCHES
+    got = _records(port, reads)
+    assert ext.LAUNCHES == before  # the CPU never launches the kernel
+    assert STATS.device_extend_jobs > 0 and STATS.host_extend_jobs == 0
+    assert got == _records(host, reads)
+
+
+def test_default_threshold_routes_small_waves_to_host(genome):
+    index, reads = genome
+    port = BwaMemAligner(index, device="cpu")
+    STATS.reset()
+    got = _records(port, reads[:40])
+    assert STATS.host_extend_jobs > 0 and STATS.device_extend_jobs == 0
+    assert got == _records(HostAligner(index), reads[:40])
+
+
+@pytest.fixture(scope="module")
+def rotavirus():
+    index = BwaMemIndex(ROTAVIRUS)
+    yield index
+    index.close()
+
+
+def test_golden_single_end(rotavirus):
+    reads = [READ_L1, READ_SNV, READ_RC, READ_DEL]
+    port = BwaMemAligner(rotavirus, device="cpu", min_device_jobs=1)
+    got = port.align_seqs(reads)
+    assert [len(r) for r in got] == [1, 1, 1, 1]
+    assert [(a[0].ref_start, a[0].ref_end, a[0].cigar, a[0].n_mismatches,
+             a[0].sam_flag) for a in got] == [
+        (0, 70, "70M", 0, 0), (0, 70, "70M", 3, 0), (0, 70, "70M", 0, 0x10),
+        (70, 140, "32M2D36M", 2, 0)]
+    assert [[vars(a) for a in r] for r in got] == _records(
+        HostAligner(rotavirus), reads)
+
+
+@pytest.mark.parametrize("mode", ["inferred", "fixed", "none"])
+def test_golden_pair(rotavirus, mode):
+    port = BwaMemAligner(rotavirus, device="cpu", min_device_jobs=1)
+    host = HostAligner(rotavirus)
+    for a in (port, host):  # BwaMemIndexTest.java's stats for this pair
+        _pe_mode(a, mode, stats=(200, 10, 1, 600))
+    got = port.align_seqs([READ_L1, READ_P2])
+    a0, a1 = got[0][0], got[1][0]
+    assert (a0.ref_start, a0.mate_ref_start, a0.template_len) == (0, 140, 210)
+    assert (a1.ref_start, a1.mate_ref_start, a1.template_len) == (140, 0, -210)
+    assert a0.sam_flag == (0x63 if mode == "fixed" else 0x61)
+    assert [[vars(a) for a in r] for r in got] == _records(
+        host, [READ_L1, READ_P2])
+
+
+def test_cuda_device_without_card_raises(rotavirus):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError):
+        BwaMemAligner(rotavirus, device="cuda")
+
+
+def test_device_is_required(rotavirus):
+    with pytest.raises(TypeError):
+        BwaMemAligner(rotavirus)  # no implicit device choice
