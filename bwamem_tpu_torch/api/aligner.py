@@ -1,6 +1,6 @@
 """BwaMemAligner for the port: the JAX package's aligner surface (options,
-PE-stats modes, Java-style accessors, records) with the extension waves on
-an explicit torch device.
+PE-stats modes, Java-style accessors, records) with the extension waves,
+and optionally the sampled-SA walks, on an explicit torch device.
 
 Every batch goes through the port's ``align_regs_batch``; the reference's
 native-tail shortcut (``_align_seqs_fast``), which would align the whole
@@ -31,16 +31,29 @@ T = TypeVar("T")
 
 class BwaMemAligner(_HostAligner):
     def __init__(self, index: BwaMemIndex, options: Optional[MemOptions] = None,
-                 *, device, min_device_jobs: int = HOST_FALLBACK_JOBS):
+                 *, device, min_device_jobs: int = HOST_FALLBACK_JOBS,
+                 device_stages=()):
         """device: where the extension waves run ("cuda", "cuda:1", "cpu").
         A CUDA device with no card present raises; there is no fallback.
-        min_device_jobs: waves with fewer jobs run on the host C++."""
+        min_device_jobs: waves with fewer jobs run on the host C++.
+        device_stages: further stages to run on ``device``, by the JAX
+        package's names; the port has "sa_lookup" (every sampled-SA walk
+        of a batch in one kernel call), not yet "seed" or "chain"."""
+        stages = set(device_stages)
+        unknown = stages - {"seed", "chain", "sa_lookup"}
+        if unknown:
+            raise ValueError(f"unknown device stages: {sorted(unknown)}")
+        missing = stages - {"sa_lookup"}
+        if missing:
+            raise ValueError(f"device stages {sorted(missing)} are not in the "
+                             "port yet; it has 'sa_lookup'")
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is not "
                                "available")
         super().__init__(index, options)
-        self._exec_cfg = ExecConfig(device=dev, min_device_jobs=min_device_jobs)
+        self._exec_cfg = ExecConfig(device=dev, min_device_jobs=min_device_jobs,
+                                    device_sa_lookup="sa_lookup" in stages)
 
     def align_seqs(self, sequences: Iterable[T],
                    func: Callable[[T], bytes] = lambda x: x,

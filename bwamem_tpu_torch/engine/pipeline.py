@@ -1,17 +1,22 @@
-"""Batched mem_align1_core for the port: host seeding, SA walks and chaining
-from bwamem_tpu, extension waves on the port's device.
+"""Batched mem_align1_core for the port: host seeding and chaining from
+bwamem_tpu, sampled-SA walks on the host or the port's device, extension
+waves on the port's device.
 
 The counterpart of bwamem_tpu/engine/pipeline.py ``_align_regs_batch_native``
 with the fused host chain+extend core always off, so every extension goes
 through the cross-read waves of ``extend_batch.chain2aln_batch``.  Without
 the native libraries the seeding and chaining fall back to the Python
-oracles, as the reference's ``align_regs_batch`` does.
+oracles, as the reference's ``align_regs_batch`` does.  With
+``exec_cfg.device_sa_lookup`` every SA walk of the batch runs in one call
+of ``ops.fmindex.sa_lookup`` on ``exec_cfg.device`` (the JAX package's
+``device_sa_lookup`` stage); there is no host fallback from it.
 """
 from __future__ import annotations
 
 from typing import List
 
 import numpy as np
+import torch
 
 from bwamem_tpu.engine import native_chain, native_fm
 from bwamem_tpu.engine.chain import (
@@ -19,17 +24,77 @@ from bwamem_tpu.engine.chain import (
 )
 from bwamem_tpu.engine.extend import AlnReg
 from bwamem_tpu.engine.finalize import sort_dedup_patch
-from bwamem_tpu.engine.pipeline import _flag_alt_regs, native_seed_sa
+from bwamem_tpu.engine.pipeline import _flag_alt_regs
 from bwamem_tpu.engine.seed_batch import collect_intv_batch
 from bwamem_tpu.utils.timers import TIMERS
 
+from ..ops import fmindex as fmops
 from .exec_ctx import ExecConfig
 from .extend_batch import chain2aln_batch
+from .state import device_fm
 
 
-def _chains_native(opt, eng, reads):
-    rows, intv_off, n_intv, rbegs, rbeg_off, cnt = native_seed_sa(
-        opt, eng, reads, TIMERS
+class SaStats:
+    """Sampled-SA rows resolved on the device and on the host, and the
+    rows of the largest device call (so a benchmark can time the kernel
+    on them)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.device_sa_rows = 0
+        self.host_sa_rows = 0
+        self.largest_rows = None
+
+
+SA_STATS = SaStats()
+
+
+def _sa_rows(fm, ks: np.ndarray, exec_cfg: ExecConfig) -> np.ndarray:
+    """Text positions of the SA rows ``ks`` (int64): one device call when
+    the stage is on the device, else the host C++ walk (or the oracle)."""
+    if exec_cfg.device_sa_lookup:
+        dev = exec_cfg.device
+        out = fmops.sa_lookup(device_fm(fm, dev), torch.from_numpy(ks).to(dev))
+        SA_STATS.device_sa_rows += len(ks)
+        if SA_STATS.largest_rows is None or len(ks) > len(SA_STATS.largest_rows):
+            SA_STATS.largest_rows = ks
+        return out.cpu().numpy()
+    SA_STATS.host_sa_rows += len(ks)
+    if native_fm.available():
+        return native_fm.sa_batch(fm, ks)
+    return fm.sa_lookup(ks)
+
+
+def _seed_sa(opt, eng, reads, exec_cfg: ExecConfig):
+    """Native three-round seeding, the vectorized ``sample_ks`` expansion
+    and the SA walks; bwamem_tpu/engine/pipeline.py ``native_seed_sa`` with
+    the walks routed by ``exec_cfg``.  Returns the arrays the native
+    chainer takes: (intv rows [N, 5], intv_off, n_intv, rbegs, rbeg_off,
+    cnt)."""
+    with TIMERS.stage("seed"):
+        rows, n_intv = native_fm.collect_intv_batch_raw(opt, eng.fm, reads)
+    with TIMERS.stage("sa_lookup"):
+        s = rows[:, 2]
+        x0 = rows[:, 0]
+        cnt = np.minimum(s, opt.max_occ)
+        step = np.where(s > opt.max_occ, s // np.maximum(opt.max_occ, 1), 1)
+        rbeg_off = np.zeros(len(rows), dtype=np.int64)
+        np.cumsum(cnt[:-1], out=rbeg_off[1:])
+        total = int(cnt.sum())
+        within = np.arange(total, dtype=np.int64) - np.repeat(rbeg_off, cnt)
+        ks_flat = np.repeat(x0, cnt) + np.repeat(step, cnt) * within
+        rbegs = (_sa_rows(eng.fm, ks_flat.astype(np.int64), exec_cfg)
+                 if total else np.zeros(0, dtype=np.int64))
+    intv_off = np.zeros(len(reads), dtype=np.int64)
+    np.cumsum(n_intv[:-1], out=intv_off[1:])
+    return rows, intv_off, n_intv, rbegs, rbeg_off, cnt.astype(np.int64)
+
+
+def _chains_native(opt, eng, reads, exec_cfg: ExecConfig):
+    rows, intv_off, n_intv, rbegs, rbeg_off, cnt = _seed_sa(
+        opt, eng, reads, exec_cfg
     )
     with TIMERS.stage("chain"):
         qlens = np.asarray([len(r) for r in reads], dtype=np.int32)
@@ -42,7 +107,7 @@ def _chains_native(opt, eng, reads):
     return chains_list
 
 
-def _chains_python(opt, eng, reads):
+def _chains_python(opt, eng, reads, exec_cfg: ExecConfig):
     with TIMERS.stage("seed"):
         intervals_list = collect_intv_batch(opt, eng.fm, reads)
     with TIMERS.stage("sa_lookup"):
@@ -54,7 +119,9 @@ def _chains_python(opt, eng, reads):
                 read_spans.append((len(flat_ks), len(ks)))
                 flat_ks.extend(ks)
             spans.append(read_spans)
-        flat_rbegs = eng.fm.sa_lookup(np.asarray(flat_ks, dtype=np.int64))
+        flat_rbegs = (_sa_rows(eng.fm, np.asarray(flat_ks, dtype=np.int64),
+                               exec_cfg)
+                      if flat_ks else np.zeros(0, dtype=np.int64))
     with TIMERS.stage("chain"):
         chains_list = []
         for intervals, read_spans, query in zip(intervals_list, spans, reads):
@@ -71,9 +138,9 @@ def align_regs_batch(opt, eng, reads: List[np.ndarray],
                      exec_cfg: ExecConfig) -> List[List[AlnReg]]:
     """Reads (codes 0-4) -> deduplicated alignment regions per read."""
     if native_fm.available() and native_chain.available():
-        chains_list = _chains_native(opt, eng, reads)
+        chains_list = _chains_native(opt, eng, reads, exec_cfg)
     else:
-        chains_list = _chains_python(opt, eng, reads)
+        chains_list = _chains_python(opt, eng, reads, exec_cfg)
     with TIMERS.stage("extend"):
         regs_list = chain2aln_batch(opt, eng.idx, reads, chains_list, exec_cfg)
     with TIMERS.stage("dedup"):

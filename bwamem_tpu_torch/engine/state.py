@@ -1,15 +1,22 @@
 """Carries the JAX package's host state over to the port's device.
 
-For now that is the extension's scoring: ``MemOptions`` holds the 5x5
-matrix as a flat list and the gap penalties as ints.  The FM index tables
-join this module when seeding moves to the card.
+Two pieces: the extension's scoring (``MemOptions`` holds the 5x5 matrix
+as a flat list and the gap penalties as ints), and the FM index tables
+(``device_fm``), built once per device and kept on the host ``FMIndex``
+object, as bwamem_tpu/engine/seed_device.py ``_get_dfm`` keeps the JAX
+package's.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..ops.fmindex import DeviceFMIndex
+
+_fm_lock = threading.Lock()
 
 
 @dataclass(frozen=True)
@@ -36,3 +43,17 @@ def device_scoring(opt, device) -> DeviceScoring:
         o_ins=int(opt.o_ins), e_ins=int(opt.e_ins),
         zdrop=int(opt.zdrop), max_sc=int(mat.max()),
     )
+
+
+def device_fm(fm, device) -> DeviceFMIndex:
+    """``fm`` (an ``engine.fmindex.FMIndex``) -> its tables on ``device``,
+    cached on ``fm`` per device, so that they live as long as the index."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    with _fm_lock:
+        cache = fm.__dict__.setdefault("_torch_device_fms", {})
+        dfm = cache.get(dev)
+        if dfm is None:
+            dfm = cache[dev] = DeviceFMIndex.from_host(fm, dev)
+    return dfm

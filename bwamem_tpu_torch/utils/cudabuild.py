@@ -6,7 +6,8 @@ source compiles in seconds, where an extension that includes
 ``torch/extension.h`` takes minutes.  The library is loaded with ``ctypes``.
 
 Each library lands in ``<package>/build/`` under a name that carries a hash
-of its source, the compiler flags and the ``nvcc`` version, so an edited
+of its source, the headers under ``csrc/``, the compiler flags and the
+``nvcc`` version, so an edited
 source is rebuilt and an unchanged one is loaded as it is.  Nothing here
 runs at import time: ``import bwamem_tpu_torch`` works on a CPU-only PyTorch
 without a CUDA toolkit, and the first launch of a kernel builds it.
@@ -51,8 +52,10 @@ def _lib_path(src: str, nvcc: str) -> str:
     ver = subprocess.run([nvcc, "--version"], check=True, capture_output=True,
                          text=True).stdout
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(ARCH_FLAGS + FLAGS).encode())
     h.update(ver.encode())
     stem = os.path.splitext(os.path.basename(src))[0]

@@ -7,7 +7,8 @@ Phases, each of which stops the run with a non-zero exit if it fails:
 
 1. the card: its name and power limit as nvidia-smi reports them; no card
    (torch.cuda.is_available() false) exits at once;
-2. build: compiles csrc/extend.cu with nvcc for sm_90a and prints the
+2. build: compiles csrc/extend.cu, csrc/fmindex.cu and csrc/op_probe.cu
+   with nvcc for sm_90a, one nvcc per source, all at once, and prints the
    compiler's register and spill report;
 3. kernel against plain: the SW extension kernel against the plain
    PyTorch version on the card and the host C++ ksw_extend2, field for
@@ -20,22 +21,52 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    have gone to the card; then the PE batch runs once more under
    torch.profiler for the card's busy and idle share;
 5. timing: the kernel and the plain version on the largest wave of phase 4,
-   with CUDA events after a warm-up.
+   with CUDA events after a warm-up;
+6. FM kernels against their references on the 4.6 Mbp index, exactly:
+   occ4, bwt_extend and the SA walk against the plain versions on the card
+   and the host FMIndex, on seeded rows with the sentinel rows and on
+   bi-intervals from set_intv extended both ways;
+7. the device SA stage: the batches of phase 4 again with
+   device_stages=("sa_lookup",): records equal to the host aligner's, the
+   SA kernel launched, no SA row walked on the host; the SA kernel and the
+   plain version timed on the largest SA batch;
+8. at chr20 scale: bench.py's 64 Mbp "chr20" genome (seed 1234, sa_intv 8;
+   48 MB of lines and 128 MB of sampled SA, past the card's 50 MB L2):
+   2,000 pairs with the SA walks and the extension on the card, record-equal
+   to the host aligner; the SA kernel, the plain version and the host C++
+   walk timed on that batch's rows; then seeding-shaped work for occ4 and
+   bwt_extend, which no aligner stage launches yet: an exact-match backward
+   search of every read (occ4 of both interval ends per base) and a forward
+   bi-interval extension from each read's first base (bwt_extend per
+   base), each step against the host FMIndex, the kernels timed on a
+   mid-read step's queries;
+9. the op probe (the port of benchmarks/mosaic_probe.py): every probe's
+   kernel against its plain version on the card at K=64, exactly, then
+   ``python -m bwamem_tpu_torch.benchmarks.op_probe``'s own run: the SASS
+   check of each kernel's K loop and the probe table.
 
-The last three lines are a JSON object describing each kernel, the card's
-name and power limit, and {"ok": true, "device": {...}}.  Nothing of JAX is
-imported.
+The launch counts in the ``kernels`` line come from the runs that drive
+each kernel: phase 4's PE batch (ksw_extend), phase 7's PE batch
+(sa_lookup), phase 8's seeding-shaped work (occ4, bwt_extend) and phase
+9's probe run (op_probe); each count is set to 0 just before and read just
+after.  The last three lines are that JSON object, the card's name and
+power limit, and {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 """
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_PAIRS = 6000
 N_SE = 2000
 SEED = 1234
+ECOLI_LEN = 4_600_000
+CHR20_LEN = 64_000_000
+CHR20_PAIRS = 2000
+SOURCES = ("extend", "fmindex", "op_probe")
 
 
 def _card_line() -> str:
@@ -69,6 +100,33 @@ def _wave_tensors(wave, device):
 def _max_err(a: dict, b: dict) -> int:
     return max(int((a[k].long() - b[k].long()).abs().max()) if a[k].numel()
                else 0 for k in a)
+
+
+def _diff(a, b) -> int:
+    """Largest |a - b| of two integer arrays or tensors (0 when empty)."""
+    import numpy as np
+
+    a, b = (np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.int64)
+            for x in (a, b))
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes differ: {a.shape} vs {b.shape}")
+    return int(np.abs(a - b).max()) if a.size else 0
+
+
+def phase_build():
+    """Phase 2: one nvcc per source, all started together."""
+    from bwamem_tpu_torch.utils import cudabuild
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as ex:
+        libs = list(ex.map(cudabuild.build, SOURCES))
+    print(f"[2] nvcc built {len(libs)} libraries in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, lib in zip(SOURCES, libs):
+        info = cudabuild.BUILD_INFO[name]
+        print(f"  {os.path.relpath(lib, ROOT)} ({info['seconds']:.2f} s)")
+        for line in info["log"].splitlines():
+            print(f"    {line}")
 
 
 def phase_kernel_vs_plain(dev, kernel_fn):
@@ -105,7 +163,10 @@ def phase_kernel_vs_plain(dev, kernel_fn):
     return worst
 
 
-def _ecoli_index():
+def _synthetic_index(length: int):
+    """bench.py's synthetic genome of ``length`` bases (seed 1234) and its
+    index image (sa_intv 8), built once into build/smoke/; returns the
+    codes, the image path and the build seconds (0 when loaded)."""
     import numpy as np
 
     from bwamem_tpu.index import image
@@ -113,14 +174,17 @@ def _ecoli_index():
     from bwamem_tpu.utils.fasta import Fasta, FastaContig
     from bwamem_tpu.utils.synth import synthetic_genome
 
-    codes = synthetic_genome(4_600_000, np.random.default_rng(SEED))
-    img = os.path.join(ROOT, "build", "smoke", f"ecoli_{SEED}_sa8.img")
+    codes = synthetic_genome(length, np.random.default_rng(SEED))
+    img = os.path.join(ROOT, "build", "smoke", f"synth{length}_{SEED}_sa8.img")
+    seconds = 0.0
     if not os.path.exists(img):
         os.makedirs(os.path.dirname(img), exist_ok=True)
+        t0 = time.perf_counter()
         idx = build_index(Fasta([FastaContig("chr", "", codes)]), sa_intv=8)
         image.write_image(img + ".tmp", idx)
         os.replace(img + ".tmp", img)
-    return codes, img
+        seconds = time.perf_counter() - t0
+    return codes, img, seconds
 
 
 def _device_busy(aligner, reads, dev):
@@ -150,85 +214,98 @@ def _device_busy(aligner, reads, dev):
     return (busy_us + hi - lo) / 1e6, wall
 
 
-def _timed(aligner, reads, sync):
+def _timed(aligner, reads, dev):
+    import torch
+
     t0 = time.perf_counter()
     out = aligner.align_seqs(reads)
-    sync()
+    torch.cuda.synchronize(dev)
     return out, time.perf_counter() - t0
 
 
-def phase_main_path(dev):
-    """Phase 4: the port's aligner against the host aligner, PE and SE."""
+def _pe_setup(aligner):
+    from bwamem_tpu import BwaMemPairEndStats
+
+    aligner.align_pairs()
+    aligner.set_proper_pair_end_stats(BwaMemPairEndStats.of(350, 35))
+
+
+def _port_run(tag, port, batch, ref, t_host, dev):
+    """One timed batch through the port, counts set to 0 just before and
+    read just after; the records held against ``ref``.  Returns the
+    extension and SA-walk launch counts."""
+    from bwamem_tpu.utils.timers import TIMERS
+    from bwamem_tpu_torch.engine.extend_batch import STATS
+    from bwamem_tpu_torch.engine.pipeline import SA_STATS
+    from bwamem_tpu_torch.ops import extend as ext
+    from bwamem_tpu_torch.ops import fmindex as fmops
+
+    STATS.reset()
+    SA_STATS.reset()
+    TIMERS.reset()
+    ext.LAUNCHES = 0
+    fmops.LAUNCHES["sa_lookup"] = 0
+    got, t_port = _timed(port, batch, dev)
+    launches, sa_launches = ext.LAUNCHES, fmops.LAUNCHES["sa_lookup"]
+    stages = TIMERS.snapshot()
+    ok = sum([vars(x) for x in g] == [vars(x) for x in r] for g, r in zip(got, ref))
+    aligned = sum(1 for r in got if r and not (r[0].sam_flag & 0x4))
+    share = STATS.device_share()
+    print(f"  {tag}: {len(batch)} reads, records equal {ok}/{len(batch)}, "
+          f"aligned {aligned}; port {len(batch) / t_port:.1f} reads/s "
+          f"({t_port:.2f} s), host {len(batch) / t_host:.1f} reads/s "
+          f"({t_host:.2f} s)")
+    print(f"  {tag}: extension kernel launches {launches}, device_extend_jobs "
+          f"{STATS.device_extend_jobs} in {STATS.device_extend_waves} waves, "
+          f"host_extend_jobs {STATS.host_extend_jobs} in "
+          f"{STATS.host_extend_waves} waves, device share {share:.4f}; SA "
+          f"kernel launches {sa_launches}, SA rows on the card "
+          f"{SA_STATS.device_sa_rows}, on the host {SA_STATS.host_sa_rows}")
+    rest = t_port - sum(stages.values())
+    print(f"  {tag}: port seconds by stage: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items())
+        + f", pairing+records {rest:.3f}; inside extend: device waves "
+        f"{STATS.device_wave_seconds:.3f} (pack, copies, kernel), host "
+        f"waves {STATS.host_wave_seconds:.3f}")
+    if ok != len(batch):
+        raise AssertionError(f"{tag}: records differ from the host aligner")
+    if aligned < 0.95 * len(batch):
+        raise AssertionError(f"{tag}: only {aligned} reads aligned")
+    if launches <= 0 or share < 0.5:
+        raise AssertionError(f"{tag}: the extension did not run on the card")
+    return launches, sa_launches
+
+
+def phase_main_path(dev, index, codes):
+    """Phase 4: the port's aligner against the host aligner, PE and SE.
+    Returns per mode the batch, the host records and seconds, the launch
+    count and the largest wave."""
     import numpy as np
-    import torch
 
     from bwamem_tpu import BwaMemAligner as HostAligner
-    from bwamem_tpu import BwaMemIndex, BwaMemPairEndStats
     from bwamem_tpu.utils.synth import simulate_pairs
-    from bwamem_tpu.utils.timers import TIMERS
     from bwamem_tpu_torch import BwaMemAligner
     from bwamem_tpu_torch.engine.extend_batch import STATS
-    from bwamem_tpu_torch.ops import extend as ext
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    t0 = time.perf_counter()
-    codes, img = _ecoli_index()
-    index = BwaMemIndex(img)
     rng = np.random.default_rng(SEED + 1)
     warm = simulate_pairs(codes, rng, 8)
     reads = simulate_pairs(codes, rng, N_PAIRS)
-    print(f"  genome 4.6 Mbp + index + {len(reads)} reads in "
-          f"{time.perf_counter() - t0:.1f} s")
     runs = {}
     for mode, batch in (("pe", reads), ("se", reads[:N_SE])):
         host, port = HostAligner(index), BwaMemAligner(index, device=dev)
         if mode == "pe":
             for a in (host, port):
-                a.align_pairs()
-                a.set_proper_pair_end_stats(BwaMemPairEndStats.of(350, 35))
+                _pe_setup(a)
         for a in (host, port):
             a.align_seqs(warm)
-        ref, t_host = _timed(host, batch, sync)
-        STATS.reset()
-        TIMERS.reset()
-        ext.LAUNCHES = 0
-        got, t_port = _timed(port, batch, sync)
-        launches = ext.LAUNCHES
-        stages = TIMERS.snapshot()
-        ok = sum(
-            [vars(x) for x in g] == [vars(x) for x in r] for g, r in zip(got, ref)
-        )
-        aligned = sum(1 for r in got if r and not (r[0].sam_flag & 0x4))
-        share = STATS.device_share()
-        print(f"  {mode}: {len(batch)} reads, records equal {ok}/{len(batch)}, "
-              f"aligned {aligned}; port {len(batch) / t_port:.1f} reads/s "
-              f"({t_port:.2f} s), host {len(batch) / t_host:.1f} reads/s "
-              f"({t_host:.2f} s)")
-        print(f"  {mode}: kernel launches {launches}, device_extend_jobs "
-              f"{STATS.device_extend_jobs} in {STATS.device_extend_waves} waves, "
-              f"host_extend_jobs {STATS.host_extend_jobs} in "
-              f"{STATS.host_extend_waves} waves, device share {share:.4f}")
-        rest = t_port - sum(stages.values())
-        print(f"  {mode}: port seconds by stage: " + ", ".join(
-            f"{k} {v:.3f}" for k, v in stages.items())
-            + f", pairing+records {rest:.3f}; inside extend: device waves "
-            f"{STATS.device_wave_seconds:.3f} (pack, copies, kernel), host "
-            f"waves {STATS.host_wave_seconds:.3f}")
-        if ok != len(batch):
-            raise AssertionError(f"{mode}: records differ from the host aligner")
-        if aligned < 0.95 * len(batch):
-            raise AssertionError(f"{mode}: only {aligned} reads aligned")
-        if launches <= 0 or share < 0.5:
-            raise AssertionError(f"{mode}: the extension did not run on the card")
-        runs[mode] = dict(launches=launches, wave=STATS.largest_wave)
+        ref, t_host = _timed(host, batch, dev)
+        launches, _ = _port_run(mode, port, batch, ref, t_host, dev)
+        runs[mode] = dict(batch=batch, ref=ref, t_host=t_host, warm=warm,
+                          launches=launches, wave=STATS.largest_wave)
         if mode == "pe":
             busy, wall = _device_busy(port, batch, dev)
             print(f"  pe: again under torch.profiler: card busy {busy:.4f} s of "
                   f"{wall:.2f} s, idle share {1 - busy / wall:.4f}")
-    index.close()
     return runs
 
 
@@ -245,6 +322,27 @@ def _event_ms(fn, reps, dev):
     b.record()
     torch.cuda.synchronize(dev)
     return a.elapsed_time(b) / reps
+
+
+def _cold_ms(fn, reps, dev):
+    """Median ms of single launches of ``fn``, each after 256 MB were
+    written on the card, so that it starts with nothing of its tables in
+    the 50 MB L2 (as a new batch does)."""
+    import torch
+
+    flush = torch.empty(1 << 26, dtype=torch.int32, device=dev)
+    fn()  # warm-up
+    times = []
+    for _ in range(reps):
+        flush.fill_(len(times))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[reps // 2]
 
 
 def phase_timing(dev, wave):
@@ -280,6 +378,336 @@ def phase_timing(dev, wave):
     return ms, plain_ms, err
 
 
+def phase_fm_kernels(dev, fm):
+    """Phase 6: occ4, bwt_extend and sa_lookup = plain (card) = host."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch.engine.state import device_fm
+    from bwamem_tpu_torch.ops import fmindex as fmops
+
+    dfm = device_fm(fm, dev)
+    rng = np.random.default_rng(SEED + 2)
+    edges = [0, fm.primary - 1, fm.primary, fm.primary + 1, fm.seq_len - 1,
+             fm.seq_len]
+    err = {}
+    ks = np.concatenate([[-1], edges, rng.integers(-1, fm.seq_len + 1, 200_000)])
+    kt = torch.from_numpy(ks).to(dev)
+    got = fmops.occ4_cuda(dfm, kt)
+    err["occ4"] = max(_diff(got, fmops.occ4_torch(dfm, kt)),
+                      _diff(got, fm.occ4(ks)))
+    x0, x1, s = fm.set_intv(rng.integers(0, 4, 50_000))
+    err["bwt_extend"] = 0
+    for is_back in (False, True, False, True):
+        args = [torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+                for a in (x0, x1, s)]
+        got = fmops.extend_cuda(dfm, *args, is_back)
+        plain = fmops.extend_torch(dfm, *args, is_back)
+        host = fm.extend(x0, x1, s, is_back)
+        err["bwt_extend"] = max([err["bwt_extend"]] + [
+            max(_diff(g, p), _diff(g, h)) for g, p, h in zip(got, plain, host)])
+        c = rng.integers(0, 4, len(x0))
+        ar = np.arange(len(x0))
+        keep = host[2][ar, c] > 0
+        x0 = np.where(keep, host[0][ar, c], x0)
+        x1 = np.where(keep, host[1][ar, c], x1)
+        s = np.where(keep, host[2][ar, c], s)
+    rows = np.concatenate([edges, rng.integers(0, fm.seq_len + 1, 200_000)])
+    rt = torch.from_numpy(rows).to(dev)
+    got = fmops.sa_lookup_cuda(dfm, rt)
+    err["sa_lookup"] = max(_diff(got, fmops.sa_lookup_torch(dfm, rt)),
+                           _diff(got, fm.sa_lookup(rows)))
+    print(f"  4.6 Mbp index: {dfm.lines.shape[0]} lines x "
+          f"{dfm.lines.shape[1] * 4} B, {dfm.sa.numel()} SA samples; "
+          f"occ4 on {len(ks)} rows, bwt_extend on 4 x {len(x0)} bi-intervals, "
+          f"sa_lookup on {len(rows)} rows; max|kernel-plain|,|kernel-host| "
+          + ", ".join(f"{k} {v}" for k, v in err.items()))
+    if any(err.values()):
+        raise AssertionError("an FM kernel disagrees with its references")
+    return err
+
+
+def _walk_steps(dfm, k):
+    """Mean and longest walk of the rows ``k`` (the plain walk's count)."""
+    from bwamem_tpu_torch.ops import fmindex as fmops
+
+    n = k.numel()
+    total, steps = 0, 0
+    while True:
+        k = k[k % dfm.sa_intv != 0]
+        if k.numel() == 0:
+            return total / max(n, 1), steps
+        total += k.numel()
+        steps += 1
+        k = fmops._lf(dfm, k)
+
+
+def _time_sa(tag, dev, fm, rows):
+    """The SA kernel alone (repeated launches, and single launches from a
+    cold L2), the plain version and the host C++ walk on ``rows``;
+    returns (cold kernel ms, plain ms)."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu.engine import native_fm
+    from bwamem_tpu_torch.engine.state import device_fm
+    from bwamem_tpu_torch.ops import fmindex as fmops
+
+    dfm = device_fm(fm, dev)
+    k = torch.from_numpy(np.ascontiguousarray(rows, np.int64)).to(dev)
+    out = torch.empty_like(k)
+    flags = torch.zeros(1, dtype=torch.int32, device=dev)
+    def launch():
+        fmops.sa_lookup_launch(dfm, k, out, flags)
+
+    ms = _event_ms(launch, 20, dev)
+    cold_ms = _cold_ms(launch, 11, dev)
+    if int(flags.item()):
+        raise AssertionError(f"{tag}: SA kernel raised flags {int(flags.item())}")
+    err = _diff(out, fmops.sa_lookup_torch(dfm, k))
+    plain_ms = _event_ms(lambda: fmops.sa_lookup_torch(dfm, k), 2, dev)
+    host_s = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host = native_fm.sa_batch(fm, rows)
+        host_s = min(host_s, time.perf_counter() - t0)
+    err = max(err, _diff(out, host))
+    mean, longest = _walk_steps(dfm, k)
+    n = len(rows)
+    print(f"  {tag}: {n} SA rows, {mean:.3f} LF steps per walk (longest "
+          f"{longest}); kernel {ms:.4f} ms repeated ({n / ms * 1e3:.4g} "
+          f"rows/s), {cold_ms:.4f} ms from a cold L2 ({n / cold_ms * 1e3:.4g} "
+          f"rows/s), plain "
+          f"PyTorch {plain_ms:.4f} ms ({n / plain_ms * 1e3:.4g} rows/s), host "
+          f"C++ sa_batch {host_s * 1e3:.4f} ms ({n / host_s:.4g} rows/s); "
+          f"max|kernel-plain|,|kernel-host| {err}")
+    if err:
+        raise AssertionError(f"{tag}: the SA kernel disagrees")
+    return cold_ms, plain_ms
+
+
+def phase_device_sa(dev, index, fm, runs):
+    """Phase 7: the batches of phase 4 with the SA walks on the card."""
+    from bwamem_tpu_torch import BwaMemAligner
+    from bwamem_tpu_torch.engine.pipeline import SA_STATS
+
+    sa = {}
+    for mode in ("pe", "se"):
+        r = runs[mode]
+        port = BwaMemAligner(index, device=dev, device_stages=("sa_lookup",))
+        if mode == "pe":
+            _pe_setup(port)
+        port.align_seqs(r["warm"])
+        _, sa_launches = _port_run(f"{mode}+sa", port, r["batch"], r["ref"],
+                                   r["t_host"], dev)
+        if sa_launches <= 0 or SA_STATS.host_sa_rows:
+            raise AssertionError(f"{mode}: SA walks did not all run on the card")
+        sa[mode] = dict(launches=sa_launches, rows=SA_STATS.largest_rows)
+    _time_sa("4.6 Mbp, largest PE SA batch", dev, fm, sa["pe"]["rows"])
+    return sa
+
+
+def _rank_drive(dev, fm, reads):
+    """Seeding-shaped work through the occ4 and bwt_extend dispatchers on
+    the card, each step against the host FMIndex; returns the launches,
+    the largest difference and a mid-read step's inputs for timing."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu.utils.encoding import seq_to_codes_batch
+    from bwamem_tpu_torch.engine.state import device_fm
+    from bwamem_tpu_torch.ops import fmindex as fmops
+
+    dfm = device_fm(fm, dev)
+    codes = np.stack(seq_to_codes_batch(reads)).astype(np.int64)
+    n, L = codes.shape
+    ar = np.arange(n)
+    L2 = fm.L2
+    for name in ("occ4", "bwt_extend"):
+        fmops.LAUNCHES[name] = 0
+    err, mid = 0, {}
+    # exact-match backward search (bwa bwt_match_exact): occ4 of k-1 and l
+    k = np.zeros(n, np.int64)
+    l = np.full(n, fm.seq_len, np.int64)
+    alive = np.ones(n, bool)
+    steps = 0
+    for i in range(L - 1, -1, -1):
+        q = np.concatenate([k - 1, l])
+        if steps == 20:
+            mid["occ4"] = q
+        got = fmops.occ4(dfm, torch.from_numpy(q).to(dev)).cpu().numpy()
+        host = fm.occ4(q)
+        err = max(err, _diff(got, host))
+        c = codes[:, i]
+        cc = np.clip(c, 0, 3)
+        k2 = L2[cc] + host[:n][ar, cc] + 1
+        l2 = L2[cc] + host[n:][ar, cc]
+        alive &= (c < 4) & (k2 <= l2)
+        k, l = np.where(alive, k2, k), np.where(alive, l2, l)
+        steps += 1
+        if not alive.any():
+            break
+    matched = steps
+    # forward extension from each read's first base (bwa's ok[3 - c])
+    x0, x1, s = fm.set_intv(np.clip(codes[:, 0], 0, 3))
+    alive = codes[:, 0] < 4
+    for i in range(1, L):
+        if i == 21:
+            mid["bwt_extend"] = (x0, x1, s)
+        got = fmops.extend(dfm, *(torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+                                  for a in (x0, x1, s)), False)
+        host = fm.extend(x0, x1, s, False)
+        err = max([err] + [_diff(g, h) for g, h in zip(got, host)])
+        c = codes[:, i]
+        j = 3 - np.clip(c, 0, 3)
+        ns = host[2][ar, j]
+        alive &= (c < 4) & (ns > 0)
+        x0 = np.where(alive, host[0][ar, j], x0)
+        x1 = np.where(alive, host[1][ar, j], x1)
+        s = np.where(alive, ns, s)
+        if not alive.any():
+            break
+    launches = {name: fmops.LAUNCHES[name] for name in ("occ4", "bwt_extend")}
+    print(f"  seeding-shaped work on {n} reads: backward search {matched} steps "
+          f"({launches['occ4']} occ4 launches of {2 * n} rows), forward "
+          f"extension {launches['bwt_extend']} bwt_extend launches of {n} "
+          f"bi-intervals; max|kernel-host| {err}")
+    if err:
+        raise AssertionError("occ4 / bwt_extend disagree with the host FMIndex")
+    return launches, err, mid
+
+
+def _time_rank(dev, fm, mid):
+    """occ4 and bwt_extend on the mid-read inputs: the kernel alone, the
+    wrapper (checks, allocation, kernel, flag read) and the plain version;
+    then occ4 alone on 2^20 random rows.  Returns per kernel (kernel ms,
+    plain ms, max|kernel-plain|)."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch.engine.state import device_fm
+    from bwamem_tpu_torch.ops import fmindex as fmops
+
+    dfm = device_fm(fm, dev)
+    flags = torch.zeros(1, dtype=torch.int32, device=dev)
+    q = torch.from_numpy(mid["occ4"]).to(dev)
+    cnt = torch.empty((len(q), 4), dtype=torch.int32, device=dev)
+    xs = [torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+          for a in mid["bwt_extend"]]
+    n = len(xs[0])
+    outs = [torch.empty((n, 4), dtype=dt, device=dev)
+            for dt in (torch.int64, torch.int64, torch.int32)]
+    cases = {
+        "occ4": (len(q), lambda: fmops.occ4_launch(dfm, q, cnt, flags),
+                 lambda: fmops.occ4_cuda(dfm, q),
+                 lambda: fmops.occ4_torch(dfm, q)),
+        "bwt_extend": (n, lambda: fmops.extend_launch(dfm, *xs, False, *outs,
+                                                       flags),
+                       lambda: fmops.extend_cuda(dfm, *xs, False),
+                       lambda: fmops.extend_torch(dfm, *xs, False)),
+    }
+    res = {}
+    for name, (rows, kernel, wrapper, plain) in cases.items():
+        got, ref = wrapper(), plain()
+        err = (_diff(got, ref) if name == "occ4"
+               else max(_diff(g, r) for g, r in zip(got, ref)))
+        ms = _event_ms(kernel, 20, dev)
+        wrapper_ms = _event_ms(wrapper, 20, dev)
+        plain_ms = _event_ms(plain, 5, dev)
+        print(f"  {name} on {rows} mid-read queries: kernel {ms:.4f} ms, "
+              f"wrapper (checks, kernel, flag read) {wrapper_ms:.4f} ms, "
+              f"plain PyTorch {plain_ms:.4f} ms; max|kernel-plain| {err}")
+        if err:
+            raise AssertionError(f"{name} disagrees with the plain version")
+        res[name] = (ms, plain_ms, err)
+    if int(flags.item()):
+        raise AssertionError(f"rank kernels raised flags {int(flags.item())}")
+    big = torch.from_numpy(np.random.default_rng(SEED + 4).integers(
+        -1, fm.seq_len + 1, 1 << 20)).to(dev)
+    big_out = torch.empty((len(big), 4), dtype=torch.int32, device=dev)
+    ms = _event_ms(lambda: fmops.occ4_launch(dfm, big, big_out, flags), 20, dev)
+    err = _diff(big_out, fmops.occ4_torch(dfm, big))
+    print(f"  occ4 on 2^20 random rows: kernel {ms:.4f} ms "
+          f"({len(big) / ms * 1e3:.4g} rows/s, "
+          f"{len(big) * dfm.lines.shape[1] * 4 / ms / 1e6:.4g} GB/s of lines); "
+          f"max|kernel-plain| {err}")
+    if err:
+        raise AssertionError("occ4 disagrees with the plain version")
+    return res
+
+
+def phase_chr20(dev):
+    """Phase 8: the 64 Mbp genome with the SA walks and extension on the
+    card; the SA kernel timed on the batch's rows; occ4 and bwt_extend on
+    seeding-shaped work."""
+    import numpy as np
+
+    from bwamem_tpu import BwaMemAligner as HostAligner
+    from bwamem_tpu import BwaMemIndex
+    from bwamem_tpu.utils.synth import simulate_pairs
+    from bwamem_tpu_torch import BwaMemAligner
+    from bwamem_tpu_torch.engine.pipeline import SA_STATS
+    from bwamem_tpu_torch.engine.state import device_fm
+
+    t0 = time.perf_counter()
+    codes, img, build_s = _synthetic_index(CHR20_LEN)
+    index = BwaMemIndex(img)
+    fm = index._require().fm
+    t1 = time.perf_counter()
+    dfm = device_fm(fm, dev)
+    print(f"  64 Mbp genome + index in {t1 - t0:.1f} s (index build "
+          f"{build_s:.1f} s on the host CPU); device tables in "
+          f"{time.perf_counter() - t1:.2f} s: {dfm.lines.shape[0]} lines "
+          f"({dfm.lines.numel() * 4 / 1e6:.1f} MB), {dfm.sa.numel()} SA samples "
+          f"({dfm.sa.numel() * 8 / 1e6:.1f} MB)")
+    rng = np.random.default_rng(SEED + 1)
+    warm = simulate_pairs(codes, rng, 8)
+    reads = simulate_pairs(codes, rng, CHR20_PAIRS)
+    host = HostAligner(index)
+    port = BwaMemAligner(index, device=dev, device_stages=("sa_lookup",))
+    for a in (host, port):
+        _pe_setup(a)
+        a.align_seqs(warm)
+    ref, t_host = _timed(host, reads, dev)
+    _, sa_launches = _port_run("chr20 pe+sa", port, reads, ref, t_host, dev)
+    if sa_launches <= 0 or SA_STATS.host_sa_rows:
+        raise AssertionError("chr20: SA walks did not all run on the card")
+    sa_ms, sa_plain_ms = _time_sa("64 Mbp, PE batch", dev, fm,
+                                  SA_STATS.largest_rows)
+    launches, err, mid = _rank_drive(dev, fm, reads)
+    rank = _time_rank(dev, fm, mid)
+    index.close()
+    return dict(sa_ms=sa_ms, sa_plain_ms=sa_plain_ms, launches=launches,
+                rank=rank)
+
+
+def phase_probe(dev):
+    """Phase 9: every probe kernel = its plain version (card, K=64), then
+    the probe entry point's own run."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch.benchmarks import op_probe
+
+    rng = np.random.default_rng(SEED + 3)
+    err, ms, plain_ms = 0, 0.0, 0.0
+    for p in op_probe.PROBES:
+        x = torch.from_numpy(rng.integers(-5000, 5000, p.shape)).to(
+            dtype=p.dtype, device=dev)
+        e = _diff(op_probe.probe_cuda(p, x, 64), op_probe.probe_torch(p, x, 64))
+        k_ms = _event_ms(lambda: op_probe.probe_cuda(p, x, 64), 5, dev)
+        p_ms = _event_ms(lambda: op_probe.probe_torch(p, x, 64), 2, dev)
+        print(f"  {p.name:10s} K=64: max|kernel-plain| {e}; kernel {k_ms:.4f} "
+              f"ms, plain PyTorch {p_ms:.4f} ms")
+        err, ms, plain_ms = max(err, e), ms + k_ms, plain_ms + p_ms
+    if err:
+        raise AssertionError("a probe kernel disagrees with its plain version")
+    op_probe.LAUNCHES = 0
+    if op_probe.main() != 0:
+        raise AssertionError("the op probe's run failed")
+    return dict(launches=op_probe.LAUNCHES, err=err, ms=ms, plain_ms=plain_ms)
+
+
 def main() -> int:
     import torch
 
@@ -288,39 +716,74 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from bwamem_tpu import BwaMemIndex
     from bwamem_tpu_torch.ops import extend as ext
-    from bwamem_tpu_torch.utils import cudabuild
 
     dev = torch.device("cuda", 0)
     card = _card_line()
     print(f"[1] card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, python {sys.version.split()[0]}")
-
-    t0 = time.perf_counter()
-    lib = cudabuild.build("extend")
-    info = cudabuild.BUILD_INFO["extend"]
-    print(f"[2] nvcc built {os.path.relpath(lib, ROOT)} in "
-          f"{time.perf_counter() - t0:.2f} s")
-    for line in info["log"].splitlines():
-        print(f"    {line}")
+    phase_build()
 
     print("[3] kernel vs plain PyTorch (card) vs host C++ ksw_extend2, "
           "tolerance 0 (int32, exact)")
     err3 = phase_kernel_vs_plain(dev, ext.ksw_extend_cuda)
 
     print("[4] main path: BwaMemAligner(device='cuda') vs bwamem_tpu host")
-    runs = phase_main_path(dev)
+    t0 = time.perf_counter()
+    codes, img, build_s = _synthetic_index(ECOLI_LEN)
+    index = BwaMemIndex(img)
+    print(f"  genome 4.6 Mbp + index in {time.perf_counter() - t0:.1f} s "
+          f"(build {build_s:.1f} s)")
+    runs = phase_main_path(dev, index, codes)
 
     print("[5] kernel timing on the largest PE wave")
     ms, plain_ms, err5 = phase_timing(dev, runs["pe"]["wave"])
 
-    print(json.dumps({"kernels": [{
-        "name": "ksw_extend", "route": "cuda",
-        "source": "bwamem_tpu_torch/csrc/extend.cu",
-        "replaces": "bwamem_tpu/ops/extend_pallas.py:83",
-        "launches": runs["pe"]["launches"], "max_abs_err": max(err3, err5),
-        "ms": ms, "plain_ms": plain_ms,
-    }]}))
+    print("[6] FM kernels vs plain PyTorch (card) vs host FMIndex, tolerance 0 "
+          "(integers, exact)")
+    fm = index._require().fm
+    fm_err = phase_fm_kernels(dev, fm)
+
+    print("[7] device SA stage: BwaMemAligner(device='cuda', "
+          "device_stages=('sa_lookup',)) vs bwamem_tpu host")
+    sa = phase_device_sa(dev, index, fm, runs)
+    index.close()
+
+    print("[8] chr20 scale: 64 Mbp genome, SA walks and extension on the card")
+    big = phase_chr20(dev)
+
+    print("[9] op probe (port of benchmarks/mosaic_probe.py)")
+    probe = phase_probe(dev)
+
+    fm_src = "bwamem_tpu_torch/csrc/fmindex.cu"
+    print(json.dumps({"kernels": [
+        {"name": "ksw_extend", "route": "cuda",
+         "source": "bwamem_tpu_torch/csrc/extend.cu",
+         "replaces": "bwamem_tpu/ops/extend_pallas.py:83",
+         "launches": runs["pe"]["launches"], "max_abs_err": max(err3, err5),
+         "ms": ms, "plain_ms": plain_ms},
+        {"name": "occ4", "route": "cuda", "source": fm_src,
+         "replaces": "bwamem_tpu/ops/fmindex_tpu.py:249",
+         "launches": big["launches"]["occ4"],
+         "max_abs_err": max(fm_err["occ4"], big["rank"]["occ4"][2]),
+         "ms": big["rank"]["occ4"][0], "plain_ms": big["rank"]["occ4"][1]},
+        {"name": "bwt_extend", "route": "cuda", "source": fm_src,
+         "replaces": "bwamem_tpu/ops/fmindex_tpu.py:296",
+         "launches": big["launches"]["bwt_extend"],
+         "max_abs_err": max(fm_err["bwt_extend"], big["rank"]["bwt_extend"][2]),
+         "ms": big["rank"]["bwt_extend"][0],
+         "plain_ms": big["rank"]["bwt_extend"][1]},
+        {"name": "sa_lookup", "route": "cuda", "source": fm_src,
+         "replaces": "bwamem_tpu/ops/fmindex_tpu.py:382",
+         "launches": sa["pe"]["launches"], "max_abs_err": fm_err["sa_lookup"],
+         "ms": big["sa_ms"], "plain_ms": big["sa_plain_ms"]},
+        {"name": "op_probe", "route": "cuda",
+         "source": "bwamem_tpu_torch/csrc/op_probe.cu",
+         "replaces": "benchmarks/mosaic_probe.py:44",
+         "launches": probe["launches"], "max_abs_err": probe["err"],
+         "ms": probe["ms"], "plain_ms": probe["plain_ms"]},
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

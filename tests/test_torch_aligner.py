@@ -15,6 +15,7 @@ from bwamem_tpu.utils.fasta import Fasta, FastaContig
 from bwamem_tpu.utils.synth import simulate_pairs, synthetic_genome
 from bwamem_tpu_torch import BwaMemAligner
 from bwamem_tpu_torch.engine.extend_batch import STATS
+from bwamem_tpu_torch.engine.pipeline import SA_STATS
 from bwamem_tpu_torch.ops import extend as ext
 
 ROTAVIRUS = os.path.join(os.path.dirname(__file__), "fixtures",
@@ -73,6 +74,52 @@ def test_records_match_host_aligner(genome, mode):
     assert ext.LAUNCHES == before  # the CPU never launches the kernel
     assert STATS.device_extend_jobs > 0 and STATS.host_extend_jobs == 0
     assert got == _records(host, reads)
+
+
+@pytest.mark.parametrize("mode", ["se", "fixed"])
+def test_device_sa_lookup_matches_host_aligner(genome, mode):
+    """device_stages=("sa_lookup",): every SA walk of the batch through the
+    port's plain walk on the CPU, none on the host C++."""
+    index, reads = genome
+    host = HostAligner(index)
+    port = BwaMemAligner(index, device="cpu", min_device_jobs=1,
+                         device_stages=("sa_lookup",))
+    if mode != "se":
+        _pe_mode(host, mode)
+        _pe_mode(port, mode)
+    SA_STATS.reset()
+    got = _records(port, reads)
+    assert SA_STATS.device_sa_rows > 0 and SA_STATS.host_sa_rows == 0
+    assert got == _records(host, reads)
+
+
+def test_device_sa_lookup_in_the_python_oracle_branch(genome, monkeypatch):
+    """Without the native libraries the Python seeding oracle feeds the
+    same device SA stage."""
+    from bwamem_tpu.engine import native_fm
+
+    index, reads = genome
+    expected = _records(HostAligner(index), reads[:24])
+    monkeypatch.setattr(native_fm, "available", lambda: False)
+    port = BwaMemAligner(index, device="cpu", min_device_jobs=1,
+                         device_stages=("sa_lookup",))
+    SA_STATS.reset()
+    assert _records(port, reads[:24]) == expected
+    assert SA_STATS.device_sa_rows > 0 and SA_STATS.host_sa_rows == 0
+
+
+def test_sa_walks_stay_on_host_by_default(genome):
+    index, reads = genome
+    SA_STATS.reset()
+    BwaMemAligner(index, device="cpu").align_seqs(reads[:20])
+    assert SA_STATS.host_sa_rows > 0 and SA_STATS.device_sa_rows == 0
+
+
+@pytest.mark.parametrize("stages", [("seed",), ("chain",), ("sa_lookup", "chain"),
+                                    ("extend",)])
+def test_device_stages_the_port_lacks_raise(rotavirus, stages):
+    with pytest.raises(ValueError):
+        BwaMemAligner(rotavirus, device="cpu", device_stages=stages)
 
 
 def test_default_threshold_routes_small_waves_to_host(genome):

@@ -63,7 +63,7 @@ def setup(tmp_path_factory):
     eng = index._require()
     opt = MemOptions()
     reads = _reads(codes, np.random.default_rng(8), 160)
-    chains = _chains_native(opt, eng, reads)
+    chains = _chains_native(opt, eng, reads, ExecConfig(device="cpu"))
     yield opt, eng, reads, chains
     index.close()
 
@@ -125,7 +125,7 @@ def test_python_seeding_fallback_gives_same_chains(setup):
     """The pipeline's no-native route (Python seeding and chaining) builds
     the chains the native route does."""
     opt, eng, reads, chains = setup
-    py = _chains_python(opt, eng, reads[:24])
+    py = _chains_python(opt, eng, reads[:24], ExecConfig(device="cpu"))
 
     def key(cs):
         return [[(c.rid, c.pos, [(s.rbeg, s.qbeg, s.len) for s in c.seeds])
