@@ -1,6 +1,7 @@
 """BwaMemAligner for the port: the JAX package's aligner surface (options,
 PE-stats modes, Java-style accessors, records) with the extension waves,
-and optionally the sampled-SA walks, on an explicit torch device.
+and optionally the seeding and the sampled-SA walks, on an explicit torch
+device.
 
 Every batch goes through the port's ``align_regs_batch``; the reference's
 native-tail shortcut (``_align_seqs_fast``), which would align the whole
@@ -37,23 +38,25 @@ class BwaMemAligner(_HostAligner):
         A CUDA device with no card present raises; there is no fallback.
         min_device_jobs: waves with fewer jobs run on the host C++.
         device_stages: further stages to run on ``device``, by the JAX
-        package's names; the port has "sa_lookup" (every sampled-SA walk
-        of a batch in one kernel call), not yet "seed" or "chain"."""
+        package's names; the port has "seed" (the three seeding rounds of
+        a batch in the seeding kernels) and "sa_lookup" (every sampled-SA
+        walk of a batch in one kernel call), not yet "chain"."""
         stages = set(device_stages)
         unknown = stages - {"seed", "chain", "sa_lookup"}
         if unknown:
             raise ValueError(f"unknown device stages: {sorted(unknown)}")
-        missing = stages - {"sa_lookup"}
+        missing = stages - {"seed", "sa_lookup"}
         if missing:
             raise ValueError(f"device stages {sorted(missing)} are not in the "
-                             "port yet; it has 'sa_lookup'")
+                             "port yet; it has 'seed' and 'sa_lookup'")
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is not "
                                "available")
         super().__init__(index, options)
         self._exec_cfg = ExecConfig(device=dev, min_device_jobs=min_device_jobs,
-                                    device_sa_lookup="sa_lookup" in stages)
+                                    device_sa_lookup="sa_lookup" in stages,
+                                    device_seed="seed" in stages)
 
     def align_seqs(self, sequences: Iterable[T],
                    func: Callable[[T], bytes] = lambda x: x,

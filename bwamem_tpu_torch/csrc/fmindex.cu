@@ -5,8 +5,9 @@
 // `occ4_device` (with `_rows_for` and `_block_counts4`), `_extend_core` /
 // `extend_device`, and `_sa_tick` + `sa_lookup_body` / `sa_lookup`.  Their
 // semantics are bwa's bwt_occ4, bwt_extend and bwt_sa, as the host oracle
-// bwamem_tpu/engine/fmindex.py writes them out; the line decode they share
-// is in fmindex.cuh.
+// bwamem_tpu/engine/fmindex.py writes them out.  The line decode they share,
+// and the bwt_extend arithmetic (also called by the seeding kernels of
+// seed.cu), are in fmindex.cuh.
 //
 // Design: one thread per query.  `occ4` reads one line per row;
 // `bwt_extend` one line for each of its two rank queries; `sa_lookup` walks
@@ -67,33 +68,13 @@ __global__ void __launch_bounds__(kThreads) extend_kernel(
     int32_t* __restrict__ err) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
-  const int64_t xq = is_back ? x0[i] : x1[i];
-  const int64_t xo = is_back ? x1[i] : x0[i];
-  const int64_t si = s[i];
-  const int64_t ka = xq - 1, kb = xq - 1 + si;
-  int tk[4] = {0, 0, 0, 0}, tl[4] = {0, 0, 0, 0};
-  if (ka < -1 || ka > fm.seq_len || kb < -1 || kb > fm.seq_len) {
-    atomicOr(err, kErrRowRange);
-  } else {
-    bwamem_fm::occ4(fm, ka, tk);
-    bwamem_fm::occ4(fm, kb, tl);
-  }
-  int64_t q[4], o[4];
+  int64_t a[4], b[4];
   int d[4];
+  if (!bwamem_fm::bwt_extend(fm, x0[i], x1[i], s[i], is_back, a, b, d))
+    atomicOr(err, kErrRowRange);
   for (int c = 0; c < 4; ++c) {
-    q[c] = fm.L2[c] + 1 + tk[c];
-    d[c] = tl[c] - tk[c];
-  }
-  // the sentinel row precedes symbol 3's slice when it lies in [xq, xq+s)
-  o[3] = xo + (xq <= fm.primary && xq + si - 1 >= fm.primary);
-  o[2] = o[3] + d[3];
-  o[1] = o[2] + d[2];
-  o[0] = o[1] + d[1];
-  int64_t* a = (is_back ? ox0 : ox1) + 4 * i;  // queried side
-  int64_t* b = (is_back ? ox1 : ox0) + 4 * i;  // co-interval side
-  for (int c = 0; c < 4; ++c) {
-    a[c] = q[c];
-    b[c] = o[c];
+    ox0[4 * i + c] = a[c];
+    ox1[4 * i + c] = b[c];
   }
   reinterpret_cast<int4*>(sz)[i] = make_int4(d[0], d[1], d[2], d[3]);
 }

@@ -112,4 +112,35 @@ __device__ __forceinline__ int64_t lf(const Fm& fm, int64_t k) {
   return fm.L2[c] + static_cast<int>(line[c]) + count1(line + 4, within, c);
 }
 
+// bwa bwt_extend of the bi-interval (x0, x1, s), backward (is_back) or
+// forward: ox0, ox1 and sz indexed by queried-space symbol, as the host
+// oracle's FMIndex.extend.  Two rank queries, one line each.  Returns
+// false (and counts of 0) when a queried row lies outside [-1, seq_len].
+__device__ __forceinline__ bool bwt_extend(const Fm& fm, int64_t x0,
+                                           int64_t x1, int64_t s,
+                                           bool is_back, int64_t ox0[4],
+                                           int64_t ox1[4], int sz[4]) {
+  const int64_t xq = is_back ? x0 : x1;
+  const int64_t xo = is_back ? x1 : x0;
+  const int64_t ka = xq - 1, kb = xq - 1 + s;
+  int tk[4] = {0, 0, 0, 0}, tl[4] = {0, 0, 0, 0};
+  const bool ok = ka >= -1 && ka <= fm.seq_len && kb >= -1 && kb <= fm.seq_len;
+  if (ok) {
+    occ4(fm, ka, tk);
+    occ4(fm, kb, tl);
+  }
+  int64_t* q = is_back ? ox0 : ox1;  // queried side
+  int64_t* o = is_back ? ox1 : ox0;  // co-interval side
+  for (int c = 0; c < 4; ++c) {
+    q[c] = fm.L2[c] + 1 + tk[c];
+    sz[c] = tl[c] - tk[c];
+  }
+  // the sentinel row precedes symbol 3's slice when it lies in [xq, xq+s)
+  o[3] = xo + (xq <= fm.primary && xq + s - 1 >= fm.primary);
+  o[2] = o[3] + sz[3];
+  o[1] = o[2] + sz[2];
+  o[0] = o[1] + sz[1];
+  return ok;
+}
+
 }  // namespace bwamem_fm

@@ -6,9 +6,10 @@ device explicitly and has no probe.  ``min_device_jobs`` keeps the
 reference's small-wave routing (bwamem_tpu/engine/extend_batch.py
 HOST_FALLBACK_JOBS): a wave with fewer jobs runs on the host, where a launch
 and two copies would cost more than the DP itself.  ``device_sa_lookup``
-sends every sampled-SA walk of a batch to the device (the JAX package's
-field of the same name); it is set only through the aligner's
-``device_stages``, never from the environment.
+sends every sampled-SA walk of a batch to the device and ``device_seed``
+the three seeding rounds (the JAX package's fields of the same names);
+they are set only through the aligner's ``device_stages``, never from the
+environment.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ class ExecConfig:
     device: torch.device
     min_device_jobs: int = HOST_FALLBACK_JOBS
     device_sa_lookup: bool = False
+    device_seed: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "device", torch.device(self.device))

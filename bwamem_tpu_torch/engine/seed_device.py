@@ -1,0 +1,133 @@
+"""Device seeding for the port's pipeline: one entry point for the stage sets
+("seed",) and ("seed", "sa_lookup").
+
+The counterpart of bwamem_tpu/engine/seed_device.py
+``collect_intv_batch_device`` and ``collect_intv_rbegs_batch_device``.  The
+batch is padded once to [B, Lmax] uint8 codes (4 past each read's end; no
+bucketing: nothing recompiles), uploaded, seeded by ``ops.seed.seed_sa``
+(on the card: the collect_intv and sample_ks kernels), and its flat table
+copied back.  The SA rows stay on the device for the walks.
+
+A read that overflows the K- or M-slot budget is seeded on the host, as the
+JAX package does: the host C++ ``native_fm.collect_intv_batch_raw`` on just
+those reads when the natives are built, else the oracle
+``engine.seed.collect_intv``; its rows are spliced in read order.  That is
+the budget rule, not a device fallback: a failed build, launch or kernel
+flag raises.  M is the JAX package's (48 intervals per read); K is raised
+from its 24 slots per smem1a call to ``ops.seed.K_MAX`` (160), which no
+read of up to 160 bases can overflow: on repeat-rich genomes 24 slots flag
+several per cent of 150 bp reads.  ``SEED_STATS.ref_k_overflows`` counts
+the reads that needed more than 24, the ones the JAX package seeds on the
+host.  The flat table and the SA rows are sized exactly, so the JAX
+package's whole-batch demotions (``R_cap``/``F_cap``) cannot happen.
+``SEED_STATS`` counts the reads seeded on the device and on the host, the
+kernel launches and, as the collect_intv kernel counts them on the card, its
+smem1a, strategy1 and bwt_extend calls, the flagged reads by budget and the
+reads past the JAX package's K.
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple
+
+import numpy as np
+import torch
+
+from bwamem_tpu.engine import native_fm
+from bwamem_tpu.engine.seed import collect_intv
+
+from ..ops import fmindex as fmops
+from ..ops import seed as seedops
+from .state import device_fm
+
+
+class SeedStats:
+    """Reads seeded on the device, reads seeded on the host because they
+    overflowed a budget, the seeding kernels launched, and the device
+    functions the collect_intv kernel ran, the reads it flagged by budget
+    (K slots of an smem1a call, M accumulator slots) and the reads that
+    needed more than the JAX package's K_SLOTS, counted on the card only."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.device_reads = 0
+        self.host_reads = 0
+        self.launches = 0
+        self.smem1a_calls = 0
+        self.strategy1_calls = 0
+        self.extend_calls = 0
+        self.k_overflows = 0
+        self.m_overflows = 0
+        self.ref_k_overflows = 0
+
+
+SEED_STATS = SeedStats()
+
+
+class DeviceSeeds(NamedTuple):
+    """A batch's intervals: ``rows`` [N, 5] int64 (x0, x1, s, qb, qe) per
+    read in read order, ``n_intv`` [n] int64, ``on_host`` [n] bool (seeded
+    on the host), and the SA rows ``ks`` of the device-seeded reads'
+    intervals, on the device."""
+
+    rows: np.ndarray
+    n_intv: np.ndarray
+    on_host: np.ndarray
+    ks: torch.Tensor
+    dfm: fmops.DeviceFMIndex
+
+
+def _host_rows(opt, fm, reads: List[np.ndarray]):
+    """Three-round seeding on the host: (rows [N, 5] int64, n [len])."""
+    if native_fm.available():
+        rows, n = native_fm.collect_intv_batch_raw(opt, fm, reads)
+        return rows, np.asarray(n, dtype=np.int64)
+    ivs = [collect_intv(opt, fm, r) for r in reads]
+    rows = np.asarray([tuple(p) for iv in ivs for p in iv],
+                      dtype=np.int64).reshape(-1, 5)
+    return rows, np.asarray([len(iv) for iv in ivs], dtype=np.int64)
+
+
+def seed_batch(opt, fm, reads: List[np.ndarray], device,
+               K: int = seedops.K_MAX) -> DeviceSeeds:
+    """mem_collect_intv for every read of the batch on ``device`` with K
+    slots per smem1a call; reads flagged by a budget are seeded on the
+    host."""
+    dfm = device_fm(fm, device)
+    if not reads:
+        none = np.zeros(0, dtype=np.int64)
+        return DeviceSeeds(np.zeros((0, 5), dtype=np.int64), none,
+                           none.astype(bool), dfm.sa[:0], dfm)
+    qseq, qlen = seedops.pad_reads(reads, dfm.device)
+    before = sum(seedops.LAUNCHES.values())
+    work = torch.zeros((len(reads), 5), dtype=torch.int32, device=dfm.device)
+    out = seedops.seed_sa(dfm, qseq, qlen, seedops.SeedParams.from_opt(opt),
+                          K=K, work=work)
+    iv = out.intervals
+    cause, peak = work[:, 3], work[:, 4]
+    counts = torch.cat([work[:, :3].sum(dim=0, dtype=torch.int64), torch.stack(
+        [(cause == 1).sum(), (cause == 2).sum(), (peak > seedops.K_SLOTS).sum()])])
+    B = len(reads)
+    meta = torch.cat([iv.n.long(), iv.ovf.long(), counts]).cpu().numpy()
+    n_dev, on_host, calls = meta[:B], meta[B: 2 * B] != 0, meta[2 * B:].tolist()
+    flat = out.flat.cpu().numpy()
+    SEED_STATS.launches += sum(seedops.LAUNCHES.values()) - before
+    SEED_STATS.smem1a_calls += calls[0]
+    SEED_STATS.strategy1_calls += calls[1]
+    SEED_STATS.extend_calls += calls[2]
+    SEED_STATS.k_overflows += calls[3]
+    SEED_STATS.m_overflows += calls[4]
+    SEED_STATS.ref_k_overflows += calls[5]
+    n_intv = np.where(on_host, 0, n_dev).astype(np.int64)
+    rows = flat
+    fb = np.flatnonzero(on_host)
+    if fb.size:
+        rows_fb, n_intv[fb] = _host_rows(opt, fm, [reads[i] for i in fb])
+        from_host = np.repeat(on_host, n_intv)
+        rows = np.empty((len(from_host), 5), dtype=np.int64)
+        rows[~from_host] = flat
+        rows[from_host] = rows_fb
+    SEED_STATS.device_reads += len(reads) - fb.size
+    SEED_STATS.host_reads += fb.size
+    return DeviceSeeds(rows, n_intv, on_host, out.ks, dfm)

@@ -7,9 +7,9 @@ Phases, each of which stops the run with a non-zero exit if it fails:
 
 1. the card: its name and power limit as nvidia-smi reports them; no card
    (torch.cuda.is_available() false) exits at once;
-2. build: compiles csrc/extend.cu, csrc/fmindex.cu and csrc/op_probe.cu
-   with nvcc for sm_90a, one nvcc per source, all at once, and prints the
-   compiler's register and spill report;
+2. build: compiles csrc/extend.cu, csrc/fmindex.cu, csrc/op_probe.cu and
+   csrc/seed.cu with nvcc for sm_90a, one nvcc per source, all at once, and
+   prints the compiler's register and spill report;
 3. kernel against plain: the SW extension kernel against the plain
    PyTorch version on the card and the host C++ ksw_extend2, field for
    field and exactly, on seeded batches (a 4096-job main-path wave, the JAX
@@ -32,9 +32,11 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    plain version timed on the largest SA batch;
 8. at chr20 scale: bench.py's 64 Mbp "chr20" genome (seed 1234, sa_intv 8;
    48 MB of lines and 128 MB of sampled SA, past the card's 50 MB L2):
-   2,000 pairs with the SA walks and the extension on the card, record-equal
-   to the host aligner; the SA kernel, the plain version and the host C++
-   walk timed on that batch's rows; then seeding-shaped work for occ4 and
+   2,000 pairs with the seeding, the SA walks and the extension on the
+   card, record-equal to the host aligner, with the seed checks of phase 11;
+   the SA kernel, the plain version
+   and the host C++ walk timed on that batch's rows; then seeding-shaped
+   work for occ4 and
    bwt_extend, which no aligner stage launches yet: an exact-match backward
    search of every read (occ4 of both interval ends per base) and a forward
    bi-interval extension from each read's first base (bwt_extend per
@@ -43,14 +45,42 @@ Phases, each of which stops the run with a non-zero exit if it fails:
 9. the op probe (the port of benchmarks/mosaic_probe.py): every probe's
    kernel against its plain version on the card at K=64, exactly, then
    ``python -m bwamem_tpu_torch.benchmarks.op_probe``'s own run: the SASS
-   check of each kernel's K loop and the probe table.
+   check of each kernel's K loop and the probe table;
+10. seeding kernels, exactly, on the 4.6 Mbp index: smem1a_kernel (with
+   the JAX package's K = 24) and strategy1_kernel (one lane per read of
+   phase 4's PE batch from its first base, and three lanes per read of a
+   seeded sample), and collect_intv_kernel (with the aligner's K = 160) +
+   sample_ks_kernel + the SA walk on the whole PE batch, against the plain
+   versions on the card and, on the sample plus
+   edge reads (an N run, all N, 20 bp, both ends of the genome), against
+   the host oracle (engine/seed.py smem1a, seed_strategy1, collect_intv;
+   engine/chain.py sample_ks; FMIndex.sa_lookup); each kernel timed with
+   CUDA events after a warm-up, each plain version once;
+11. the device seed stage: phase 4's batches with device_stages=("seed",
+   "sa_lookup") (PE and SE), then the PE batch with ("seed",): records equal
+   to the host aligner's, the seeding kernels launched, at least 95 % of
+   the reads seeded on the card (the rest, flagged by the M budget, on the
+   host and counted; no read of up to 160 bases may overflow K = 160), no
+   SA row walked on the host when the walks are
+   on the card; the seed and sa_lookup stage seconds beside phase 4's host
+   C++ seed stage, and the reads that needed more than the JAX package's
+   24 K slots.
 
 The launch counts in the ``kernels`` line come from the runs that drive
 each kernel: phase 4's PE batch (ksw_extend), phase 7's PE batch
-(sa_lookup), phase 8's seeding-shaped work (occ4, bwt_extend) and phase
-9's probe run (op_probe); each count is set to 0 just before and read just
-after.  The last three lines are that JSON object, the card's name and
-power limit, and {"ok": true, "device": {...}}.  Nothing of JAX is imported.
+(sa_lookup), phase 8's seeding-shaped work (occ4, bwt_extend), phase 9's
+probe run (op_probe) and phase 11's PE batch with the seed and SA stages
+(collect_intv, sample_ks); each count is set to 0 just before and read just
+after.  smem1a and strategy1 run on the main path as __device__ functions
+inside collect_intv_kernel; their own per-lane kernels (smem1a_kernel,
+strategy1_kernel) exist to hold each function against its plain version
+and time it (phase 10), and the main path launches them no time.  Their
+entries give as ``launches`` the calls of the device function in phase
+11's PE run, as collect_intv_kernel counts them on the card
+(``SEED_STATS``), say so in ``launches_are``, and give the per-lane
+kernel's own launch count in that run (0) as ``own_kernel_launches``.
+The last three lines are that JSON object, the card's name and power
+limit, and {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 """
 import json
 import os
@@ -66,7 +96,8 @@ SEED = 1234
 ECOLI_LEN = 4_600_000
 CHR20_LEN = 64_000_000
 CHR20_PAIRS = 2000
-SOURCES = ("extend", "fmindex", "op_probe")
+SEED_SAMPLE = 256
+SOURCES = ("extend", "fmindex", "op_probe", "seed")
 
 
 def _card_line() -> str:
@@ -233,20 +264,26 @@ def _pe_setup(aligner):
 def _port_run(tag, port, batch, ref, t_host, dev):
     """One timed batch through the port, counts set to 0 just before and
     read just after; the records held against ``ref``.  Returns the
-    extension and SA-walk launch counts."""
+    extension, SA-walk and seeding launch counts and the stage seconds."""
     from bwamem_tpu.utils.timers import TIMERS
     from bwamem_tpu_torch.engine.extend_batch import STATS
     from bwamem_tpu_torch.engine.pipeline import SA_STATS
+    from bwamem_tpu_torch.engine.seed_device import SEED_STATS
     from bwamem_tpu_torch.ops import extend as ext
     from bwamem_tpu_torch.ops import fmindex as fmops
+    from bwamem_tpu_torch.ops import seed as seedops
 
     STATS.reset()
     SA_STATS.reset()
+    SEED_STATS.reset()
     TIMERS.reset()
     ext.LAUNCHES = 0
     fmops.LAUNCHES["sa_lookup"] = 0
+    for name in seedops.LAUNCHES:
+        seedops.LAUNCHES[name] = 0
     got, t_port = _timed(port, batch, dev)
     launches, sa_launches = ext.LAUNCHES, fmops.LAUNCHES["sa_lookup"]
+    seed_launches = dict(seedops.LAUNCHES)
     stages = TIMERS.snapshot()
     ok = sum([vars(x) for x in g] == [vars(x) for x in r] for g, r in zip(got, ref))
     aligned = sum(1 for r in got if r and not (r[0].sam_flag & 0x4))
@@ -261,6 +298,17 @@ def _port_run(tag, port, batch, ref, t_host, dev):
           f"{STATS.host_extend_waves} waves, device share {share:.4f}; SA "
           f"kernel launches {sa_launches}, SA rows on the card "
           f"{SA_STATS.device_sa_rows}, on the host {SA_STATS.host_sa_rows}")
+    if SEED_STATS.device_reads or SEED_STATS.host_reads:
+        print(f"  {tag}: SEED_STATS: reads seeded on the card "
+              f"{SEED_STATS.device_reads}, on the host {SEED_STATS.host_reads} "
+              f"(flagged by K {SEED_STATS.k_overflows}, by M "
+              f"{SEED_STATS.m_overflows}); {SEED_STATS.ref_k_overflows} reads "
+              f"needed more than the JAX package's 24 K slots; seeding "
+              f"launches " + ", ".join(
+                  f"{k} {v}" for k, v in seed_launches.items())
+              + f"; in collect_intv_kernel: smem1a {SEED_STATS.smem1a_calls}, "
+              f"strategy1 {SEED_STATS.strategy1_calls}, bwt_extend "
+              f"{SEED_STATS.extend_calls} calls")
     rest = t_port - sum(stages.values())
     print(f"  {tag}: port seconds by stage: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items())
@@ -273,7 +321,9 @@ def _port_run(tag, port, batch, ref, t_host, dev):
         raise AssertionError(f"{tag}: only {aligned} reads aligned")
     if launches <= 0 or share < 0.5:
         raise AssertionError(f"{tag}: the extension did not run on the card")
-    return launches, sa_launches
+    return dict(launches=launches, sa_launches=sa_launches,
+                seed_launches=seed_launches, stages=stages,
+                seed_stats=vars(SEED_STATS).copy())
 
 
 def phase_main_path(dev, index, codes):
@@ -299,9 +349,10 @@ def phase_main_path(dev, index, codes):
         for a in (host, port):
             a.align_seqs(warm)
         ref, t_host = _timed(host, batch, dev)
-        launches, _ = _port_run(mode, port, batch, ref, t_host, dev)
+        res = _port_run(mode, port, batch, ref, t_host, dev)
         runs[mode] = dict(batch=batch, ref=ref, t_host=t_host, warm=warm,
-                          launches=launches, wave=STATS.largest_wave)
+                          launches=res["launches"], stages=res["stages"],
+                          wave=STATS.largest_wave)
         if mode == "pe":
             busy, wall = _device_busy(port, batch, dev)
             print(f"  pe: again under torch.profiler: card busy {busy:.4f} s of "
@@ -454,6 +505,8 @@ def _time_sa(tag, dev, fm, rows):
     from bwamem_tpu_torch.ops import fmindex as fmops
 
     dfm = device_fm(fm, dev)
+    if torch.is_tensor(rows):
+        rows = rows.cpu().numpy()
     k = torch.from_numpy(np.ascontiguousarray(rows, np.int64)).to(dev)
     out = torch.empty_like(k)
     flags = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -498,8 +551,8 @@ def phase_device_sa(dev, index, fm, runs):
         if mode == "pe":
             _pe_setup(port)
         port.align_seqs(r["warm"])
-        _, sa_launches = _port_run(f"{mode}+sa", port, r["batch"], r["ref"],
-                                   r["t_host"], dev)
+        sa_launches = _port_run(f"{mode}+sa", port, r["batch"], r["ref"],
+                                r["t_host"], dev)["sa_launches"]
         if sa_launches <= 0 or SA_STATS.host_sa_rows:
             raise AssertionError(f"{mode}: SA walks did not all run on the card")
         sa[mode] = dict(launches=sa_launches, rows=SA_STATS.largest_rows)
@@ -664,14 +717,17 @@ def phase_chr20(dev):
     warm = simulate_pairs(codes, rng, 8)
     reads = simulate_pairs(codes, rng, CHR20_PAIRS)
     host = HostAligner(index)
-    port = BwaMemAligner(index, device=dev, device_stages=("sa_lookup",))
+    port = BwaMemAligner(index, device=dev,
+                         device_stages=("seed", "sa_lookup"))
     for a in (host, port):
         _pe_setup(a)
         a.align_seqs(warm)
     ref, t_host = _timed(host, reads, dev)
-    _, sa_launches = _port_run("chr20 pe+sa", port, reads, ref, t_host, dev)
+    res = _port_run("chr20 pe+seed+sa", port, reads, ref, t_host, dev)
+    sa_launches = res["sa_launches"]
     if sa_launches <= 0 or SA_STATS.host_sa_rows:
         raise AssertionError("chr20: SA walks did not all run on the card")
+    _check_seeded("chr20", res, reads)
     sa_ms, sa_plain_ms = _time_sa("64 Mbp, PE batch", dev, fm,
                                   SA_STATS.largest_rows)
     launches, err, mid = _rank_drive(dev, fm, reads)
@@ -706,6 +762,286 @@ def phase_probe(dev):
     if op_probe.main() != 0:
         raise AssertionError("the op probe's run failed")
     return dict(launches=op_probe.LAUNCHES, err=err, ms=ms, plain_ms=plain_ms)
+
+
+SEED_REPLACES = {
+    "smem1a": "bwamem_tpu/ops/smem_tpu.py:39",
+    "strategy1": "bwamem_tpu/ops/seed_tpu.py:80",
+    "collect_intv": "bwamem_tpu/ops/seed_fused.py:72",
+    "sample_ks": "bwamem_tpu/ops/seed_fused.py:72",
+}
+
+
+def _once_ms(fn, dev):
+    """``fn()`` once between two CUDA events: (its result, ms)."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize(dev)
+    return out, a.elapsed_time(b)
+
+
+def _tuples_err(got, exp) -> int:
+    """Largest |got - exp| of two lists of (x0, x1, s, qb, qe) tuples;
+    raises when their lengths differ."""
+    import numpy as np
+
+    return _diff(np.asarray(got, np.int64).reshape(len(got), 5),
+                 np.asarray(exp, np.int64).reshape(len(exp), 5))
+
+
+def _lane_kernels(dev, fm, dfm, reads, sample):
+    """smem1a and strategy1: one lane per read of ``reads`` from its first
+    base, then the lanes of seed_cases.lanes over ``sample``; the kernels
+    against the plain versions on all lanes and against the host oracle
+    on the sample's.  Returns per kernel its errors and times."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu.api.options import MemOptions
+    from bwamem_tpu.engine.seed import seed_strategy1, smem1a
+    from bwamem_tpu_torch.ops import fmindex as fmops
+    from bwamem_tpu_torch.ops import seed as so
+    from bwamem_tpu_torch.utils import seed_cases
+
+    opt = MemOptions()
+    lane_reads, xs, mis = list(reads), [0] * len(reads), [1] * len(reads)
+    oracle = []
+    for i, x, m in seed_cases.lanes(sample, SEED + 6):
+        oracle.append((len(lane_reads), sample[i], x, m))
+        lane_reads.append(sample[i])
+        xs.append(x)
+        mis.append(m)
+    qseq, qlen = so.pad_reads(lane_reads, dev)
+    x = torch.tensor(xs, dtype=torch.int32, device=dev)
+    mi = torch.tensor(mis, dtype=torch.int64, device=dev)
+    B = len(lane_reads)
+    res = {}
+    # smem1a
+    got = so.smem1a_cuda(dfm, qseq, qlen, x, mi, so.K_SLOTS)
+    plain, plain_ms = _once_ms(lambda: so.smem1a_torch(dfm, qseq, qlen, x, mi,
+                                                       so.K_SLOTS), dev)
+    e_plain = max(_diff(g, p) for g, p in zip(got, plain))
+    g = [t.cpu().numpy() for t in got]
+    e_host = 0
+    for b, r, xb, m in oracle:
+        if xb >= len(r) or r[xb] > 3:
+            ret, mems = xb + 1, []
+        else:
+            ret, mems = smem1a(fm, r, xb, m)
+        e_host = max(e_host, abs(int(g[0][b]) - ret))
+        if not g[7][b]:
+            mine = [tuple(int(v[b, j]) for v in g[1:6]) for j in range(g[6][b])]
+            e_host = max(e_host, _tuples_err(mine[::-1], mems))
+    outs = [torch.zeros(B, dtype=torch.int32, device=dev) for _ in range(3)]
+    mems = torch.zeros((B, so.K_SLOTS, 5), dtype=torch.int64, device=dev)
+    flags = torch.zeros(1, dtype=torch.int32, device=dev)
+    ms = _event_ms(lambda: so.smem1a_launch(dfm, qseq, qlen, x, mi, outs[0], mems,
+                                            outs[1], outs[2], flags), 10, dev)
+    n_ovf = int(g[7].sum())
+    print(f"  smem1a on {B} lanes ({len(reads)} reads from x = 0, {len(oracle)} "
+          f"sample lanes; {n_ovf} K-overflows): kernel {ms:.4f} ms, plain "
+          f"PyTorch {plain_ms:.4f} ms (once); max|kernel-plain| {e_plain}, "
+          f"max|kernel-host| {e_host} ({len(oracle)} lanes)")
+    res["smem1a"] = dict(err=max(e_plain, e_host), ms=ms, plain_ms=plain_ms)
+    # strategy1
+    args = (opt.min_seed_len, opt.max_mem_intv)
+    got = so.strategy1_cuda(dfm, qseq, qlen, x, *args)
+    plain, plain_ms = _once_ms(lambda: so.strategy1_torch(dfm, qseq, qlen, x,
+                                                          *args), dev)
+    e_plain = max(_diff(g, p) for g, p in zip(got, plain))
+    g = [t.cpu().numpy() for t in got]
+    e_host = 0
+    for b, r, xb, _ in oracle:
+        if xb >= len(r) or r[xb] > 3:
+            nxt, hit = xb + 1, None
+        else:
+            nxt, hit = seed_strategy1(fm, r, xb, *args)
+        e_host = max(e_host, abs(int(g[6][b]) - nxt),
+                     abs(int(g[0][b]) - (hit is not None)))
+        if hit is not None:
+            e_host = max(e_host, _tuples_err([tuple(int(v[b]) for v in g[1:6])],
+                                             [hit]))
+    found, nxt = (torch.zeros(B, dtype=torch.int32, device=dev) for _ in range(2))
+    out = torch.zeros((B, 5), dtype=torch.int64, device=dev)
+    ms = _event_ms(lambda: so.strategy1_launch(dfm, qseq, qlen, x, *args, found,
+                                               out, nxt, flags), 10, dev)
+    print(f"  strategy1 on {B} lanes ({int(g[0].sum())} found): kernel "
+          f"{ms:.4f} ms, plain PyTorch {plain_ms:.4f} ms (once); "
+          f"max|kernel-plain| {e_plain}, max|kernel-host| {e_host}")
+    res["strategy1"] = dict(err=max(e_plain, e_host), ms=ms, plain_ms=plain_ms)
+    fmops._raise_flags("seeding lanes", flags)
+    return res
+
+
+def phase_seed_kernels(dev, fm, codes, batch):
+    """Phase 10: the seeding kernels = plain (card) = host oracle."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu.api.options import MemOptions
+    from bwamem_tpu.engine.chain import sample_ks
+    from bwamem_tpu.engine.seed import collect_intv
+    from bwamem_tpu.utils.encoding import seq_to_codes_batch
+    from bwamem_tpu_torch.engine.state import device_fm
+    from bwamem_tpu_torch.ops import fmindex as fmops
+    from bwamem_tpu_torch.ops import seed as so
+    from bwamem_tpu_torch.utils import seed_cases
+
+    opt = MemOptions()
+    params = so.SeedParams.from_opt(opt)
+    dfm = device_fm(fm, dev)
+    edges = seed_cases.edge_reads([codes])
+    reads = [np.asarray(c, np.uint8) for c in seq_to_codes_batch(batch)] + edges
+    rng = np.random.default_rng(SEED + 5)
+    pick = sorted(rng.choice(len(batch), SEED_SAMPLE, replace=False).tolist())
+    pick += list(range(len(batch), len(reads)))  # the edge reads
+    res = _lane_kernels(dev, fm, dfm, reads, [reads[i] for i in pick])
+    # collect_intv + sample_ks + the SA walk on the whole batch
+    qseq, qlen = so.pad_reads(reads, dev)
+    B = len(reads)
+    K = so.K_MAX  # the aligner's budget
+    got = so.seed_sa(dfm, qseq, qlen, params, K=K)
+    rbegs = fmops.sa_lookup(dfm, got.ks)  # as the pipeline walks them
+    piv, c_plain_ms = _once_ms(lambda: so.collect_intv_torch(
+        dfm, qseq, qlen, params, so.M_SLOTS, K), dev)
+    nrows = torch.where(piv.ovf, 0, piv.n)
+    (pflat, pks), s_plain_ms = _once_ms(
+        lambda: so.sample_ks_torch(piv.rows, nrows, piv.nks, params.max_occ), dev)
+    prb = fmops.sa_lookup_torch(dfm, pks)
+    iv, ok = got.intervals, ~got.intervals.ovf
+    e_c = max(_diff(iv.ovf, piv.ovf), _diff(iv.n[ok], piv.n[ok]),
+              _diff(iv.rows[ok], piv.rows[ok]), _diff(iv.nks, piv.nks))
+    e_s = max(_diff(got.flat, pflat), _diff(got.ks, pks))
+    e_w = _diff(rbegs, prb)
+    # the host oracle on the sample, read by read
+    n = torch.where(iv.ovf, 0, iv.n).cpu().numpy().astype(np.int64)
+    ovf = iv.ovf.cpu().numpy()
+    flat, ks, rb = (t.cpu().numpy() for t in (got.flat, got.ks, rbegs))
+    row_off = np.concatenate([[0], np.cumsum(n)])
+    k_off = np.concatenate([[0], np.cumsum(np.minimum(flat[:, 2], opt.max_occ))])
+    e_ch = e_sh = e_wh = 0
+    checked = 0
+    for i in pick:
+        if ovf[i]:
+            continue
+        exp = collect_intv(opt, fm, reads[i])
+        mine = flat[row_off[i]: row_off[i + 1]]
+        e_ch = max(e_ch, _tuples_err([tuple(r) for r in mine.tolist()], exp))
+        for j, p in enumerate(exp):
+            lo, hi = k_off[row_off[i] + j], k_off[row_off[i] + j + 1]
+            exp_ks = np.asarray(sample_ks(p, opt.max_occ), np.int64)
+            e_sh = max(e_sh, _diff(ks[lo:hi], exp_ks))
+            e_wh = max(e_wh, _diff(rb[lo:hi], fm.sa_lookup(exp_ks)))
+        checked += 1
+    # the kernels alone on prepared operands, with the work counters
+    q8, ql = qseq.contiguous(), qlen.to(torch.int32).contiguous()
+    rows = torch.zeros((B, so.M_SLOTS, 5), dtype=torch.int64, device=dev)
+    n32, o32 = (torch.zeros(B, dtype=torch.int32, device=dev) for _ in range(2))
+    nks = torch.zeros(B, dtype=torch.int64, device=dev)
+    work = torch.zeros((B, 5), dtype=torch.int32, device=dev)
+    flags = torch.zeros(1, dtype=torch.int32, device=dev)
+    c_ms = _event_ms(lambda: so.collect_intv_launch(
+        dfm, q8, ql, params, so.M_SLOTS, K, rows, n32, o32, nks, flags, work),
+        10, dev)
+    cold_ms = _cold_ms(lambda: so.collect_intv_launch(
+        dfm, q8, ql, params, so.M_SLOTS, K, rows, n32, o32, nks, flags, work),
+        5, dev)
+    fmops._raise_flags("collect_intv", flags)
+    nr = torch.where(o32.bool(), 0, n32)
+    row_o, ks_o, n_tot, ks_tot = so._scan_offsets(nr, nks)
+    flat2 = torch.empty((n_tot, 5), dtype=torch.int64, device=dev)
+    ks2 = torch.empty(ks_tot, dtype=torch.int64, device=dev)
+    s_ms = _event_ms(lambda: so.sample_ks_launch(rows, nr, row_o, ks_o,
+                                                 params.max_occ, flat2, ks2),
+                     10, dev)
+    e_c = max(e_c, _diff(rows[ok], iv.rows[ok]))
+    e_s = max(e_s, _diff(flat2, got.flat), _diff(ks2, got.ks))
+    w = work.cpu().numpy().astype(np.int64)
+    print(f"  collect_intv on {B} reads ({len(batch)} of phase 4's PE batch and "
+          f"{len(edges)} edge reads; {int(ovf.sum())} flagged by the K/M budget): "
+          f"kernel {c_ms:.4f} ms repeated, {cold_ms:.4f} ms from a cold L2, "
+          f"plain PyTorch {c_plain_ms:.4f} ms (once); max|kernel-plain| {e_c}, "
+          f"max|kernel-host| {e_ch} ({checked} reads)")
+    print(f"  collect_intv work per read: smem1a calls mean "
+          f"{w[:, 0].mean():.3f} (max {w[:, 0].max()}), strategy1 calls mean "
+          f"{w[:, 1].mean():.3f} (max {w[:, 1].max()}), bwt_extend calls mean "
+          f"{w[:, 2].mean():.2f} (max {w[:, 2].max()}); K slots needed mean "
+          f"{w[:, 4].mean():.2f} (max {w[:, 4].max()}), more than "
+          f"{so.K_SLOTS} in {int((w[:, 4] > so.K_SLOTS).sum())} reads; "
+          f"flagged at K = {K} by K {int((w[:, 3] == 1).sum())}, by M "
+          f"{int((w[:, 3] == 2).sum())}; {len(flat)} rows, {len(ks)} SA rows")
+    print(f"  sample_ks on those rows: kernel {s_ms:.4f} ms, plain PyTorch "
+          f"{s_plain_ms:.4f} ms (once); max|kernel-plain| {e_s}, "
+          f"max|kernel-host| {e_sh}; SA walks of its rows max|kernel-plain| "
+          f"{e_w}, max|kernel-host| {e_wh}")
+    res["collect_intv"] = dict(err=max(e_c, e_ch), ms=c_ms, plain_ms=c_plain_ms)
+    res["sample_ks"] = dict(err=max(e_s, e_sh), ms=s_ms, plain_ms=s_plain_ms)
+    res["walks_err"] = max(e_w, e_wh)
+    if any(v["err"] for k, v in res.items() if k != "walks_err") or res["walks_err"]:
+        raise AssertionError("a seeding kernel disagrees with its references")
+    return res
+
+
+def _check_seeded(tag, res, reads, min_share=0.95):
+    """The seeding kernels ran in ``res``'s run, every read was seeded once,
+    every read seeded on the host was flagged by a budget, no read of up to
+    K_MAX bases overflowed K, and at least ``min_share`` of the reads were
+    seeded on the card."""
+    from bwamem_tpu_torch.ops.seed import K_MAX
+
+    st, la = res["seed_stats"], res["seed_launches"]
+    n_reads = len(reads)
+    if (la["collect_intv"] <= 0 or la["sample_ks"] <= 0
+            or st["smem1a_calls"] <= 0 or st["strategy1_calls"] <= 0):
+        raise AssertionError(f"{tag}: the seeding kernels did not run")
+    if st["k_overflows"] and max(len(r) for r in reads) <= K_MAX:
+        raise AssertionError(f"{tag}: {st['k_overflows']} reads of at most "
+                             f"{K_MAX} bases overflowed K = {K_MAX}")
+    if st["device_reads"] + st["host_reads"] != n_reads:
+        raise AssertionError(f"{tag}: reads seeded {st['device_reads']} + "
+                             f"{st['host_reads']}, not {n_reads}")
+    if st["host_reads"] != st["k_overflows"] + st["m_overflows"]:
+        raise AssertionError(f"{tag}: {st['host_reads']} reads seeded on the "
+                             "host, not all of them flagged by a budget")
+    if st["device_reads"] < min_share * n_reads:
+        raise AssertionError(f"{tag}: only {st['device_reads']} of {n_reads} "
+                             "reads seeded on the card")
+
+
+def phase_device_seed(dev, index, runs):
+    """Phase 11: the batches of phase 4 with the seeding on the card."""
+    from bwamem_tpu_torch import BwaMemAligner
+    from bwamem_tpu_torch.engine.pipeline import SA_STATS
+
+    out = {}
+    for tag, mode, stages in (("pe+seed+sa", "pe", ("seed", "sa_lookup")),
+                              ("se+seed+sa", "se", ("seed", "sa_lookup")),
+                              ("pe+seed", "pe", ("seed",))):
+        r = runs[mode]
+        port = BwaMemAligner(index, device=dev, device_stages=stages)
+        if mode == "pe":
+            _pe_setup(port)
+        port.align_seqs(r["warm"])
+        res = _port_run(tag, port, r["batch"], r["ref"], r["t_host"], dev)
+        _check_seeded(tag, res, r["batch"])
+        if "sa_lookup" in stages and (res["sa_launches"] <= 0
+                                      or SA_STATS.host_sa_rows):
+            raise AssertionError(f"{tag}: SA walks did not all run on the card")
+        st = res["stages"]
+        print(f"  {tag}: seed stage {st['seed']:.4f} s, sa_lookup stage "
+              f"{st['sa_lookup']:.4f} s; phase 4's host C++ seed stage "
+              f"{r['stages']['seed']:.4f} s, sa_lookup {r['stages']['sa_lookup']:.4f} s")
+        out[tag] = res
+    main = out["pe+seed+sa"]
+    calls = {"smem1a": main["seed_stats"]["smem1a_calls"],
+             "strategy1": main["seed_stats"]["strategy1_calls"]}
+    return dict(runs=out, launches=main["seed_launches"], calls=calls)
 
 
 def main() -> int:
@@ -748,13 +1084,22 @@ def main() -> int:
     print("[7] device SA stage: BwaMemAligner(device='cuda', "
           "device_stages=('sa_lookup',)) vs bwamem_tpu host")
     sa = phase_device_sa(dev, index, fm, runs)
-    index.close()
 
-    print("[8] chr20 scale: 64 Mbp genome, SA walks and extension on the card")
+    print("[8] chr20 scale: 64 Mbp genome, seeding, SA walks and extension on "
+          "the card")
     big = phase_chr20(dev)
 
     print("[9] op probe (port of benchmarks/mosaic_probe.py)")
     probe = phase_probe(dev)
+
+    print("[10] seeding kernels vs plain PyTorch (card) vs host oracle, "
+          "tolerance 0 (integers, exact)")
+    seed_k = phase_seed_kernels(dev, fm, codes, runs["pe"]["batch"])
+
+    print("[11] device seed stage: BwaMemAligner(device='cuda', "
+          "device_stages=('seed', 'sa_lookup') / ('seed',)) vs bwamem_tpu host")
+    seed_run = phase_device_seed(dev, index, runs)
+    index.close()
 
     fm_src = "bwamem_tpu_torch/csrc/fmindex.cu"
     print(json.dumps({"kernels": [
@@ -776,13 +1121,32 @@ def main() -> int:
          "plain_ms": big["rank"]["bwt_extend"][1]},
         {"name": "sa_lookup", "route": "cuda", "source": fm_src,
          "replaces": "bwamem_tpu/ops/fmindex_tpu.py:382",
-         "launches": sa["pe"]["launches"], "max_abs_err": fm_err["sa_lookup"],
+         "launches": sa["pe"]["launches"],
+         "max_abs_err": max(fm_err["sa_lookup"], seed_k["walks_err"]),
          "ms": big["sa_ms"], "plain_ms": big["sa_plain_ms"]},
         {"name": "op_probe", "route": "cuda",
          "source": "bwamem_tpu_torch/csrc/op_probe.cu",
          "replaces": "benchmarks/mosaic_probe.py:44",
          "launches": probe["launches"], "max_abs_err": probe["err"],
          "ms": probe["ms"], "plain_ms": probe["plain_ms"]},
+    ] + [
+        {"name": name, "route": "cuda", "source": "bwamem_tpu_torch/csrc/seed.cu",
+         "replaces": SEED_REPLACES[name],
+         "launches": seed_run["calls"][name],
+         "launches_are": f"calls of the __device__ function {name} inside "
+                         "collect_intv_kernel in the main path's run, as that "
+                         "kernel counts them",
+         "own_kernel_launches": seed_run["launches"][name],
+         "max_abs_err": seed_k[name]["err"], "ms": seed_k[name]["ms"],
+         "plain_ms": seed_k[name]["plain_ms"]}
+        for name in ("smem1a", "strategy1")
+    ] + [
+        {"name": name, "route": "cuda", "source": "bwamem_tpu_torch/csrc/seed.cu",
+         "replaces": SEED_REPLACES[name],
+         "launches": seed_run["launches"][name],
+         "max_abs_err": seed_k[name]["err"], "ms": seed_k[name]["ms"],
+         "plain_ms": seed_k[name]["plain_ms"]}
+        for name in ("collect_intv", "sample_ks")
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""The port's BwaMemAligner (extension waves on the CPU through the plain
-PyTorch version) against bwamem_tpu's host aligner: equal records, read for
-read, on a synthetic genome and on the golden rotavirus reads."""
+"""The port's BwaMemAligner (extension waves, and with ``device_stages`` the
+seeding and the SA walks, on the CPU through the plain PyTorch versions)
+against bwamem_tpu's host aligner: equal records, read for read, on a
+synthetic genome and on the golden rotavirus reads."""
 import os
 
 import numpy as np
@@ -16,7 +17,9 @@ from bwamem_tpu.utils.synth import simulate_pairs, synthetic_genome
 from bwamem_tpu_torch import BwaMemAligner
 from bwamem_tpu_torch.engine.extend_batch import STATS
 from bwamem_tpu_torch.engine.pipeline import SA_STATS
+from bwamem_tpu_torch.engine.seed_device import SEED_STATS
 from bwamem_tpu_torch.ops import extend as ext
+from bwamem_tpu_torch.ops import seed as seedops
 
 ROTAVIRUS = os.path.join(os.path.dirname(__file__), "fixtures",
                          "rotavirus.bwa.img")
@@ -108,6 +111,40 @@ def test_device_sa_lookup_in_the_python_oracle_branch(genome, monkeypatch):
     assert SA_STATS.device_sa_rows > 0 and SA_STATS.host_sa_rows == 0
 
 
+@pytest.mark.parametrize("natives", [True, False], ids=("native", "python"))
+@pytest.mark.parametrize("stages", [("seed",), ("seed", "sa_lookup")],
+                         ids=("seed", "seed_sa"))
+def test_device_seed_matches_host_aligner(genome, monkeypatch, stages, natives):
+    """device_stages with "seed": every read seeded by the port's plain
+    seeding on the CPU (no read of this genome overflows a budget), the SA
+    walks on the host or through the port's plain walk; with the host C++
+    natives, and without them (the Python seeding and chaining branch)."""
+    from bwamem_tpu.engine import native_fm
+
+    index, reads = genome
+    if not natives:
+        reads = reads[:24]
+    host = HostAligner(index)
+    port = BwaMemAligner(index, device="cpu", min_device_jobs=1,
+                         device_stages=stages)
+    for a in (host, port):
+        _pe_mode(a, "fixed")
+    expected = _records(host, reads)
+    if not natives:
+        monkeypatch.setattr(native_fm, "available", lambda: False)
+    SEED_STATS.reset()
+    SA_STATS.reset()
+    before = dict(seedops.LAUNCHES)
+    got = _records(port, reads)
+    assert seedops.LAUNCHES == before  # the CPU never launches the kernels
+    assert (SEED_STATS.device_reads, SEED_STATS.host_reads) == (len(reads), 0)
+    if "sa_lookup" in stages:
+        assert SA_STATS.device_sa_rows > 0 and SA_STATS.host_sa_rows == 0
+    else:
+        assert SA_STATS.device_sa_rows == 0 and SA_STATS.host_sa_rows > 0
+    assert got == expected
+
+
 def test_sa_walks_stay_on_host_by_default(genome):
     index, reads = genome
     SA_STATS.reset()
@@ -115,7 +152,7 @@ def test_sa_walks_stay_on_host_by_default(genome):
     assert SA_STATS.host_sa_rows > 0 and SA_STATS.device_sa_rows == 0
 
 
-@pytest.mark.parametrize("stages", [("seed",), ("chain",), ("sa_lookup", "chain"),
+@pytest.mark.parametrize("stages", [("seed", "chain"), ("chain",), ("sa_lookup", "chain"),
                                     ("extend",)])
 def test_device_stages_the_port_lacks_raise(rotavirus, stages):
     with pytest.raises(ValueError):

@@ -1,8 +1,9 @@
 """The port on the card: the CUDA kernels (SW extension, occ4, bwt_extend,
-SA walk, op probe) against their plain PyTorch versions on the same CUDA
-tensors, exactly, the FM kernels also against the host FMIndex, and the
-aligner with device="cuda" (with and without the device SA stage) against
-bwamem_tpu's host aligner.
+SA walk, op probe, and the seeding kernels smem1a, strategy1, collect_intv
+and sample_ks) against their plain PyTorch versions on the same CUDA
+tensors, exactly, the FM and seeding kernels also against the host oracles,
+and the aligner with device="cuda" (with and without the device seed and SA
+stages) against bwamem_tpu's host aligner.
 
 Imports nothing of JAX, so that it runs where JAX is not installed:
 
@@ -17,6 +18,8 @@ import torch
 from bwamem_tpu_torch.benchmarks import op_probe
 from bwamem_tpu_torch.ops import extend as ext
 from bwamem_tpu_torch.ops import fmindex as fmops
+from bwamem_tpu_torch.ops import seed as so
+from bwamem_tpu_torch.utils import seed_cases
 from bwamem_tpu_torch.utils.extend_cases import ARRAYS, CASES, jobs, make_case
 
 needs_card = pytest.mark.skipif("not torch.cuda.is_available()",
@@ -146,9 +149,128 @@ def test_cuda_op_probe_matches_plain(name):
     assert torch.equal(got, op_probe.probe_torch(p, x, 64))
 
 
+@pytest.fixture(scope="module")
+def seed_data():
+    """The seeding cases' genome (sa_intv 8) and reads; the last read
+    overflows the K-slot budget."""
+    from bwamem_tpu.engine.fmindex import FMIndex
+    from bwamem_tpu.index.build import build_index
+    from bwamem_tpu.utils.fasta import Fasta, FastaContig
+
+    rng = np.random.default_rng(404)
+    contigs, kread = seed_cases.genome(rng)
+    fasta = Fasta([FastaContig(f"c{i}", "", c) for i, c in enumerate(contigs)])
+    fm = FMIndex(build_index(fasta, sa_intv=8))
+    return fm, seed_cases.reads(contigs, kread, rng)
+
+
+def _seed_lanes(reads, seed):
+    lanes = seed_cases.lanes(reads, seed)
+    qseq, qlen = so.pad_reads([reads[i] for i, _, _ in lanes], "cuda")
+    x = torch.tensor([x for _, x, _ in lanes], dtype=torch.int32, device="cuda")
+    mi = torch.tensor([m for _, _, m in lanes], dtype=torch.int64, device="cuda")
+    return lanes, qseq, qlen, x, mi
+
+
 @pytest.mark.cuda
 @needs_card
-@pytest.mark.parametrize("stages", [(), ("sa_lookup",)], ids=("host_sa", "card_sa"))
+@pytest.mark.parametrize("K", (so.K_SLOTS, so.K_MAX), ids=("k24", "kmax"))
+def test_cuda_smem1a_and_strategy1_match_plain_and_oracle(seed_data, K):
+    from bwamem_tpu.api.options import MemOptions
+    from bwamem_tpu.engine.seed import seed_strategy1, smem1a
+
+    fm, reads = seed_data
+    opt = MemOptions()
+    dfm = fmops.DeviceFMIndex.from_host(fm, "cuda")
+    lanes, qseq, qlen, x, mi = _seed_lanes(reads, 1)
+    before = dict(so.LAUNCHES)
+    got = so.smem1a(dfm, qseq, qlen, x, mi, K)
+    for g, p in zip(got, so.smem1a_torch(dfm, qseq, qlen, x, mi, K)):
+        assert torch.equal(g, p)
+    assert bool(got.ovf.any()) == (K == so.K_SLOTS)  # the K-overflow read
+    hit = so.strategy1(dfm, qseq, qlen, x, opt.min_seed_len, opt.max_mem_intv)
+    for g, p in zip(hit, so.strategy1_torch(dfm, qseq, qlen, x, opt.min_seed_len,
+                                            opt.max_mem_intv)):
+        assert torch.equal(g, p)
+    assert {k: so.LAUNCHES[k] - before[k] for k in ("smem1a", "strategy1")} == {
+        "smem1a": 1, "strategy1": 1}
+    got = [t.cpu().numpy() for t in got]
+    hit = [t.cpu().numpy() for t in hit]
+    for b, (i, xs, m) in enumerate(lanes):
+        if xs >= len(reads[i]) or reads[i][xs] > 3:
+            assert got[0][b] == xs + 1 and got[6][b] == 0 and not hit[0][b]
+            continue
+        ret, mems = smem1a(fm, reads[i], xs, m)
+        assert got[0][b] == ret
+        if not got[7][b]:
+            mine = [tuple(int(v[b, j]) for v in got[1:6]) for j in range(got[6][b])]
+            assert mine[::-1] == [tuple(p) for p in mems], b
+        nxt, h = seed_strategy1(fm, reads[i], xs, opt.min_seed_len,
+                                opt.max_mem_intv)
+        assert hit[6][b] == nxt and bool(hit[0][b]) == (h is not None)
+        if h is not None:
+            assert tuple(int(v[b]) for v in hit[1:6]) == tuple(h)
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("M,K", ((so.M_SLOTS, so.K_SLOTS), (4, so.K_SLOTS),
+                                 (so.M_SLOTS, so.K_MAX)),
+                         ids=("m48k24", "m4k24", "m48kmax"))
+def test_cuda_seed_sa_matches_plain_and_oracle(seed_data, M, K):
+    """collect_intv + sample_ks + the SA walk on the card against the plain
+    chain on the card and the host oracle, per read; M = 4 forces
+    M-overflows, K = 24 the K-overflow read's."""
+    from bwamem_tpu.api.options import MemOptions
+    from bwamem_tpu.engine.chain import sample_ks
+    from bwamem_tpu.engine.seed import collect_intv
+
+    fm, reads = seed_data
+    opt = MemOptions()
+    params = so.SeedParams.from_opt(opt)
+    dfm = fmops.DeviceFMIndex.from_host(fm, "cuda")
+    qseq, qlen = so.pad_reads(reads, "cuda")
+    before = dict(so.LAUNCHES)
+    got = so.seed_sa(dfm, qseq, qlen, params, M, K=K)
+    assert {k: so.LAUNCHES[k] - before[k]
+            for k in ("collect_intv", "sample_ks")} == {
+        "collect_intv": 1, "sample_ks": 1}
+    plain = so.seed_sa_torch(dfm, qseq, qlen, params, M, K=K)
+    ovf = got.intervals.ovf
+    assert torch.equal(ovf, plain.intervals.ovf)
+    ok = ~ovf
+    assert torch.equal(got.intervals.n[ok], plain.intervals.n[ok])
+    assert torch.equal(got.intervals.rows[ok], plain.intervals.rows[ok])
+    assert torch.equal(got.intervals.nks, plain.intervals.nks)
+    for g, p in zip(got[1:], plain[1:]):
+        assert torch.equal(g, p)
+    rbegs = fmops.sa_lookup(dfm, got.ks)  # as the pipeline walks them
+    assert torch.equal(rbegs, fmops.sa_lookup_torch(dfm, plain.ks))
+    n = got.intervals.n.cpu().numpy()
+    ovf = ovf.cpu().numpy()
+    flat, rbegs = got.flat.cpu().numpy(), rbegs.cpu().numpy()
+    expect_ovf = [len(collect_intv(opt, fm, r)) > M for r in reads]
+    expect_ovf[-1] = expect_ovf[-1] or K == so.K_SLOTS
+    assert ovf.tolist() == expect_ovf
+    row, k = 0, 0
+    for r, read in enumerate(reads):
+        if ovf[r]:
+            continue
+        exp = collect_intv(opt, fm, read)
+        assert [tuple(v) for v in flat[row: row + n[r]].tolist()] == [
+            tuple(p) for p in exp], r
+        row += n[r]
+        for p in exp:
+            ks = np.asarray(sample_ks(p, opt.max_occ), np.int64)
+            assert np.array_equal(rbegs[k: k + len(ks)], fm.sa_lookup(ks)), r
+            k += len(ks)
+    assert (row, k) == (len(flat), len(rbegs))
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("stages", [(), ("sa_lookup",), ("seed",), ("seed", "sa_lookup")],
+                         ids=("host_sa", "card_sa", "card_seed", "card_seed_sa"))
 def test_cuda_aligner_matches_host(tmp_path, stages):
     from bwamem_tpu import BwaMemAligner as HostAligner
     from bwamem_tpu import BwaMemIndex
@@ -159,6 +281,7 @@ def test_cuda_aligner_matches_host(tmp_path, stages):
     from bwamem_tpu_torch import BwaMemAligner
     from bwamem_tpu_torch.engine.extend_batch import STATS
     from bwamem_tpu_torch.engine.pipeline import SA_STATS
+    from bwamem_tpu_torch.engine.seed_device import SEED_STATS
 
     codes = synthetic_genome(200_000, np.random.default_rng(7))
     img = str(tmp_path / "g.img")
@@ -172,15 +295,24 @@ def test_cuda_aligner_matches_host(tmp_path, stages):
         a.align_pairs()
     STATS.reset()
     SA_STATS.reset()
+    SEED_STATS.reset()
     before = ext.LAUNCHES
     sa_before = fmops.LAUNCHES["sa_lookup"]
+    seed_before = so.LAUNCHES["collect_intv"]
     got = port.align_seqs(reads)
     assert ext.LAUNCHES - before == STATS.device_extend_waves > 0
-    if stages:
+    if "sa_lookup" in stages:
         assert fmops.LAUNCHES["sa_lookup"] > sa_before
         assert SA_STATS.device_sa_rows > 0 and SA_STATS.host_sa_rows == 0
     else:
         assert SA_STATS.device_sa_rows == 0
+    if "seed" in stages:
+        assert so.LAUNCHES["collect_intv"] > seed_before
+        assert SEED_STATS.device_reads + SEED_STATS.host_reads == len(reads)
+        assert SEED_STATS.device_reads >= 0.95 * len(reads)
+    else:
+        assert so.LAUNCHES["collect_intv"] == seed_before
+        assert SEED_STATS.device_reads == SEED_STATS.host_reads == 0
     ref = host.align_seqs(reads)
     assert [[vars(a) for a in r] for r in got] == [
         [vars(a) for a in r] for r in ref]
