@@ -1,9 +1,8 @@
-from bwamem_tpu.api.alignment import BwaMemAlignment
-from bwamem_tpu.api.index import BwaMemIndex
-from bwamem_tpu.api.options import MemOptions
-from bwamem_tpu.api.pestats import BwaMemPairEndStats
-
 from .aligner import BwaMemAligner
+from .alignment import BwaMemAlignment
+from .index import BwaMemIndex
+from .options import MemOptions
+from .pestats import BwaMemPairEndStats
 
 __all__ = [
     "BwaMemAligner", "BwaMemAlignment", "BwaMemIndex", "BwaMemPairEndStats",

@@ -74,15 +74,14 @@ def main(argv=None) -> int:
         print("seed_timing: no CUDA card (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 1
-    from bwamem_tpu.api.options import MemOptions
-    from bwamem_tpu.engine.fmindex import FMIndex
-    from bwamem_tpu.index.build import build_index
-    from bwamem_tpu.utils.encoding import seq_to_codes_batch
-    from bwamem_tpu.utils.fasta import Fasta, FastaContig
-    from bwamem_tpu.utils.synth import simulate_pairs, synthetic_genome
-
+    from ..api.options import MemOptions
+    from ..engine.fmindex import FMIndex
+    from ..index.build import build_index
     from ..ops import seed as so
     from ..ops.fmindex import DeviceFMIndex
+    from ..utils.encoding import seq_to_codes_batch
+    from ..utils.fasta import Fasta, FastaContig
+    from ..utils.synth import simulate_pairs, synthetic_genome
 
     dev = torch.device("cuda", torch.cuda.current_device())
     card = subprocess.run(

@@ -3,8 +3,9 @@
 //
 // Replaces the JAX device programs of bwamem_tpu/ops/fmindex_tpu.py:
 // `occ4_device` (with `_rows_for` and `_block_counts4`), `_extend_core` /
-// `extend_device`, and `_sa_tick` + `sa_lookup_body` / `sa_lookup`.  Their
-// semantics are bwa's bwt_occ4, bwt_extend and bwt_sa, as the host oracle
+// `extend_device`, and `_sa_tick` + `sa_lookup_body` / `sa_lookup`, and of
+// bwamem_tpu/ops/seed_tpu.py `backward_search_batch`.  Their semantics are
+// bwa's bwt_occ4, bwt_extend, bwt_sa and bwt_match_exact, as the host oracle
 // bwamem_tpu/engine/fmindex.py writes them out.  The line decode they share,
 // and the bwt_extend arithmetic (also called by the seeding kernels of
 // seed.cu), are in fmindex.cuh.
@@ -12,7 +13,10 @@
 // Design: one thread per query.  `occ4` reads one line per row;
 // `bwt_extend` one line for each of its two rank queries; `sa_lookup` walks
 // k <- LF(k), one line per step, until k is a multiple of sa_intv, then
-// returns sa[k / sa_intv] + steps.  The JAX walk's compaction ladder and
+// returns sa[k / sa_intv] + steps; `backward_search` narrows [k, l] by one
+// base of its read per step, from the read's last column leftwards, two
+// rank queries a step, until the interval empties, a base is ambiguous or
+// qlen bases are matched.  The JAX walk's compaction ladder and
 // argsort un-permute are TPU workarounds for lockstep lanes; here each
 // thread stops when its own walk ends, and a warp runs as long as its
 // longest walk.
@@ -105,6 +109,33 @@ __global__ void __launch_bounds__(kThreads) sa_lookup_kernel(
   out[i] = sa[k / sa_intv] + steps;
 }
 
+__global__ void __launch_bounds__(kThreads) backward_search_kernel(
+    Fm fm, const uint8_t* __restrict__ qseq,  // [B, L], reads right-aligned
+    int L, const int32_t* __restrict__ qlen, int B,
+    int64_t* __restrict__ k_out, int64_t* __restrict__ l_out,
+    int32_t* __restrict__ matched) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= B) return;
+  const uint8_t* q = qseq + static_cast<int64_t>(i) * L;
+  const int n = qlen[i] < L ? qlen[i] : L;
+  int64_t k = 0, l = fm.seq_len;
+  int m = 0;
+  for (; m < n; ++m) {
+    const int c = q[L - 1 - m];
+    if (c > 3) break;
+    int ck[4], cl[4];
+    bwamem_fm::occ4(fm, k - 1, ck);
+    bwamem_fm::occ4(fm, l, cl);
+    const int64_t k2 = fm.L2[c] + ck[c] + 1, l2 = fm.L2[c] + cl[c];
+    if (k2 > l2) break;
+    k = k2;
+    l = l2;
+  }
+  k_out[i] = k;
+  l_out[i] = l;
+  matched[i] = m;
+}
+
 Fm make_fm(const uint32_t* lines, int W, int lg, const int64_t* L2,
            int64_t primary, int64_t seq_len) {
   Fm fm;
@@ -154,5 +185,15 @@ extern "C" int bwamem_fm_sa_lookup_launch(
   sa_lookup_kernel<<<blocks(n), kThreads, 0, stream>>>(
       make_fm(lines, W, lg, L2, primary, seq_len), sa, sa_intv, ks, n, out,
       err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bwamem_fm_backward_search_launch(
+    const uint32_t* lines, int W, int lg, const int64_t* L2, int64_t primary,
+    int64_t seq_len, const uint8_t* qseq, int L, const int32_t* qlen, int B,
+    int64_t* k_out, int64_t* l_out, int32_t* matched, cudaStream_t stream) {
+  backward_search_kernel<<<blocks(B), kThreads, 0, stream>>>(
+      make_fm(lines, W, lg, L2, primary, seq_len), qseq, L, qlen, B, k_out,
+      l_out, matched);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,9 +6,9 @@ device explicitly and has no probe.  ``min_device_jobs`` keeps the
 reference's small-wave routing (bwamem_tpu/engine/extend_batch.py
 HOST_FALLBACK_JOBS): a wave with fewer jobs runs on the host, where a launch
 and two copies would cost more than the DP itself.  ``device_sa_lookup``
-sends every sampled-SA walk of a batch to the device and ``device_seed``
-the three seeding rounds (the JAX package's fields of the same names);
-they are set only through the aligner's ``device_stages``, never from the
+sends every sampled-SA walk of a batch to the device, ``device_seed`` the
+three seeding rounds and ``device_chain`` the chaining and chain filter
+(the JAX package's fields of the same names); they are set only through the aligner's ``device_stages``, never from the
 environment.
 """
 from __future__ import annotations
@@ -17,7 +17,9 @@ from dataclasses import dataclass
 
 import torch
 
-from bwamem_tpu.engine.extend_batch import HOST_FALLBACK_JOBS
+# below this many jobs a device wave's launch and two copies cost more than
+# the DP on the host (bwamem_tpu/engine/extend_batch.py HOST_FALLBACK_JOBS)
+HOST_FALLBACK_JOBS = 48
 
 
 @dataclass(frozen=True)
@@ -26,6 +28,7 @@ class ExecConfig:
     min_device_jobs: int = HOST_FALLBACK_JOBS
     device_sa_lookup: bool = False
     device_seed: bool = False
+    device_chain: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "device", torch.device(self.device))

@@ -4,8 +4,7 @@ The counterpart of bwamem_tpu/engine/extend_batch.py: every read's (chain,
 seed) tasks advance in lockstep, one task per read per wave, and each wave's
 banded extensions run as one batch.  Per-read seed order, contained-seed
 pruning (``_prune``) and band-doubling retries are the reference's; the
-reference's ``_run_kernel`` reaches JAX, so the wave runner and the two
-functions that call it are the port's own.  A wave of at least
+wave runner and the two functions that call it are the port's own.  A wave of at least
 ``exec_cfg.min_device_jobs`` jobs goes to the device kernel
 (``ops.extend.ksw_extend_batch_np``), a smaller one to the host C++
 ``native_ksw`` (or the Python oracle without it).
@@ -13,16 +12,17 @@ functions that call it are the port's own.  A wave of at least
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass, field
 from typing import List
 
 import numpy as np
 
-from bwamem_tpu.engine import native_ksw
-from bwamem_tpu.engine.extend import MAX_BAND_TRY, AlnReg, ksw_extend2
-from bwamem_tpu.engine.extend_batch import _prep_read, _prune
-
+from ..api.options import MemOptions
 from ..ops.extend import ksw_extend_batch_np
+from . import native_ksw
+from .chain import Chain
 from .exec_ctx import ExecConfig
+from .extend import MAX_BAND_TRY, AlnReg, ksw_extend2
 from .state import device_scoring
 
 
@@ -50,6 +50,128 @@ class WaveStats:
 
 
 STATS = WaveStats()
+
+
+@dataclass
+class _Task:
+    chain: Chain
+    ci: int  # chain index within the read (identity, not value equality)
+    seed_idx: int  # index into chain.seeds
+    srt_pos: int  # position in the chain's srt order (for overlap checks)
+
+
+@dataclass
+class _ReadState:
+    query: np.ndarray
+    chains: List[Chain]
+    tasks: List[_Task] = field(default_factory=list)
+    task_i: int = 0
+    regs: List[AlnReg] = field(default_factory=list)
+    # per-chain prep
+    rmax: dict = field(default_factory=dict)  # chain id -> (rmax0, rmax1)
+    rseq: dict = field(default_factory=dict)
+    srt: dict = field(default_factory=dict)
+    srt_alive: dict = field(default_factory=dict)
+
+
+def _prep_read(opt: MemOptions, idx, query: np.ndarray, chains: List[Chain]) -> _ReadState:
+    st = _ReadState(query=query, chains=chains)
+    qlen = len(query)
+    bns = idx.bns
+    l_pac = bns.l_pac
+    for ci, c in enumerate(chains):
+        if not c.seeds:
+            continue
+        rmax0, rmax1 = l_pac << 1, 0
+        for t in c.seeds:
+            b = t.rbeg - (t.qbeg + opt.max_gap(t.qbeg))
+            e = t.rbeg + t.len + (
+                (qlen - t.qbeg - t.len) + opt.max_gap(qlen - t.qbeg - t.len)
+            )
+            rmax0 = min(rmax0, b)
+            rmax1 = max(rmax1, e)
+        rmax0 = max(rmax0, 0)
+        rmax1 = min(rmax1, l_pac << 1)
+        if rmax0 < l_pac < rmax1:
+            if c.seeds[0].rbeg < l_pac:
+                rmax1 = l_pac
+            else:
+                rmax0 = l_pac
+        fwd_mid, is_rev = bns.depos(c.seeds[0].rbeg)
+        rid = bns.pos_to_rid(fwd_mid)
+        far_beg = bns.anns[rid].offset
+        far_end = far_beg + bns.anns[rid].length
+        if is_rev:
+            far_beg, far_end = (l_pac << 1) - far_end, (l_pac << 1) - far_beg
+        rmax0 = max(rmax0, far_beg)
+        rmax1 = min(rmax1, far_end)
+        st.rmax[ci] = (rmax0, rmax1)
+        st.rseq[ci] = idx.get_seq(rmax0, rmax1)
+        srt = sorted(range(len(c.seeds)), key=lambda i: (c.seeds[i].score, i))
+        st.srt[ci] = srt
+        st.srt_alive[ci] = [True] * len(srt)
+        for pos in range(len(srt) - 1, -1, -1):
+            st.tasks.append(_Task(chain=c, ci=ci, seed_idx=srt[pos], srt_pos=pos))
+    # annotate chain index on tasks (chains processed in order; seeds of a
+    # chain are contiguous because we appended per chain)
+    return st
+
+
+def _prune(opt: MemOptions, st: _ReadState, ci: int, task: _Task, qlen: int) -> bool:
+    """The contained-seed pruning from chain2aln; True = skip extension."""
+    c = task.chain
+    s = c.seeds[task.seed_idx]
+    contained = False
+    for p in st.regs:
+        if (
+            s.rbeg < p.rb
+            or s.rbeg + s.len > p.re
+            or s.qbeg < p.qb
+            or s.qbeg + s.len > p.qe
+        ):
+            continue
+        if s.len - p.seedlen0 > 0.1 * qlen:
+            continue
+        qd, rd = s.qbeg - p.qb, s.rbeg - p.rb
+        w = min(opt.max_gap(min(qd, rd)), p.w)
+        if qd - rd < w and rd - qd < w:
+            contained = True
+            break
+        qd, rd = p.qe - (s.qbeg + s.len), p.re - (s.rbeg + s.len)
+        w = min(opt.max_gap(min(qd, rd)), p.w)
+        if qd - rd < w and rd - qd < w:
+            contained = True
+            break
+    if not contained:
+        return False
+    srt = st.srt[ci]
+    alive = st.srt_alive[ci]
+    k = task.srt_pos
+    diff = False
+    for i2 in range(k + 1, len(srt)):
+        if not alive[i2]:
+            continue
+        t = c.seeds[srt[i2]]
+        if t.len < s.len * 0.95:
+            continue
+        if (
+            s.qbeg <= t.qbeg
+            and s.qbeg + s.len - t.qbeg >= s.len >> 2
+            and t.qbeg - s.qbeg != t.rbeg - s.rbeg
+        ):
+            diff = True
+            break
+        if (
+            t.qbeg <= s.qbeg
+            and t.qbeg + t.len - s.qbeg >= s.len >> 2
+            and s.qbeg - t.qbeg != s.rbeg - t.rbeg
+        ):
+            diff = True
+            break
+    if not diff:
+        alive[k] = False
+        return True
+    return False
 
 
 def _host_wave(opt, jobs, bonuses, ws, h0s):

@@ -1,42 +1,65 @@
-"""Batched mem_align1_core for the port: seeding on the host or the port's
-device, sampled-SA walks on the host or the port's device, host chaining
-from bwamem_tpu, extension waves on the port's device.
+"""End-to-end alignment pipeline of the port ([EXT] bwamem.c:
+mem_align1_core + mem_reg2sam + bwamem_extra.c: mem_gen_alt).
 
-The counterpart of bwamem_tpu/engine/pipeline.py ``_align_regs_batch_native``
-with the fused host chain+extend core always off, so every extension goes
-through the cross-read waves of ``extend_batch.chain2aln_batch``.  Without
-the native libraries the seeding and chaining fall back to the Python
-oracles, as the reference's ``align_regs_batch`` does.  With
-``exec_cfg.device_sa_lookup`` every SA walk of the batch runs in one call
-of ``ops.fmindex.sa_lookup`` on ``exec_cfg.device`` (the JAX package's
-``device_sa_lookup`` stage); there is no host fallback from it.  With
-``exec_cfg.device_seed`` the three seeding rounds run in the port's device
-stage (``engine.seed_device``); with both, the device-seeded reads' SA
-rows go from the seeding kernels to the walk without leaving the device.
+``align_regs_batch`` is the counterpart of bwamem_tpu/engine/pipeline.py
+``align_regs_batch``/``_align_regs_batch_native`` with the fused host
+chain+extend core always off, so every extension goes through the cross-read
+waves of ``extend_batch.chain2aln_batch`` on the port's device.  Each earlier
+stage runs on the host (the C++ natives, or the Python oracles without them)
+or, by ``exec_cfg``, on the port's device:
+
+* ``device_seed``: the three seeding rounds in ``engine.seed_device``;
+* ``device_sa_lookup``: every SA walk of the batch in one call of
+  ``ops.fmindex.sa_lookup``; with ``device_seed`` too, the device-seeded
+  reads' SA rows go from the seeding kernels to the walk without leaving
+  the device;
+* ``device_chain``: mem_chain + chain_flt in ``ops.chain``; with the other
+  two, the flat interval table and the walk's output stay on the device
+  from seeding to chaining, and only chains come back.
+
+A read that overflows a stage's budget takes that stage on the host (the
+reference's rule) and is spliced in read order; there is no other fallback
+from the device: a failed build, launch or kernel flag raises.  The record
+assembly (``reg2sam_records``, ``gen_alt_xa``) is the host's.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
-from bwamem_tpu.engine import native_chain, native_fm
-from bwamem_tpu.engine.chain import (
-    chain_flt, flt_chained_seeds, mem_chain, sample_ks,
-)
-from bwamem_tpu.engine.extend import AlnReg
-from bwamem_tpu.engine.finalize import sort_dedup_patch
-from bwamem_tpu.engine.pipeline import _flag_alt_regs
-from bwamem_tpu.engine.seed import SmemIntv
-from bwamem_tpu.engine.seed_batch import collect_intv_batch
-from bwamem_tpu.utils.timers import TIMERS
-
+from ..api.options import MEM_F_ALL, MEM_F_NO_MULTI, MemOptions
+from ..ops import chain as chainops
 from ..ops import fmindex as fmops
+from ..utils.timers import TIMERS
+from . import native_chain, native_fm
+from .chain import chain_flt, flt_chained_seeds, mem_chain
 from .exec_ctx import ExecConfig
+from .extend import AlnReg
 from .extend_batch import chain2aln_batch
-from .seed_device import seed_batch
-from .state import device_fm
+from .finalize import Aln, reg2aln, sort_dedup_patch
+from .fmindex import FMIndex
+from .seed import SmemIntv
+from .seed_device import host_rows, seed_batch
+from .state import device_contigs, device_fm
+
+
+class Engine:
+    """One opened index + its FM query structures (host oracle engine)."""
+
+    def __init__(self, idx):
+        self.idx = idx
+        self.fm = FMIndex(idx)
+
+
+def _flag_alt_regs(bns, regs: List[AlnReg]) -> List[AlnReg]:
+    """[EXT] mem_align1_core tail: regs on ALT contigs get is_alt=1."""
+    anns = bns.anns
+    for r in regs:
+        if r.rid >= 0 and anns[r.rid].is_alt:
+            r.is_alt = 1
+    return regs
 
 
 class SaStats:
@@ -56,7 +79,31 @@ class SaStats:
 SA_STATS = SaStats()
 
 
-def _device_walk(dfm, ks: torch.Tensor) -> np.ndarray:
+class ChainStats:
+    """Reads chained on the device and on the host (seeded on the host, or
+    flagged by the C budget: ``c_overflows``), the chain kernels launched,
+    the largest table chained on the device (so a benchmark can time the
+    kernels on it), and the reads the JAX package's per-batch budgets would
+    have sent to the host (more seeds than its S bucket, more chains than
+    its C bucket)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.device_reads = 0
+        self.host_reads = 0
+        self.launches = 0
+        self.c_overflows = 0
+        self.ref_s_overflows = 0
+        self.ref_c_overflows = 0
+        self.largest_table = None
+
+
+CHAIN_STATS = ChainStats()
+
+
+def _device_walk(dfm, ks: torch.Tensor) -> torch.Tensor:
     """Text positions of the SA rows ``ks`` on the index's device: one
     call of ``ops.fmindex.sa_lookup``."""
     out = fmops.sa_lookup(dfm, ks)
@@ -64,28 +111,35 @@ def _device_walk(dfm, ks: torch.Tensor) -> np.ndarray:
     if (SA_STATS.largest_rows is None
             or ks.numel() > SA_STATS.largest_rows.numel()):
         SA_STATS.largest_rows = ks
-    return out.cpu().numpy()
+    return out
 
 
 def _sa_rows(fm, ks: np.ndarray, exec_cfg: ExecConfig) -> np.ndarray:
     """Text positions of the SA rows ``ks`` (int64): one device call when
     the stage is on the device, else the host C++ walk (or the oracle)."""
+    if not len(ks):
+        return np.zeros(0, dtype=np.int64)
     if exec_cfg.device_sa_lookup:
         dev = exec_cfg.device
-        return _device_walk(device_fm(fm, dev), torch.from_numpy(ks).to(dev))
+        return _device_walk(device_fm(fm, dev),
+                            torch.from_numpy(ks).to(dev)).cpu().numpy()
     SA_STATS.host_sa_rows += len(ks)
     if native_fm.available():
         return native_fm.sa_batch(fm, ks)
     return fm.sa_lookup(ks)
 
 
+def _excl_scan(x: np.ndarray) -> np.ndarray:
+    off = np.zeros(len(x), dtype=np.int64)
+    np.cumsum(x[:-1], out=off[1:])
+    return off
+
+
 def _ks_counts(rows: np.ndarray, max_occ: int):
     """Per row of ``rows`` [N, 5], the count of bwa sample_ks's SA rows and
     the offset of its first."""
     cnt = np.minimum(rows[:, 2], max_occ).astype(np.int64)
-    off = np.zeros(len(rows), dtype=np.int64)
-    np.cumsum(cnt[:-1], out=off[1:])
-    return cnt, off
+    return cnt, _excl_scan(cnt)
 
 
 def _sample_ks(rows: np.ndarray, max_occ: int) -> np.ndarray:
@@ -102,8 +156,8 @@ def _sample_ks(rows: np.ndarray, max_occ: int) -> np.ndarray:
 def _seed_sa(opt, eng, reads, exec_cfg: ExecConfig):
     """Three-round seeding, the vectorized ``sample_ks`` expansion and the
     SA walks; bwamem_tpu/engine/pipeline.py ``native_seed_sa`` and its
-    device routing (:126-144).  Seeding is the host C++, or with
-    ``exec_cfg.device_seed`` the port's device stage; with
+    device routing (:126-144).  Seeding is the host's (``host_rows``), or
+    with ``exec_cfg.device_seed`` the port's device stage; with
     ``device_sa_lookup`` too, the device-seeded reads' SA rows are walked
     on the device straight from the seeding kernels' output, and those of
     reads seeded on the host (budget overflows) through ``_sa_rows``.
@@ -115,7 +169,7 @@ def _seed_sa(opt, eng, reads, exec_cfg: ExecConfig):
             seeds = seed_batch(opt, eng.fm, reads, exec_cfg.device)
             rows, n_intv = seeds.rows, seeds.n_intv
         else:
-            rows, n_intv = native_fm.collect_intv_batch_raw(opt, eng.fm, reads)
+            rows, n_intv = host_rows(opt, eng.fm, reads)
     with TIMERS.stage("sa_lookup"):
         cnt, rbeg_off = _ks_counts(rows, opt.max_occ)
         if seeds is not None and exec_cfg.device_sa_lookup:
@@ -124,79 +178,126 @@ def _seed_sa(opt, eng, reads, exec_cfg: ExecConfig):
             host_row = np.repeat(seeds.on_host, n_intv)
             on_card = np.repeat(~host_row, cnt)
             rbegs = np.empty(len(on_card), dtype=np.int64)
-            rbegs[on_card] = _device_walk(seeds.dfm, seeds.ks)
+            rbegs[on_card] = _device_walk(seeds.dfm, seeds.ks).cpu().numpy()
             if not on_card.all():
                 rbegs[~on_card] = _sa_rows(
                     eng.fm, _sample_ks(rows[host_row], opt.max_occ), exec_cfg)
         else:
-            ks = _sample_ks(rows, opt.max_occ)
-            rbegs = (_sa_rows(eng.fm, ks, exec_cfg) if len(ks)
-                     else np.zeros(0, dtype=np.int64))
-    intv_off = np.zeros(len(reads), dtype=np.int64)
-    np.cumsum(n_intv[:-1], out=intv_off[1:])
-    return rows, intv_off, n_intv, rbegs, rbeg_off, cnt
+            rbegs = _sa_rows(eng.fm, _sample_ks(rows, opt.max_occ), exec_cfg)
+    return rows, _excl_scan(n_intv), n_intv, rbegs, rbeg_off, cnt
 
 
-def _chains_native(opt, eng, reads, exec_cfg: ExecConfig):
-    rows, intv_off, n_intv, rbegs, rbeg_off, cnt = _seed_sa(
-        opt, eng, reads, exec_cfg
-    )
+def _host_chains(opt, eng, qlens, which, rows, intv_off, n_intv, rbegs,
+                 rbeg_off, cnt):
+    """mem_chain + chain_flt on the host for the reads ``which`` (indices
+    into the per-read arrays ``qlens``, ``intv_off``, ``n_intv``) of a flat
+    seed table: the host C++ when it is built, else the oracle."""
+    bns = eng.idx.bns
+    if native_chain.available():
+        return native_chain.chain_batch(
+            opt, bns, qlens[which], rows, intv_off[which], n_intv[which],
+            rbegs, rbeg_off, cnt)
+    out = []
+    for i in which:
+        lo, hi = int(intv_off[i]), int(intv_off[i] + n_intv[i])
+        intervals = [SmemIntv(*r) for r in rows[lo:hi].tolist()]
+        per_intv = [rbegs[b: b + c] for b, c in zip(rbeg_off[lo:hi].tolist(),
+                                                   cnt[lo:hi].tolist())]
+        out.append(chain_flt(opt, mem_chain(opt, eng.fm, bns, int(qlens[i]),
+                                            intervals, per_intv)))
+    return out
+
+
+def _device_table(opt, eng, reads, qlens, exec_cfg: ExecConfig):
+    """The batch's flat seed table on the device for the chain stage, and
+    the table on the host of the reads seeded there (None when there are
+    none).  With the seed and SA stages on the device too, the interval
+    table and the walk's output go to the chain kernels as the seeding and
+    SA kernels left them; else the host arrays of ``_seed_sa`` are
+    uploaded."""
+    dev = exec_cfg.device
+    qlen_d = torch.from_numpy(qlens).to(dev)
+    if not (exec_cfg.device_seed and exec_cfg.device_sa_lookup):
+        return chainops.SeedTable.from_numpy(
+            dev, qlens, *_seed_sa(opt, eng, reads, exec_cfg)), None, None
+    with TIMERS.stage("seed"):
+        seeds = seed_batch(opt, eng.fm, reads, dev)
+    with TIMERS.stage("sa_lookup"):
+        rbegs = _device_walk(seeds.dfm, seeds.ks)
+        n = torch.from_numpy(
+            np.where(seeds.on_host, 0, seeds.n_intv)).to(dev)
+        cnt = seeds.rows_dev[:, 2].clamp(max=opt.max_occ)
+        tab = chainops.SeedTable(
+            qlen_d, seeds.rows_dev, torch.cumsum(n, 0) - n, n, rbegs,
+            torch.cumsum(cnt, 0) - cnt, cnt)
+        host = np.flatnonzero(seeds.on_host)
+        host_tab = None
+        if host.size:
+            rows_h, n_h = seeds.host_rows, seeds.n_intv[host]
+            cnt_h, off_h = _ks_counts(rows_h, opt.max_occ)
+            host_tab = (rows_h, _excl_scan(n_h), n_h, _sa_rows(
+                eng.fm, _sample_ks(rows_h, opt.max_occ), exec_cfg), off_h, cnt_h)
+    return tab, host, host_tab
+
+
+def _chains_device(opt, eng, reads, exec_cfg: ExecConfig):
+    """mem_chain + chain_flt of the batch in the chain kernels.  Reads
+    seeded on the host and reads flagged by the C budget are chained on the
+    host and spliced in read order."""
+    qlens = np.asarray([len(r) for r in reads], dtype=np.int32)
+    tab, host, host_tab = _device_table(opt, eng, reads, qlens, exec_cfg)
     with TIMERS.stage("chain"):
-        qlens = np.asarray([len(r) for r in reads], dtype=np.int32)
-        chains_list = native_chain.chain_batch(
-            opt, eng.idx.bns, qlens, rows, intv_off, n_intv, rbegs, rbeg_off,
-            cnt,
-        )
-        for query, chains in zip(reads, chains_list):
-            flt_chained_seeds(opt, eng.idx, len(query), query, chains)
+        before = sum(chainops.LAUNCHES.values())
+        chains_list, (ovf, seed_cnt, nslots) = chainops.chains_device_batch(
+            device_contigs(eng.idx.bns, exec_cfg.device), tab,
+            chainops.ChainParams.from_opt(opt))
+        CHAIN_STATS.launches += sum(chainops.LAUNCHES.values()) - before
+        if (CHAIN_STATS.largest_table is None
+                or tab.rbegs.numel() > CHAIN_STATS.largest_table.rbegs.numel()):
+            CHAIN_STATS.largest_table = tab
+        flagged = np.flatnonzero(ovf)
+        if flagged.size:
+            arrays = [t.cpu().numpy() for t in tab[1:]]
+            for i, chains in zip(flagged, _host_chains(
+                    opt, eng, qlens, flagged, *arrays)):
+                chains_list[i] = chains
+        if host_tab is not None:
+            rows_h, off_h, n_h, *rest = host_tab
+            for i, chains in zip(host, _host_chains(
+                    opt, eng, qlens[host], np.arange(host.size), rows_h, off_h,
+                    n_h, *rest)):
+                chains_list[i] = chains
+        n_host = flagged.size + (0 if host is None else host.size)
+        CHAIN_STATS.c_overflows += flagged.size
+        CHAIN_STATS.host_reads += n_host
+        CHAIN_STATS.device_reads += len(reads) - n_host
+        ref_s, ref_c = chainops.ref_overflows(seed_cnt, nslots)
+        CHAIN_STATS.ref_s_overflows += ref_s
+        CHAIN_STATS.ref_c_overflows += ref_c
     return chains_list
 
 
-def _chains_python(opt, eng, reads, exec_cfg: ExecConfig):
-    if exec_cfg.device_seed:
-        rows, intv_off, n_intv, rbegs, rbeg_off, cnt = _seed_sa(
-            opt, eng, reads, exec_cfg)
-        rows_all = rows.tolist()
-        intervals_list, rbegs_list = [], []
-        for o, n in zip(intv_off.tolist(), n_intv.tolist()):
-            intervals_list.append([SmemIntv(*r) for r in rows_all[o: o + n]])
-            rbegs_list.append([rbegs[b: b + c] for b, c in zip(
-                rbeg_off[o: o + n].tolist(), cnt[o: o + n].tolist())])
+def _chains(opt, eng, reads, exec_cfg: ExecConfig):
+    """Seeding, SA walks, mem_chain + chain_flt and mem_flt_chained_seeds:
+    per read its chains."""
+    if exec_cfg.device_chain:
+        chains_list = _chains_device(opt, eng, reads, exec_cfg)
     else:
-        with TIMERS.stage("seed"):
-            intervals_list = collect_intv_batch(opt, eng.fm, reads)
-        with TIMERS.stage("sa_lookup"):
-            flat_ks, spans = [], []
-            for intervals in intervals_list:
-                read_spans = []
-                for p in intervals:
-                    ks = sample_ks(p, opt.max_occ)
-                    read_spans.append((len(flat_ks), len(ks)))
-                    flat_ks.extend(ks)
-                spans.append(read_spans)
-            flat_rbegs = (_sa_rows(eng.fm, np.asarray(flat_ks, dtype=np.int64),
-                                   exec_cfg)
-                          if flat_ks else np.zeros(0, dtype=np.int64))
-        rbegs_list = [[flat_rbegs[off: off + ln] for off, ln in read_spans]
-                      for read_spans in spans]
+        table = _seed_sa(opt, eng, reads, exec_cfg)
+        with TIMERS.stage("chain"):
+            qlens = np.asarray([len(r) for r in reads], dtype=np.int32)
+            chains_list = _host_chains(opt, eng, qlens, np.arange(len(reads)),
+                                       *table)
     with TIMERS.stage("chain"):
-        chains_list = []
-        for intervals, rbegs, query in zip(intervals_list, rbegs_list, reads):
-            chains = mem_chain(opt, eng.fm, eng.idx.bns, len(query), intervals,
-                               rbegs)
-            chains = chain_flt(opt, chains)
+        for query, chains in zip(reads, chains_list):
             flt_chained_seeds(opt, eng.idx, len(query), query, chains)
-            chains_list.append(chains)
     return chains_list
 
 
 def align_regs_batch(opt, eng, reads: List[np.ndarray],
                      exec_cfg: ExecConfig) -> List[List[AlnReg]]:
     """Reads (codes 0-4) -> deduplicated alignment regions per read."""
-    if native_fm.available() and native_chain.available():
-        chains_list = _chains_native(opt, eng, reads, exec_cfg)
-    else:
-        chains_list = _chains_python(opt, eng, reads, exec_cfg)
+    chains_list = _chains(opt, eng, reads, exec_cfg)
     with TIMERS.stage("extend"):
         regs_list = chain2aln_batch(opt, eng.idx, reads, chains_list, exec_cfg)
     with TIMERS.stage("dedup"):
@@ -204,3 +305,116 @@ def align_regs_batch(opt, eng, reads: List[np.ndarray],
             _flag_alt_regs(eng.idx.bns, sort_dedup_patch(opt, eng.idx, q, regs))
             for q, regs in zip(reads, regs_list)
         ]
+
+
+def gen_alt_xa(
+    opt: MemOptions, eng: Engine, regs: List[AlnReg], qlen: int, query: np.ndarray
+) -> List[Optional[str]]:
+    """[EXT] mem_gen_alt: XA alternative-hit strings, indexed by primary reg.
+
+    Returns a list parallel to regs; XA[k] is the alt-hit string for the
+    primary region at index k (None when there are no alternates or the
+    count exceeds max_XA_hits).
+    """
+    n = len(regs)
+    xa: List[Optional[str]] = [None] * n
+
+    def pri_idx(i: int) -> int:
+        k = regs[i].secondary_all
+        if k >= 0 and regs[i].score >= regs[k].score * opt.xa_drop_ratio:
+            return k
+        return -1
+
+    cnt = [0] * n
+    has_alt = [False] * n
+    tot = 0
+    for i in range(n):
+        r = pri_idx(i)
+        if r >= 0:
+            cnt[r] += 1
+            tot += 1
+            if regs[i].is_alt:
+                has_alt[r] = True
+    if tot == 0:
+        return xa
+    parts: List[List[str]] = [[] for _ in range(n)]
+    for i in range(n):
+        r = pri_idx(i)
+        if r < 0:
+            continue
+        if cnt[r] > opt.max_xa_hits_alt or (not has_alt[r] and cnt[r] > opt.max_xa_hits):
+            continue
+        t = reg2aln(opt, eng.idx, qlen, query, regs[i])
+        cig = "".join(f"{ln}{'MIDSH'[op]}" for op, ln in t.cigar)
+        parts[r].append(
+            f"{eng.idx.bns.anns[t.rid].name},{'+-'[t.is_rev]}{t.pos + 1},{cig},{t.NM};"
+        )
+    for k in range(n):
+        if parts[k]:
+            xa[k] = "".join(parts[k])
+    return xa
+
+
+def reg2sam_records(
+    opt: MemOptions,
+    eng: Engine,
+    query: np.ndarray,
+    regs: List[AlnReg],
+    extra_flag: int = 0,
+    mate: Optional[Aln] = None,
+) -> List[Aln]:
+    """[EXT] mem_reg2sam: regions -> final per-read record list.
+
+    mark_primary_se must already have run on regs.  Flag assembly mirrors
+    mem_aln2sam's bit fixes, and the internal 0x10000 'secondary-style
+    supplementary' bit maps to SAM 0x100 exactly as fmt_BAMish does
+    (jnibwa.c:50-51).
+    """
+    qlen = len(query)
+    xa = (
+        gen_alt_xa(opt, eng, regs, qlen, query)
+        if not (opt.flag & MEM_F_ALL)
+        else [None] * len(regs)
+    )
+    out: List[Aln] = []
+    for k, p in enumerate(regs):
+        if p.score < opt.T:
+            continue
+        if p.secondary >= 0 and (p.is_alt or not (opt.flag & MEM_F_ALL)):
+            continue
+        if (
+            p.secondary >= 0
+            and p.secondary < (1 << 30)
+            and p.score < regs[p.secondary].score * opt.drop_ratio
+        ):
+            continue
+        q = reg2aln(opt, eng.idx, qlen, query, p)
+        q.XA = xa[k]
+        q.flag |= extra_flag
+        if p.secondary >= 0:
+            q.sub = -1  # don't output subopt score for secondaries
+        if out and p.secondary < 0:  # supplementary
+            q.flag |= 0x10000 if (opt.flag & MEM_F_NO_MULTI) else 0x800
+        if out and not p.is_alt and q.mapq > out[0].mapq:
+            q.mapq = out[0].mapq
+        out.append(q)
+    if not out:
+        t = reg2aln(opt, eng.idx, qlen, query, None)
+        t.flag |= extra_flag
+        out.append(t)
+    # mem_aln2sam flag fixes for each record
+    for q in out:
+        _fix_flags(q, mate)
+    return out
+
+
+def _fix_flags(p: Aln, m: Optional[Aln]) -> None:
+    """Flag assembly from mem_aln2sam ([EXT] bwamem.c)."""
+    p.flag |= 0x1 if m is not None else 0
+    p.flag |= 0x4 if p.rid < 0 else 0
+    p.flag |= 0x8 if (m is not None and m.rid < 0) else 0
+    if p.rid < 0 and m is not None and m.rid >= 0:  # copy mate pos to unmapped
+        p.rid, p.pos, p.is_rev = m.rid, m.pos, m.is_rev
+        p.cigar = []
+    p.flag |= 0x10 if p.is_rev else 0
+    p.flag |= 0x20 if (m is not None and m.is_rev) else 0

@@ -5,13 +5,14 @@ The counterpart of bwamem_tpu/engine/seed_device.py
 ``collect_intv_batch_device`` and ``collect_intv_rbegs_batch_device``.  The
 batch is padded once to [B, Lmax] uint8 codes (4 past each read's end; no
 bucketing: nothing recompiles), uploaded, seeded by ``ops.seed.seed_sa``
-(on the card: the collect_intv and sample_ks kernels), and its flat table
-copied back.  The SA rows stay on the device for the walks.
+(on the card: the collect_intv and sample_ks kernels).  The flat table and
+the SA rows stay on the device, for the walks and the chaining; the table is
+copied back when its ``rows`` are asked for.
 
 A read that overflows the K- or M-slot budget is seeded on the host, as the
 JAX package does: the host C++ ``native_fm.collect_intv_batch_raw`` on just
-those reads when the natives are built, else the oracle
-``engine.seed.collect_intv``; its rows are spliced in read order.  That is
+those reads when the natives are built, else the lockstep oracle
+``engine.seed_batch.collect_intv_batch``; its rows are spliced in read order.  That is
 the budget rule, not a device fallback: a failed build, launch or kernel
 flag raises.  M is the JAX package's (48 intervals per read); K is raised
 from its 24 slots per smem1a call to ``ops.seed.K_MAX`` (160), which no
@@ -27,16 +28,17 @@ reads past the JAX package's K.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from dataclasses import dataclass
+from functools import cached_property
+from typing import List
 
 import numpy as np
 import torch
 
-from bwamem_tpu.engine import native_fm
-from bwamem_tpu.engine.seed import collect_intv
-
 from ..ops import fmindex as fmops
 from ..ops import seed as seedops
+from . import native_fm
+from .seed_batch import collect_intv_batch
 from .state import device_fm
 
 
@@ -65,25 +67,41 @@ class SeedStats:
 SEED_STATS = SeedStats()
 
 
-class DeviceSeeds(NamedTuple):
-    """A batch's intervals: ``rows`` [N, 5] int64 (x0, x1, s, qb, qe) per
-    read in read order, ``n_intv`` [n] int64, ``on_host`` [n] bool (seeded
-    on the host), and the SA rows ``ks`` of the device-seeded reads'
-    intervals, on the device."""
+@dataclass
+class DeviceSeeds:
+    """A batch's intervals: ``rows_dev`` [Nd, 5] int64 (x0, x1, s, qb, qe),
+    the device-seeded reads' rows in read order, on the device with their SA
+    rows ``ks``; ``n_intv`` [n] int64, every read's row count; ``on_host``
+    [n] bool (seeded on the host) and ``host_rows`` [Nh, 5], those reads'
+    rows in read order.  ``rows`` is the whole table on the host."""
 
-    rows: np.ndarray
+    rows_dev: torch.Tensor
     n_intv: np.ndarray
     on_host: np.ndarray
+    host_rows: np.ndarray
     ks: torch.Tensor
     dfm: fmops.DeviceFMIndex
 
+    @cached_property
+    def rows(self) -> np.ndarray:
+        """[N, 5] int64, every read's rows in read order (one copy back)."""
+        flat = self.rows_dev.cpu().numpy()
+        if not self.on_host.any():
+            return flat
+        from_host = np.repeat(self.on_host, self.n_intv)
+        rows = np.empty((len(from_host), 5), dtype=np.int64)
+        rows[~from_host] = flat
+        rows[from_host] = self.host_rows
+        return rows
 
-def _host_rows(opt, fm, reads: List[np.ndarray]):
-    """Three-round seeding on the host: (rows [N, 5] int64, n [len])."""
+
+def host_rows(opt, fm, reads: List[np.ndarray]):
+    """Three-round seeding on the host, the C++ when it is built, else the
+    lockstep oracle: (rows [N, 5] int64, n [len] int64)."""
     if native_fm.available():
         rows, n = native_fm.collect_intv_batch_raw(opt, fm, reads)
         return rows, np.asarray(n, dtype=np.int64)
-    ivs = [collect_intv(opt, fm, r) for r in reads]
+    ivs = collect_intv_batch(opt, fm, reads)
     rows = np.asarray([tuple(p) for iv in ivs for p in iv],
                       dtype=np.int64).reshape(-1, 5)
     return rows, np.asarray([len(iv) for iv in ivs], dtype=np.int64)
@@ -97,8 +115,8 @@ def seed_batch(opt, fm, reads: List[np.ndarray], device,
     dfm = device_fm(fm, device)
     if not reads:
         none = np.zeros(0, dtype=np.int64)
-        return DeviceSeeds(np.zeros((0, 5), dtype=np.int64), none,
-                           none.astype(bool), dfm.sa[:0], dfm)
+        return DeviceSeeds(dfm.sa[:0].reshape(0, 5), none, none.astype(bool),
+                           np.zeros((0, 5), dtype=np.int64), dfm.sa[:0], dfm)
     qseq, qlen = seedops.pad_reads(reads, dfm.device)
     before = sum(seedops.LAUNCHES.values())
     work = torch.zeros((len(reads), 5), dtype=torch.int32, device=dfm.device)
@@ -111,7 +129,6 @@ def seed_batch(opt, fm, reads: List[np.ndarray], device,
     B = len(reads)
     meta = torch.cat([iv.n.long(), iv.ovf.long(), counts]).cpu().numpy()
     n_dev, on_host, calls = meta[:B], meta[B: 2 * B] != 0, meta[2 * B:].tolist()
-    flat = out.flat.cpu().numpy()
     SEED_STATS.launches += sum(seedops.LAUNCHES.values()) - before
     SEED_STATS.smem1a_calls += calls[0]
     SEED_STATS.strategy1_calls += calls[1]
@@ -120,14 +137,10 @@ def seed_batch(opt, fm, reads: List[np.ndarray], device,
     SEED_STATS.m_overflows += calls[4]
     SEED_STATS.ref_k_overflows += calls[5]
     n_intv = np.where(on_host, 0, n_dev).astype(np.int64)
-    rows = flat
+    rows_fb = np.zeros((0, 5), dtype=np.int64)
     fb = np.flatnonzero(on_host)
     if fb.size:
-        rows_fb, n_intv[fb] = _host_rows(opt, fm, [reads[i] for i in fb])
-        from_host = np.repeat(on_host, n_intv)
-        rows = np.empty((len(from_host), 5), dtype=np.int64)
-        rows[~from_host] = flat
-        rows[from_host] = rows_fb
+        rows_fb, n_intv[fb] = host_rows(opt, fm, [reads[i] for i in fb])
     SEED_STATS.device_reads += len(reads) - fb.size
     SEED_STATS.host_reads += fb.size
-    return DeviceSeeds(rows, n_intv, on_host, out.ks, dfm)
+    return DeviceSeeds(out.flat, n_intv, on_host, rows_fb, out.ks, dfm)

@@ -1,10 +1,12 @@
 """Carries the JAX package's host state over to the port's device.
 
-Two pieces: the extension's scoring (``MemOptions`` holds the 5x5 matrix
-as a flat list and the gap penalties as ints), and the FM index tables
+Three pieces: the extension's scoring (``MemOptions`` holds the 5x5 matrix
+as a flat list and the gap penalties as ints), the FM index tables
 (``device_fm``), built once per device and kept on the host ``FMIndex``
 object, as bwamem_tpu/engine/seed_device.py ``_get_dfm`` keeps the JAX
-package's.
+package's, and the contig tables (``device_contigs``), kept on the host
+``Bntseq`` object (the JAX package keys its cache by ``id()``, which a new
+index can inherit).
 """
 from __future__ import annotations
 
@@ -14,9 +16,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops.chain import DeviceContigs
 from ..ops.fmindex import DeviceFMIndex
 
-_fm_lock = threading.Lock()
+_lock = threading.Lock()
 
 
 @dataclass(frozen=True)
@@ -45,15 +48,26 @@ def device_scoring(opt, device) -> DeviceScoring:
     )
 
 
-def device_fm(fm, device) -> DeviceFMIndex:
-    """``fm`` (an ``engine.fmindex.FMIndex``) -> its tables on ``device``,
-    cached on ``fm`` per device, so that they live as long as the index."""
+def _cached(host, attr: str, device, build):
+    """``build(host, device)``, made once per device and kept on ``host``,
+    so that it lives as long as the index object."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    with _fm_lock:
-        cache = fm.__dict__.setdefault("_torch_device_fms", {})
-        dfm = cache.get(dev)
-        if dfm is None:
-            dfm = cache[dev] = DeviceFMIndex.from_host(fm, dev)
-    return dfm
+    with _lock:
+        cache = host.__dict__.setdefault(attr, {})
+        val = cache.get(dev)
+        if val is None:
+            val = cache[dev] = build(host, dev)
+    return val
+
+
+def device_fm(fm, device) -> DeviceFMIndex:
+    """``fm`` (an ``engine.fmindex.FMIndex``) -> its tables on ``device``."""
+    return _cached(fm, "_torch_device_fms", device, DeviceFMIndex.from_host)
+
+
+def device_contigs(bns, device) -> DeviceContigs:
+    """``bns`` (an ``index.build.Bntseq``) -> its contig tables on
+    ``device``."""
+    return _cached(bns, "_torch_device_contigs", device, DeviceContigs.from_host)

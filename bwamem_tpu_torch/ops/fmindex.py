@@ -7,14 +7,16 @@ The counterpart of bwamem_tpu/ops/fmindex_tpu.py:
   ``span`` BWT characters, ``[4 counts | span/16 packed words]``, held as
   int32 tensors of the u32 bit patterns.  ``L2`` and the sampled SA are
   int64 at every genome size, so there is one coordinate domain.
-* ``occ4_torch``, ``extend_torch`` and ``sa_lookup_torch`` are the plain
-  PyTorch versions of ``occ4_device``, ``extend_device`` and
-  ``sa_lookup``; they run wherever their tensors lie.  The SA walk is a
+* ``occ4_torch``, ``extend_torch``, ``sa_lookup_torch`` and
+  ``backward_search_torch`` are the plain PyTorch versions of
+  ``occ4_device``, ``extend_device``, ``sa_lookup`` and (ops/seed_tpu.py)
+  ``backward_search_batch``; they run wherever their tensors lie.  The SA walk is a
   loop over the rows still walking (boolean-mask compaction); the JAX
   compaction ladder is a TPU workaround and is not carried over.
-* ``occ4_cuda``, ``extend_cuda`` and ``sa_lookup_cuda`` launch the
-  hand-written Hopper kernels of ``csrc/fmindex.cu``.
-* ``occ4``, ``extend`` and ``sa_lookup`` dispatch on the device of their
+* ``occ4_cuda``, ``extend_cuda``, ``sa_lookup_cuda`` and
+  ``backward_search_cuda`` launch the hand-written Hopper kernels of
+  ``csrc/fmindex.cu``.
+* ``occ4``, ``extend``, ``sa_lookup`` and ``backward_search`` dispatch on the device of their
   inputs: CPU tensors go to the plain version, CUDA tensors to the kernel.
 
 Conceptual rows follow bwa (engine/fmindex.py): row ``primary`` carries the
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 # launches of each CUDA kernel; bumped only where it is launched
-LAUNCHES = {"occ4": 0, "bwt_extend": 0, "sa_lookup": 0}
+LAUNCHES = {"occ4": 0, "bwt_extend": 0, "sa_lookup": 0, "backward_search": 0}
 # error flags the kernels raise (OR-ed into one int32 on the device)
 ERR_ROW_RANGE = 1
 ERR_WALK_LENGTH = 2
@@ -196,6 +198,50 @@ def sa_lookup_torch(dfm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
         steps += 1
 
 
+def right_align_reads(reads, device):
+    """Reads (codes 0-4) -> ``qseq`` [B, Lmax] uint8 with each read's last
+    base in the last column (4 before its first) and ``qlen`` [B] int32, on
+    ``device``: the layout ``backward_search`` takes."""
+    L = max([len(r) for r in reads] + [1])
+    qseq = np.full((len(reads), L), 4, dtype=np.uint8)
+    for i, r in enumerate(reads):
+        qseq[i, L - len(r):] = r
+    qlen = np.asarray([len(r) for r in reads], dtype=np.int32)
+    return (torch.from_numpy(qseq).to(device),
+            torch.from_numpy(qlen).to(device))
+
+
+def backward_search_torch(dfm: DeviceFMIndex, qseq, qlen):
+    """bwa bwt_match_exact per read of ``qseq`` [B, L] (codes, each read's
+    last base in column L - 1): backward search from the last base
+    leftwards until the interval empties, on a code above 3 or after
+    ``qlen`` [B] bases.  Returns the last non-empty interval (k, l) int64
+    [B] and the bases matched, int32 [B]."""
+    dev = qseq.device
+    B, L = qseq.shape
+    q = qseq.long()
+    k = torch.zeros(B, dtype=torch.long, device=dev)
+    l = torch.full((B,), dfm.seq_len, dtype=torch.long, device=dev)
+    matched = torch.zeros(B, dtype=torch.long, device=dev)
+    idx = torch.arange(B, device=dev)
+    for i in range(L):
+        c = q[idx, L - 1 - i]
+        ok = (c <= 3) & (i < qlen.long()[idx])
+        idx, c = idx[ok], c[ok]
+        if idx.numel() == 0:
+            break
+        n = idx.numel()
+        both = occ4_torch(dfm, torch.cat([k[idx] - 1, l[idx]])).long()
+        r = torch.arange(n, device=dev)
+        k2 = dfm.L2[c] + both[:n][r, c] + 1
+        l2 = dfm.L2[c] + both[n:][r, c]
+        ok = k2 <= l2
+        idx = idx[ok]
+        k[idx], l[idx] = k2[ok], l2[ok]
+        matched[idx] += 1
+    return k, l, matched.to(torch.int32)
+
+
 # ------------------------------------------------------------------ kernels
 
 def _bind(lib):
@@ -205,6 +251,7 @@ def _bind(lib):
         ("bwamem_fm_occ4_launch", [p, i64, p, p, p]),
         ("bwamem_fm_extend_launch", [p, p, p, i64, i32, p, p, p, p, p]),
         ("bwamem_fm_sa_lookup_launch", [p, i64, p, i64, p, p, p]),
+        ("bwamem_fm_backward_search_launch", [p, i32, p, i32, p, p, p, p]),
     ):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -286,6 +333,15 @@ def sa_lookup_launch(dfm: DeviceFMIndex, k, out, err):
         k.shape[0], out.data_ptr(), err.data_ptr(), _stream(dfm)))
 
 
+def backward_search_launch(dfm: DeviceFMIndex, qseq, qlen, k, l, matched):
+    """``k``, ``l`` int64 [B] and ``matched`` int32 [B] <- the backward
+    search of the reads ``qseq`` uint8 [B, L] with ``qlen`` int32 [B]."""
+    _launched("backward_search", _lib().bwamem_fm_backward_search_launch(
+        *_fm_args(dfm), qseq.data_ptr(), qseq.shape[1], qlen.data_ptr(),
+        qseq.shape[0], k.data_ptr(), l.data_ptr(), matched.data_ptr(),
+        _stream(dfm)))
+
+
 def _flag_word(dfm: DeviceFMIndex) -> torch.Tensor:
     return torch.zeros(1, dtype=torch.int32, device=dfm.device)
 
@@ -330,6 +386,27 @@ def sa_lookup_cuda(dfm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def backward_search_cuda(dfm: DeviceFMIndex, qseq, qlen):
+    """The backward-search kernel, one thread per read; same contract as
+    ``backward_search_torch``."""
+    dev = dfm.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernels need an index on the card, not {dev}")
+    if qseq.dim() != 2 or qlen.shape != qseq.shape[:1]:
+        raise ValueError("expected qseq [B, L] and qlen [B], got "
+                         f"{tuple(qseq.shape)} and {tuple(qlen.shape)}")
+    if qseq.device != dev or qlen.device != dev:
+        raise ValueError(f"expected tensors on {dev}")
+    B = qseq.shape[0]
+    qseq = qseq.to(torch.uint8).contiguous()
+    qlen = qlen.to(torch.int32).contiguous()
+    k, l = (torch.empty(B, dtype=torch.int64, device=dev) for _ in range(2))
+    matched = torch.empty(B, dtype=torch.int32, device=dev)
+    if B:
+        backward_search_launch(dfm, qseq, qlen, k, l, matched)
+    return k, l, matched
+
+
 # -------------------------------------------------------------- dispatchers
 
 def occ4(dfm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
@@ -348,3 +425,11 @@ def sa_lookup(dfm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
     """CPU tensors -> ``sa_lookup_torch``; CUDA tensors -> the kernel."""
     return (sa_lookup_cuda if k.device.type == "cuda" else sa_lookup_torch)(
         dfm, k)
+
+
+def backward_search(dfm: DeviceFMIndex, qseq, qlen):
+    """CPU tensors -> ``backward_search_torch``; CUDA tensors -> the
+    kernel."""
+    fn = (backward_search_cuda if qseq.device.type == "cuda"
+          else backward_search_torch)
+    return fn(dfm, qseq, qlen)

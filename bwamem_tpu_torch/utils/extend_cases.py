@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from bwamem_tpu.api.options import fill_scoring_matrix
+from ..api.options import fill_scoring_matrix
 
 DEFAULT = dict(a=1, b=4, o_del=6, e_del=1, o_ins=6, e_ins=1, zdrop=100)
 # non-default scoring: a=2, b=5, deletions and insertions priced apart

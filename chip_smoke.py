@@ -7,17 +7,19 @@ Phases, each of which stops the run with a non-zero exit if it fails:
 
 1. the card: its name and power limit as nvidia-smi reports them; no card
    (torch.cuda.is_available() false) exits at once;
-2. build: compiles csrc/extend.cu, csrc/fmindex.cu, csrc/op_probe.cu and
-   csrc/seed.cu with nvcc for sm_90a, one nvcc per source, all at once, and
-   prints the compiler's register and spill report;
+2. build: compiles csrc/extend.cu, csrc/fmindex.cu, csrc/op_probe.cu,
+   csrc/seed.cu and csrc/chain.cu with nvcc for sm_90a, one nvcc per source,
+   all at once, and prints the compiler's register and spill report;
 3. kernel against plain: the SW extension kernel against the plain
    PyTorch version on the card and the host C++ ksw_extend2, field for
    field and exactly, on seeded batches (a 4096-job main-path wave, the JAX
    tests' ragged shapes, edge cases, zdrop=0, non-default scoring);
 4. main path: the port's BwaMemAligner(device="cuda") aligns 6,000 pairs of
    150 bp reads (and 2,000 reads single-end) on bench.py's 4.6 Mbp "ecoli"
-   synthetic genome; every record must equal bwamem_tpu's host aligner's,
-   the kernel must have run, and at least half of the extension jobs must
+   synthetic genome; every record must equal the host oracle's (the port's
+   own aligner with no device stage and every extension wave on the host, so
+   that every stage runs in the port's host C++; the CPU tests hold that path
+   record-equal to bwamem_tpu's aligner), the kernel must have run, and at least half of the extension jobs must
    have gone to the card; then the PE batch runs once more under
    torch.profiler for the card's busy and idle share;
 5. timing: the kernel and the plain version on the largest wave of phase 4,
@@ -32,8 +34,9 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    plain version timed on the largest SA batch;
 8. at chr20 scale: bench.py's 64 Mbp "chr20" genome (seed 1234, sa_intv 8;
    48 MB of lines and 128 MB of sampled SA, past the card's 50 MB L2):
-   2,000 pairs with the seeding, the SA walks and the extension on the
-   card, record-equal to the host aligner, with the seed checks of phase 11;
+   2,000 pairs with the seeding, the SA walks, the chaining and the
+   extension on the card, record-equal to the host oracle, with the seed
+   checks of phase 11 and the chain checks of phase 13;
    the SA kernel, the plain version
    and the host C++ walk timed on that batch's rows; then seeding-shaped
    work for occ4 and
@@ -41,7 +44,9 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    search of every read (occ4 of both interval ends per base) and a forward
    bi-interval extension from each read's first base (bwt_extend per
    base), each step against the host FMIndex, the kernels timed on a
-   mid-read step's queries;
+   mid-read step's queries; and the backward-search kernel (one launch for
+   the whole search of every read) against that stepwise search and its
+   plain version, and timed;
 9. the op probe (the port of benchmarks/mosaic_probe.py): every probe's
    kernel against its plain version on the card at K=64, exactly, then
    ``python -m bwamem_tpu_torch.benchmarks.op_probe``'s own run: the SASS
@@ -64,14 +69,35 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    SA row walked on the host when the walks are
    on the card; the seed and sa_lookup stage seconds beside phase 4's host
    C++ seed stage, and the reads that needed more than the JAX package's
-   24 K slots.
+   24 K slots;
+12. chain kernels, exactly, on phase 4's PE batch's real seeds (seeded and
+   walked on the card, as the aligner's chain stage gets them):
+   chain_kernel + chain_emit_kernel against the plain version on the card,
+   chain for chain against the host C++ chain_batch on every read and
+   against the host oracle (engine/chain.py chain_flt(mem_chain), with w,
+   kept and first) on a sample plus the reads with the most seeds; the
+   kernels timed with CUDA events (the count pass also from a cold L2, by
+   batch size and on the heaviest read alone), the plain version once;
+13. the device chain stage: phase 4's batches with device_stages=("seed",
+   "sa_lookup", "chain") (PE and SE), then the PE batch with ("chain",):
+   records equal to the host oracle's, both chain kernels launched, at least
+   95 % of the reads chained on the card (the rest, flagged by the C budget
+   or seeded on the host, chained on the host and counted), no SA row walked
+   on the host; the chain stage seconds beside phase 4's host C++ chain
+   stage, and the reads the JAX package's S and C buckets would have sent to
+   the host.
 
 The launch counts in the ``kernels`` line come from the runs that drive
 each kernel: phase 4's PE batch (ksw_extend), phase 7's PE batch
 (sa_lookup), phase 8's seeding-shaped work (occ4, bwt_extend), phase 9's
-probe run (op_probe) and phase 11's PE batch with the seed and SA stages
-(collect_intv, sample_ks); each count is set to 0 just before and read just
-after.  smem1a and strategy1 run on the main path as __device__ functions
+probe run (op_probe), phase 11's PE batch with the seed and SA stages
+(collect_intv, sample_ks), phase 13's PE batch with all three stages (chain,
+chain_emit) and phase 8's one-launch search (backward_search, which no
+aligner stage calls); each count is set to 0 just before and read just
+after.  Every entry also carries ``bound_ms``, the least time the card could
+take (this run's bytes at 3.35 TB/s or its integer operations at the int32
+rate, whichever is larger, named in ``bound_by``), and ``library_ms``, null
+throughout: no single PyTorch call computes any of these functions.  smem1a and strategy1 run on the main path as __device__ functions
 inside collect_intv_kernel; their own per-lane kernels (smem1a_kernel,
 strategy1_kernel) exist to hold each function against its plain version
 and time it (phase 10), and the main path launches them no time.  Their
@@ -97,7 +123,13 @@ ECOLI_LEN = 4_600_000
 CHR20_LEN = 64_000_000
 CHR20_PAIRS = 2000
 SEED_SAMPLE = 256
-SOURCES = ("extend", "fmindex", "op_probe", "seed")
+SOURCES = ("extend", "fmindex", "op_probe", "seed", "chain")
+ALL_STAGES = ("seed", "sa_lookup", "chain")
+# the card's published peaks (H100 SXM): device memory rate, and the int32
+# rate of its 64 integer lanes per SM (half the float32 lanes, whose 67
+# TFLOP/s count a fused multiply-add as two)
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 67e12 / 4
 
 
 def _card_line() -> str:
@@ -105,6 +137,37 @@ def _card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip()
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    """The least ms the card could take: ``nbytes`` (each input read once,
+    each output written once, as this run's data needs them) at the memory
+    rate, or ``ops`` integer operations at the int32 rate, whichever is
+    larger.  No kernel here has one PyTorch call that computes its function,
+    so ``library_ms`` is null."""
+    t_b, t_o = nbytes / HBM_BYTES_S * 1e3, ops / INT32_OPS_S * 1e3
+    return dict(bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                library_ms=None)
+
+
+def _line_bound(dfm, n_io_bytes: float, line_reads: float, extra_ops: float = 0):
+    """``_bound`` of an FM-index kernel: its own inputs and outputs, the
+    lines it reads (at most the whole table once) and ~14 integer
+    operations per 16-char word of each line read."""
+    line_b = dfm.lines.shape[1] * 4
+    table_b = dfm.lines.numel() * 4
+    return _bound(n_io_bytes + min(line_reads * line_b, table_b),
+                  line_reads * (dfm.lines.shape[1] - 4) * 14 + extra_ops)
+
+
+def _host_aligner(index):
+    """The record oracle: the port's aligner with no device stage and every
+    extension wave on the host, so that every stage runs in the port's host
+    C++ (held record-equal to bwamem_tpu's aligner by the CPU tests)."""
+    from bwamem_tpu_torch import BwaMemAligner
+
+    return BwaMemAligner(index, device="cpu", min_device_jobs=1 << 30)
 
 
 def _wave_tensors(wave, device):
@@ -164,7 +227,7 @@ def phase_kernel_vs_plain(dev, kernel_fn):
     """Phase 3: kernel = plain (on the card) = host C++ ksw_extend2."""
     import torch
 
-    from bwamem_tpu.engine import native_ksw
+    from bwamem_tpu_torch.engine import native_ksw
     from bwamem_tpu_torch.ops import extend as ext
     from bwamem_tpu_torch.utils.extend_cases import ARRAYS, CASES, jobs, make_case
 
@@ -200,10 +263,10 @@ def _synthetic_index(length: int):
     codes, the image path and the build seconds (0 when loaded)."""
     import numpy as np
 
-    from bwamem_tpu.index import image
-    from bwamem_tpu.index.build import build_index
-    from bwamem_tpu.utils.fasta import Fasta, FastaContig
-    from bwamem_tpu.utils.synth import synthetic_genome
+    from bwamem_tpu_torch.index import image
+    from bwamem_tpu_torch.index.build import build_index
+    from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
+    from bwamem_tpu_torch.utils.synth import synthetic_genome
 
     codes = synthetic_genome(length, np.random.default_rng(SEED))
     img = os.path.join(ROOT, "build", "smoke", f"synth{length}_{SEED}_sa8.img")
@@ -255,7 +318,7 @@ def _timed(aligner, reads, dev):
 
 
 def _pe_setup(aligner):
-    from bwamem_tpu import BwaMemPairEndStats
+    from bwamem_tpu_torch import BwaMemPairEndStats
 
     aligner.align_pairs()
     aligner.set_proper_pair_end_stats(BwaMemPairEndStats.of(350, 35))
@@ -265,10 +328,11 @@ def _port_run(tag, port, batch, ref, t_host, dev):
     """One timed batch through the port, counts set to 0 just before and
     read just after; the records held against ``ref``.  Returns the
     extension, SA-walk and seeding launch counts and the stage seconds."""
-    from bwamem_tpu.utils.timers import TIMERS
+    from bwamem_tpu_torch.utils.timers import TIMERS
     from bwamem_tpu_torch.engine.extend_batch import STATS
-    from bwamem_tpu_torch.engine.pipeline import SA_STATS
+    from bwamem_tpu_torch.engine.pipeline import CHAIN_STATS, SA_STATS
     from bwamem_tpu_torch.engine.seed_device import SEED_STATS
+    from bwamem_tpu_torch.ops import chain as chainops
     from bwamem_tpu_torch.ops import extend as ext
     from bwamem_tpu_torch.ops import fmindex as fmops
     from bwamem_tpu_torch.ops import seed as seedops
@@ -276,22 +340,25 @@ def _port_run(tag, port, batch, ref, t_host, dev):
     STATS.reset()
     SA_STATS.reset()
     SEED_STATS.reset()
+    CHAIN_STATS.reset()
     TIMERS.reset()
     ext.LAUNCHES = 0
     fmops.LAUNCHES["sa_lookup"] = 0
-    for name in seedops.LAUNCHES:
-        seedops.LAUNCHES[name] = 0
+    for counts in (seedops.LAUNCHES, chainops.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
     got, t_port = _timed(port, batch, dev)
     launches, sa_launches = ext.LAUNCHES, fmops.LAUNCHES["sa_lookup"]
     seed_launches = dict(seedops.LAUNCHES)
+    chain_launches = dict(chainops.LAUNCHES)
     stages = TIMERS.snapshot()
     ok = sum([vars(x) for x in g] == [vars(x) for x in r] for g, r in zip(got, ref))
     aligned = sum(1 for r in got if r and not (r[0].sam_flag & 0x4))
     share = STATS.device_share()
     print(f"  {tag}: {len(batch)} reads, records equal {ok}/{len(batch)}, "
           f"aligned {aligned}; port {len(batch) / t_port:.1f} reads/s "
-          f"({t_port:.2f} s), host {len(batch) / t_host:.1f} reads/s "
-          f"({t_host:.2f} s)")
+          f"({t_port:.2f} s), the oracle (the port with every stage on the "
+          f"host) {len(batch) / t_host:.1f} reads/s ({t_host:.2f} s)")
     print(f"  {tag}: extension kernel launches {launches}, device_extend_jobs "
           f"{STATS.device_extend_jobs} in {STATS.device_extend_waves} waves, "
           f"host_extend_jobs {STATS.host_extend_jobs} in "
@@ -309,6 +376,13 @@ def _port_run(tag, port, batch, ref, t_host, dev):
               + f"; in collect_intv_kernel: smem1a {SEED_STATS.smem1a_calls}, "
               f"strategy1 {SEED_STATS.strategy1_calls}, bwt_extend "
               f"{SEED_STATS.extend_calls} calls")
+    if CHAIN_STATS.device_reads or CHAIN_STATS.host_reads:
+        print(f"  {tag}: CHAIN_STATS: reads chained on the card "
+              f"{CHAIN_STATS.device_reads}, on the host {CHAIN_STATS.host_reads} "
+              f"(flagged by C {CHAIN_STATS.c_overflows}); the JAX package's "
+              f"budgets would send {CHAIN_STATS.ref_s_overflows} (S) + "
+              f"{CHAIN_STATS.ref_c_overflows} (C) reads to the host; chain "
+              "launches " + ", ".join(f"{k} {v}" for k, v in chain_launches.items()))
     rest = t_port - sum(stages.values())
     print(f"  {tag}: port seconds by stage: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items())
@@ -316,14 +390,16 @@ def _port_run(tag, port, batch, ref, t_host, dev):
         f"{STATS.device_wave_seconds:.3f} (pack, copies, kernel), host "
         f"waves {STATS.host_wave_seconds:.3f}")
     if ok != len(batch):
-        raise AssertionError(f"{tag}: records differ from the host aligner")
+        raise AssertionError(f"{tag}: records differ from the host oracle's")
     if aligned < 0.95 * len(batch):
         raise AssertionError(f"{tag}: only {aligned} reads aligned")
     if launches <= 0 or share < 0.5:
         raise AssertionError(f"{tag}: the extension did not run on the card")
     return dict(launches=launches, sa_launches=sa_launches,
-                seed_launches=seed_launches, stages=stages,
-                seed_stats=vars(SEED_STATS).copy())
+                seed_launches=seed_launches, chain_launches=chain_launches,
+                stages=stages, seed_stats=vars(SEED_STATS).copy(),
+                chain_stats={k: v for k, v in vars(CHAIN_STATS).items()
+                             if k != "largest_table"})
 
 
 def phase_main_path(dev, index, codes):
@@ -332,8 +408,7 @@ def phase_main_path(dev, index, codes):
     count and the largest wave."""
     import numpy as np
 
-    from bwamem_tpu import BwaMemAligner as HostAligner
-    from bwamem_tpu.utils.synth import simulate_pairs
+    from bwamem_tpu_torch.utils.synth import simulate_pairs
     from bwamem_tpu_torch import BwaMemAligner
     from bwamem_tpu_torch.engine.extend_batch import STATS
 
@@ -342,7 +417,7 @@ def phase_main_path(dev, index, codes):
     reads = simulate_pairs(codes, rng, N_PAIRS)
     runs = {}
     for mode, batch in (("pe", reads), ("se", reads[:N_SE])):
-        host, port = HostAligner(index), BwaMemAligner(index, device=dev)
+        host, port = _host_aligner(index), BwaMemAligner(index, device=dev)
         if mode == "pe":
             for a in (host, port):
                 _pe_setup(a)
@@ -400,7 +475,7 @@ def phase_timing(dev, wave):
     """Phase 5: kernel and plain version on the largest main-path wave."""
     import torch
 
-    from bwamem_tpu.api.options import MemOptions
+    from bwamem_tpu_torch.api.options import MemOptions
     from bwamem_tpu_torch.engine.state import device_scoring
     from bwamem_tpu_torch.ops import extend as ext
 
@@ -423,10 +498,15 @@ def phase_timing(dev, wave):
         sc.zdrop), 20, dev)
     wrapper_ms = _event_ms(lambda: ext.ksw_extend_cuda(*args), 20, dev)
     plain_ms = _event_ms(lambda: ext.ksw_extend_torch(*args), 3, dev)
+    # the DP cells inside each job's band, ~10 integer operations a cell
+    cells = int((torch.minimum(qlen, 2 * w_adj + 1).long() * tlen.long()).sum())
+    bound = _bound(q8.numel() + t8.numel() + 4 * (scal.numel() + sc.mat.numel())
+                   + 24 * B, 10 * cells)
     print(f"  largest wave B={B} Q={Q} T={t.shape[1]}: kernel {ms:.4f} ms, "
           f"ksw_extend_cuda (checks, conversions, kernel) {wrapper_ms:.4f} ms, "
-          f"plain PyTorch {plain_ms:.4f} ms")
-    return ms, plain_ms, err
+          f"plain PyTorch {plain_ms:.4f} ms; {cells} cells in band, bound "
+          f"{bound['bound_ms']:.5f} ms by {bound['bound_by']}")
+    return ms, plain_ms, err, bound
 
 
 def phase_fm_kernels(dev, fm):
@@ -500,7 +580,7 @@ def _time_sa(tag, dev, fm, rows):
     import numpy as np
     import torch
 
-    from bwamem_tpu.engine import native_fm
+    from bwamem_tpu_torch.engine import native_fm
     from bwamem_tpu_torch.engine.state import device_fm
     from bwamem_tpu_torch.ops import fmindex as fmops
 
@@ -536,7 +616,9 @@ def _time_sa(tag, dev, fm, rows):
           f"max|kernel-plain|,|kernel-host| {err}")
     if err:
         raise AssertionError(f"{tag}: the SA kernel disagrees")
-    return cold_ms, plain_ms
+    bound = _line_bound(dfm, 16 * n + 8 * min(n, dfm.sa.numel()), mean * n,
+                        10 * mean * n)
+    return cold_ms, plain_ms, bound
 
 
 def phase_device_sa(dev, index, fm, runs):
@@ -567,7 +649,7 @@ def _rank_drive(dev, fm, reads):
     import numpy as np
     import torch
 
-    from bwamem_tpu.utils.encoding import seq_to_codes_batch
+    from bwamem_tpu_torch.utils.encoding import seq_to_codes_batch
     from bwamem_tpu_torch.engine.state import device_fm
     from bwamem_tpu_torch.ops import fmindex as fmops
 
@@ -576,13 +658,14 @@ def _rank_drive(dev, fm, reads):
     n, L = codes.shape
     ar = np.arange(n)
     L2 = fm.L2
-    for name in ("occ4", "bwt_extend"):
+    for name in ("occ4", "bwt_extend", "backward_search"):
         fmops.LAUNCHES[name] = 0
     err, mid = 0, {}
     # exact-match backward search (bwa bwt_match_exact): occ4 of k-1 and l
     k = np.zeros(n, np.int64)
     l = np.full(n, fm.seq_len, np.int64)
     alive = np.ones(n, bool)
+    n_matched = np.zeros(n, np.int64)
     steps = 0
     for i in range(L - 1, -1, -1):
         q = np.concatenate([k - 1, l])
@@ -597,10 +680,17 @@ def _rank_drive(dev, fm, reads):
         l2 = L2[cc] + host[n:][ar, cc]
         alive &= (c < 4) & (k2 <= l2)
         k, l = np.where(alive, k2, k), np.where(alive, l2, l)
+        n_matched += alive
         steps += 1
         if not alive.any():
             break
     matched = steps
+    # the same search in one launch of the backward-search kernel
+    qseq, qlen = fmops.right_align_reads(list(codes.astype(np.uint8)), dev)
+    mid["backward_search"] = (qseq, qlen)
+    e_bs = max(_diff(g, h) for g, h in zip(
+        fmops.backward_search(dfm, qseq, qlen), (k, l, n_matched)))
+    err = max(err, e_bs)
     # forward extension from each read's first base (bwa's ok[3 - c])
     x0, x1, s = fm.set_intv(np.clip(codes[:, 0], 0, 3))
     alive = codes[:, 0] < 4
@@ -620,13 +710,19 @@ def _rank_drive(dev, fm, reads):
         s = np.where(alive, ns, s)
         if not alive.any():
             break
-    launches = {name: fmops.LAUNCHES[name] for name in ("occ4", "bwt_extend")}
+    launches = {name: fmops.LAUNCHES[name]
+                for name in ("occ4", "bwt_extend", "backward_search")}
     print(f"  seeding-shaped work on {n} reads: backward search {matched} steps "
-          f"({launches['occ4']} occ4 launches of {2 * n} rows), forward "
+          f"({launches['occ4']} occ4 launches of {2 * n} rows; mean "
+          f"{n_matched.mean():.2f} bases matched, {int((n_matched == L).sum())} "
+          f"reads in full), forward "
           f"extension {launches['bwt_extend']} bwt_extend launches of {n} "
-          f"bi-intervals; max|kernel-host| {err}")
+          f"bi-intervals; the backward-search kernel "
+          f"({launches['backward_search']} launch) against the stepwise search "
+          f"max|kernel-host| {e_bs}; max|kernel-host| {err}")
     if err:
-        raise AssertionError("occ4 / bwt_extend disagree with the host FMIndex")
+        raise AssertionError("occ4 / bwt_extend / backward_search disagree "
+                             "with the host FMIndex")
     return launches, err, mid
 
 
@@ -672,9 +768,29 @@ def _time_rank(dev, fm, mid):
               f"plain PyTorch {plain_ms:.4f} ms; max|kernel-plain| {err}")
         if err:
             raise AssertionError(f"{name} disagrees with the plain version")
-        res[name] = (ms, plain_ms, err)
+        bound = (_line_bound(dfm, 24 * rows, rows) if name == "occ4"
+                 else _line_bound(dfm, 104 * rows, 2 * rows, 20 * rows))
+        res[name] = (ms, plain_ms, err, bound)
     if int(flags.item()):
         raise AssertionError(f"rank kernels raised flags {int(flags.item())}")
+    # the backward search of every read of the batch: kernel and plain version
+    qseq, qlen = mid["backward_search"]
+    B = qseq.shape[0]
+    bk, bl = (torch.empty(B, dtype=torch.int64, device=dev) for _ in range(2))
+    bm = torch.empty(B, dtype=torch.int32, device=dev)
+    ms = _event_ms(lambda: fmops.backward_search_launch(dfm, qseq, qlen, bk, bl,
+                                                        bm), 20, dev)
+    plain, plain_ms = _once_ms(lambda: fmops.backward_search_torch(dfm, qseq,
+                                                                   qlen), dev)
+    err = max(_diff(g, p_) for g, p_ in zip((bk, bl, bm), plain))
+    steps = int((bm + (bm < qlen).int()).sum())  # the failing step counts too
+    bound = _line_bound(dfm, qseq.numel() + 24 * B, 2 * steps, 10 * steps)
+    print(f"  backward_search on {B} reads ({steps} steps, longest "
+          f"{int(bm.max())}): kernel {ms:.4f} ms, plain PyTorch {plain_ms:.4f} ms "
+          f"(once); max|kernel-plain| {err}")
+    if err:
+        raise AssertionError("backward_search disagrees with the plain version")
+    res["backward_search"] = (ms, plain_ms, err, bound)
     big = torch.from_numpy(np.random.default_rng(SEED + 4).integers(
         -1, fm.seq_len + 1, 1 << 20)).to(dev)
     big_out = torch.empty((len(big), 4), dtype=torch.int32, device=dev)
@@ -695,9 +811,8 @@ def phase_chr20(dev):
     seeding-shaped work."""
     import numpy as np
 
-    from bwamem_tpu import BwaMemAligner as HostAligner
-    from bwamem_tpu import BwaMemIndex
-    from bwamem_tpu.utils.synth import simulate_pairs
+    from bwamem_tpu_torch import BwaMemIndex
+    from bwamem_tpu_torch.utils.synth import simulate_pairs
     from bwamem_tpu_torch import BwaMemAligner
     from bwamem_tpu_torch.engine.pipeline import SA_STATS
     from bwamem_tpu_torch.engine.state import device_fm
@@ -716,25 +831,25 @@ def phase_chr20(dev):
     rng = np.random.default_rng(SEED + 1)
     warm = simulate_pairs(codes, rng, 8)
     reads = simulate_pairs(codes, rng, CHR20_PAIRS)
-    host = HostAligner(index)
-    port = BwaMemAligner(index, device=dev,
-                         device_stages=("seed", "sa_lookup"))
+    host = _host_aligner(index)
+    port = BwaMemAligner(index, device=dev, device_stages=ALL_STAGES)
     for a in (host, port):
         _pe_setup(a)
         a.align_seqs(warm)
     ref, t_host = _timed(host, reads, dev)
-    res = _port_run("chr20 pe+seed+sa", port, reads, ref, t_host, dev)
+    res = _port_run("chr20 pe+seed+sa+chain", port, reads, ref, t_host, dev)
     sa_launches = res["sa_launches"]
     if sa_launches <= 0 or SA_STATS.host_sa_rows:
         raise AssertionError("chr20: SA walks did not all run on the card")
     _check_seeded("chr20", res, reads)
-    sa_ms, sa_plain_ms = _time_sa("64 Mbp, PE batch", dev, fm,
-                                  SA_STATS.largest_rows)
+    _check_chained("chr20", res, reads)
+    sa_ms, sa_plain_ms, sa_bound = _time_sa("64 Mbp, PE batch", dev, fm,
+                                            SA_STATS.largest_rows)
     launches, err, mid = _rank_drive(dev, fm, reads)
     rank = _time_rank(dev, fm, mid)
     index.close()
-    return dict(sa_ms=sa_ms, sa_plain_ms=sa_plain_ms, launches=launches,
-                rank=rank)
+    return dict(sa_ms=sa_ms, sa_plain_ms=sa_plain_ms, sa_bound=sa_bound,
+                launches=launches, rank=rank)
 
 
 def phase_probe(dev):
@@ -746,7 +861,7 @@ def phase_probe(dev):
     from bwamem_tpu_torch.benchmarks import op_probe
 
     rng = np.random.default_rng(SEED + 3)
-    err, ms, plain_ms = 0, 0.0, 0.0
+    err, ms, plain_ms, nbytes, ops = 0, 0.0, 0.0, 0, 0
     for p in op_probe.PROBES:
         x = torch.from_numpy(rng.integers(-5000, 5000, p.shape)).to(
             dtype=p.dtype, device=dev)
@@ -756,12 +871,15 @@ def phase_probe(dev):
         print(f"  {p.name:10s} K=64: max|kernel-plain| {e}; kernel {k_ms:.4f} "
               f"ms, plain PyTorch {p_ms:.4f} ms")
         err, ms, plain_ms = max(err, e), ms + k_ms, plain_ms + p_ms
+        nbytes += 2 * x.numel() * x.element_size()
+        ops += x.numel() * 64 * p.per_iter_ops
     if err:
         raise AssertionError("a probe kernel disagrees with its plain version")
     op_probe.LAUNCHES = 0
     if op_probe.main() != 0:
         raise AssertionError("the op probe's run failed")
-    return dict(launches=op_probe.LAUNCHES, err=err, ms=ms, plain_ms=plain_ms)
+    return dict(launches=op_probe.LAUNCHES, err=err, ms=ms, plain_ms=plain_ms,
+                bound=_bound(nbytes, ops))
 
 
 SEED_REPLACES = {
@@ -803,8 +921,8 @@ def _lane_kernels(dev, fm, dfm, reads, sample):
     import numpy as np
     import torch
 
-    from bwamem_tpu.api.options import MemOptions
-    from bwamem_tpu.engine.seed import seed_strategy1, smem1a
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine.seed import seed_strategy1, smem1a
     from bwamem_tpu_torch.ops import fmindex as fmops
     from bwamem_tpu_torch.ops import seed as so
     from bwamem_tpu_torch.utils import seed_cases
@@ -848,7 +966,13 @@ def _lane_kernels(dev, fm, dfm, reads, sample):
           f"sample lanes; {n_ovf} K-overflows): kernel {ms:.4f} ms, plain "
           f"PyTorch {plain_ms:.4f} ms (once); max|kernel-plain| {e_plain}, "
           f"max|kernel-host| {e_host} ({len(oracle)} lanes)")
-    res["smem1a"] = dict(err=max(e_plain, e_host), ms=ms, plain_ms=plain_ms)
+    # a forward and a backward pass over the read from x, one bwt_extend
+    # (two lines) a base: an estimate, the kernel does not count its calls
+    span = int((qlen.long() - x.long()).clamp(min=0).sum())
+    res["smem1a"] = dict(err=max(e_plain, e_host), ms=ms, plain_ms=plain_ms,
+                         bound=_line_bound(dfm, qseq.numel() + 24 * B
+                                           + 40 * int(g[6].sum()), 4 * span,
+                                           40 * span))
     # strategy1
     args = (opt.min_seed_len, opt.max_mem_intv)
     got = so.strategy1_cuda(dfm, qseq, qlen, x, *args)
@@ -874,7 +998,10 @@ def _lane_kernels(dev, fm, dfm, reads, sample):
     print(f"  strategy1 on {B} lanes ({int(g[0].sum())} found): kernel "
           f"{ms:.4f} ms, plain PyTorch {plain_ms:.4f} ms (once); "
           f"max|kernel-plain| {e_plain}, max|kernel-host| {e_host}")
-    res["strategy1"] = dict(err=max(e_plain, e_host), ms=ms, plain_ms=plain_ms)
+    steps = int((torch.from_numpy(g[6]).long() - x.cpu().long()).clamp(min=0).sum())
+    res["strategy1"] = dict(err=max(e_plain, e_host), ms=ms, plain_ms=plain_ms,
+                            bound=_line_bound(dfm, qseq.numel() + 56 * B,
+                                              2 * steps, 20 * steps))
     fmops._raise_flags("seeding lanes", flags)
     return res
 
@@ -884,10 +1011,10 @@ def phase_seed_kernels(dev, fm, codes, batch):
     import numpy as np
     import torch
 
-    from bwamem_tpu.api.options import MemOptions
-    from bwamem_tpu.engine.chain import sample_ks
-    from bwamem_tpu.engine.seed import collect_intv
-    from bwamem_tpu.utils.encoding import seq_to_codes_batch
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine.chain import sample_ks
+    from bwamem_tpu_torch.engine.seed import collect_intv
+    from bwamem_tpu_torch.utils.encoding import seq_to_codes_batch
     from bwamem_tpu_torch.engine.state import device_fm
     from bwamem_tpu_torch.ops import fmindex as fmops
     from bwamem_tpu_torch.ops import seed as so
@@ -980,8 +1107,14 @@ def phase_seed_kernels(dev, fm, codes, batch):
           f"{s_plain_ms:.4f} ms (once); max|kernel-plain| {e_s}, "
           f"max|kernel-host| {e_sh}; SA walks of its rows max|kernel-plain| "
           f"{e_w}, max|kernel-host| {e_wh}")
-    res["collect_intv"] = dict(err=max(e_c, e_ch), ms=c_ms, plain_ms=c_plain_ms)
-    res["sample_ks"] = dict(err=max(e_s, e_sh), ms=s_ms, plain_ms=s_plain_ms)
+    calls = int(w[:, 2].sum())
+    res["collect_intv"] = dict(
+        err=max(e_c, e_ch), ms=c_ms, plain_ms=c_plain_ms,
+        bound=_line_bound(dfm, qseq.numel() + 20 * B + 40 * len(flat),
+                          2 * calls, 20 * calls))
+    res["sample_ks"] = dict(
+        err=max(e_s, e_sh), ms=s_ms, plain_ms=s_plain_ms,
+        bound=_bound(80 * len(flat) + 8 * len(ks) + 20 * B, 4 * len(ks)))
     res["walks_err"] = max(e_w, e_wh)
     if any(v["err"] for k, v in res.items() if k != "walks_err") or res["walks_err"]:
         raise AssertionError("a seeding kernel disagrees with its references")
@@ -1044,6 +1177,186 @@ def phase_device_seed(dev, index, runs):
     return dict(runs=out, launches=main["seed_launches"], calls=calls)
 
 
+def _check_chained(tag, res, reads, min_share=0.95):
+    """Both chain kernels ran in ``res``'s run, every read was chained once,
+    and at least ``min_share`` of the reads were chained on the card."""
+    st, la = res["chain_stats"], res["chain_launches"]
+    if la["chain"] <= 0 or la["chain_emit"] <= 0:
+        raise AssertionError(f"{tag}: the chain kernels did not run")
+    if st["device_reads"] + st["host_reads"] != len(reads):
+        raise AssertionError(f"{tag}: reads chained {st['device_reads']} + "
+                             f"{st['host_reads']}, not {len(reads)}")
+    if st["device_reads"] < min_share * len(reads):
+        raise AssertionError(f"{tag}: only {st['device_reads']} of {len(reads)} "
+                             "reads chained on the card")
+
+
+def _chain_key(c, full: bool):
+    key = (c.rid, c.is_alt, c.frac_rep,
+           tuple((s.rbeg, s.qbeg, s.len, s.score) for s in c.seeds))
+    return key + ((c.w, c.kept, c.first) if full else ())
+
+
+def phase_chain_kernels(dev, index, batch):
+    """Phase 12: the chain kernels = plain (card) = host C++ = host oracle on
+    the PE batch's real seeds, then their times."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine import native_chain, pipeline
+    from bwamem_tpu_torch.engine.chain import chain_flt, mem_chain
+    from bwamem_tpu_torch.engine.exec_ctx import ExecConfig
+    from bwamem_tpu_torch.engine.seed import SmemIntv
+    from bwamem_tpu_torch.engine.state import device_contigs
+    from bwamem_tpu_torch.ops import chain as co
+    from bwamem_tpu_torch.utils.encoding import seq_to_codes_batch
+
+    opt = MemOptions()
+    eng = index._require()
+    bns = eng.idx.bns
+    reads = seq_to_codes_batch(batch)
+    qlens = np.asarray([len(r) for r in reads], dtype=np.int32)
+    # the table as the aligner's chain stage gets it: seeded and walked on
+    # the card, never on the host
+    tab, _, _ = pipeline._device_table(opt, eng, reads, qlens, ExecConfig(
+        device=dev, device_seed=True, device_sa_lookup=True, device_chain=True))
+    ctg = device_contigs(bns, dev)
+    params = co.ChainParams.from_opt(opt)
+    got = co.chain_cuda(ctg, tab, params)
+    plain, plain_ms = _once_ms(lambda: co.chain_torch(ctg, tab, params), dev)
+    e_plain = max(_diff(g, p) for g, p in zip(got, plain))
+    # chain for chain against the host C++ on every read, and against the
+    # oracle (which also sets w, kept and first) on a sample
+    lists, (ovf, seed_cnt, nslots) = co.chains_device_batch(ctg, tab, params)
+    rows, intv_off, n_intv, rbegs, rbeg_off, cnt = (
+        t.cpu().numpy() for t in tab[1:])
+    if not native_chain.available():
+        raise RuntimeError("host C++ chain (engine/native/chain.cpp) did not build")
+    host = native_chain.chain_batch(opt, bns, qlens, rows, intv_off, n_intv,
+                                    rbegs, rbeg_off, cnt)
+    e_host = sum(1 for i, (a, b) in enumerate(zip(lists, host)) if not ovf[i]
+                 and [_chain_key(c, False) for c in a]
+                 != [_chain_key(c, False) for c in b])
+    rng = np.random.default_rng(SEED + 7)
+    pick = sorted(rng.choice(len(reads), SEED_SAMPLE, replace=False).tolist())
+    pick = sorted(set(pick) | set(np.argsort(seed_cnt)[-8:].tolist()))
+    e_oracle = 0
+    for i in pick:
+        if ovf[i]:
+            continue
+        lo, hi = int(intv_off[i]), int(intv_off[i] + n_intv[i])
+        exp = chain_flt(opt, mem_chain(
+            opt, eng.fm, bns, int(qlens[i]),
+            [SmemIntv(*r) for r in rows[lo:hi].tolist()],
+            [rbegs[b: b + c] for b, c in zip(rbeg_off[lo:hi].tolist(),
+                                             cnt[lo:hi].tolist())]))
+        e_oracle += ([_chain_key(c, True) for c in lists[i]]
+                     != [_chain_key(c, True) for c in exp])
+    # the kernels alone on prepared operands
+    tabp, seed_cnt_t, seed_off = co.prepare(ctg, tab)
+    B, T = len(reads), int(seed_cnt_t.sum())
+    i32, i64 = torch.int32, torch.int64
+    assign, slot_dst = (torch.empty(T, dtype=i32, device=dev) for _ in range(2))
+    crec = torch.empty((T, 5), dtype=i32, device=dev)
+    n_chain, n_seed = (torch.zeros(B, dtype=i64, device=dev) for _ in range(2))
+    o32, s32 = (torch.zeros(B, dtype=i32, device=dev) for _ in range(2))
+    frac = torch.empty(B, dtype=torch.float64, device=dev)
+    flags = torch.zeros(1, dtype=i32, device=dev)
+
+    def count(sub=tabp, off=seed_off):
+        co.chain_launch(ctg, sub, off, params, co.C_MAX, assign, slot_dst, crec,
+                        n_chain, n_seed, frac, o32, s32, flags)
+
+    sizes = {}
+    for nb in sorted({n for n in (1000, 3000, B // 2) if n < B}):
+        sub, _, off = co.prepare(ctg, tabp._replace(
+            qlen=tabp.qlen[:nb], intv_off=tabp.intv_off[:nb],
+            n_intv=tabp.n_intv[:nb]))
+        sizes[nb] = _event_ms(lambda: count(sub, off), 10, dev)
+    top = int(np.argmax(seed_cnt))
+    one, _, off1 = co.prepare(ctg, tabp._replace(
+        qlen=tabp.qlen[top: top + 1], intv_off=tabp.intv_off[top: top + 1],
+        n_intv=tabp.n_intv[top: top + 1]))
+    top_ms = _event_ms(lambda: count(one, off1), 10, dev)
+    c_ms = _event_ms(count, 10, dev)
+    cold_ms = _cold_ms(count, 5, dev)
+    nc, ns = int(n_chain.sum()), int(n_seed.sum())
+    chain_off = torch.cumsum(n_chain, 0) - n_chain
+    seed_dst = torch.cumsum(n_seed, 0) - n_seed
+    chain_rows = torch.empty((nc, 7), dtype=i64, device=dev)
+    seed_rows = torch.empty((ns, 4), dtype=i64, device=dev)
+
+    def both():  # the emit pass advances slot_dst, so the count pass precedes it
+        count()
+        co.chain_emit_launch(ctg, tabp, seed_off, assign, slot_dst, crec, n_chain,
+                             frac, chain_off, seed_dst, chain_rows, seed_rows)
+
+    both_ms = _event_ms(both, 10, dev)
+    if int(flags.item()):
+        raise AssertionError(f"chain kernels raised flags {int(flags.item())}")
+    e_plain = max(e_plain, _diff(chain_rows, got.chain_rows),
+                  _diff(seed_rows, got.seed_rows))
+    N = int(n_intv.sum())
+    print(f"  chain on {B} reads ({N} intervals, {T} seeds; per read mean "
+          f"{seed_cnt.mean():.1f}, p50/p90/p99 "
+          f"{np.percentile(seed_cnt, [50, 90, 99]).tolist()}, max "
+          f"{int(seed_cnt.max())}; chain slots used mean {nslots.mean():.2f}, max "
+          f"{int(nslots.max())}, more than 32 in {int((nslots > 32).sum())} reads, "
+          f"flagged at C = {co.C_MAX}: {int(ovf.sum())}; {nc} chains and {ns} "
+          f"seeds out): chain_kernel {c_ms:.4f} ms repeated, {cold_ms:.4f} ms "
+          f"from a cold L2; chain_kernel + chain_emit_kernel {both_ms:.4f} ms, so "
+          f"chain_emit_kernel {both_ms - c_ms:.4f} ms; plain PyTorch "
+          f"{plain_ms:.2f} ms (once)")
+    print("  chain_kernel by batch size: " + ", ".join(
+        f"B={nb} {ms:.4f} ms" for nb, ms in sizes.items())
+        + f", B={B} {c_ms:.4f} ms; the read with the most seeds alone "
+        f"({int(seed_cnt[top])} seeds, {int(nslots[top])} slots): {top_ms:.4f} ms, "
+        f"{top_ms * 1e3 / max(int(seed_cnt[top]), 1):.3f} us per seed")
+    print(f"  max|kernel-plain| {e_plain}; reads whose chains differ from the "
+          f"host C++ chain_batch {e_host} (of {B}), from the oracle "
+          f"chain_flt(mem_chain) with w, kept and first {e_oracle} (of "
+          f"{len(pick)})")
+    if e_plain or e_host or e_oracle:
+        raise AssertionError("a chain kernel disagrees with its references")
+    io = 8 * T + 56 * N + 28 * B
+    return {
+        "chain": dict(err=0, ms=c_ms, plain_ms=plain_ms,
+                      bound=_bound(io + 32 * B, 60 * T)),
+        "chain_emit": dict(err=0, ms=both_ms - c_ms, plain_ms=plain_ms,
+                           bound=_bound(io + 4 * T + 16 * B + 56 * nc + 32 * ns,
+                                        8 * T)),
+    }
+
+
+def phase_device_chain(dev, index, runs):
+    """Phase 13: the batches of phase 4 with the chaining on the card."""
+    from bwamem_tpu_torch import BwaMemAligner
+    from bwamem_tpu_torch.engine.pipeline import SA_STATS
+
+    out = {}
+    for tag, mode, stages in (("pe+seed+sa+chain", "pe", ALL_STAGES),
+                              ("se+seed+sa+chain", "se", ALL_STAGES),
+                              ("pe+chain", "pe", ("chain",))):
+        r = runs[mode]
+        port = BwaMemAligner(index, device=dev, device_stages=stages)
+        if mode == "pe":
+            _pe_setup(port)
+        port.align_seqs(r["warm"])
+        res = _port_run(tag, port, r["batch"], r["ref"], r["t_host"], dev)
+        _check_chained(tag, res, r["batch"])
+        if "seed" in stages:
+            _check_seeded(tag, res, r["batch"])
+            if res["sa_launches"] <= 0 or SA_STATS.host_sa_rows:
+                raise AssertionError(f"{tag}: SA walks did not all run on the card")
+        st = res["stages"]
+        print(f"  {tag}: chain stage {st['chain']:.4f} s (scans, two launches, "
+              f"one copy back, Chain lists rebuilt in Python); phase 4's host "
+              f"C++ chain stage {r['stages']['chain']:.4f} s")
+        out[tag] = res
+    return dict(runs=out, launches=out["pe+seed+sa+chain"]["chain_launches"])
+
+
 def main() -> int:
     import torch
 
@@ -1052,7 +1365,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from bwamem_tpu import BwaMemIndex
+    from bwamem_tpu_torch import BwaMemIndex
     from bwamem_tpu_torch.ops import extend as ext
 
     dev = torch.device("cuda", 0)
@@ -1065,7 +1378,7 @@ def main() -> int:
           "tolerance 0 (int32, exact)")
     err3 = phase_kernel_vs_plain(dev, ext.ksw_extend_cuda)
 
-    print("[4] main path: BwaMemAligner(device='cuda') vs bwamem_tpu host")
+    print("[4] main path: BwaMemAligner(device='cuda') vs the host oracle")
     t0 = time.perf_counter()
     codes, img, build_s = _synthetic_index(ECOLI_LEN)
     index = BwaMemIndex(img)
@@ -1074,7 +1387,7 @@ def main() -> int:
     runs = phase_main_path(dev, index, codes)
 
     print("[5] kernel timing on the largest PE wave")
-    ms, plain_ms, err5 = phase_timing(dev, runs["pe"]["wave"])
+    ms, plain_ms, err5, ksw_bound = phase_timing(dev, runs["pe"]["wave"])
 
     print("[6] FM kernels vs plain PyTorch (card) vs host FMIndex, tolerance 0 "
           "(integers, exact)")
@@ -1082,7 +1395,7 @@ def main() -> int:
     fm_err = phase_fm_kernels(dev, fm)
 
     print("[7] device SA stage: BwaMemAligner(device='cuda', "
-          "device_stages=('sa_lookup',)) vs bwamem_tpu host")
+          "device_stages=('sa_lookup',)) vs the host oracle")
     sa = phase_device_sa(dev, index, fm, runs)
 
     print("[8] chr20 scale: 64 Mbp genome, seeding, SA walks and extension on "
@@ -1097,8 +1410,17 @@ def main() -> int:
     seed_k = phase_seed_kernels(dev, fm, codes, runs["pe"]["batch"])
 
     print("[11] device seed stage: BwaMemAligner(device='cuda', "
-          "device_stages=('seed', 'sa_lookup') / ('seed',)) vs bwamem_tpu host")
+          "device_stages=('seed', 'sa_lookup') / ('seed',)) vs the host oracle")
     seed_run = phase_device_seed(dev, index, runs)
+
+    print("[12] chain kernels vs plain PyTorch (card) vs host C++ vs host "
+          "oracle, tolerance 0 (integers and bit-equal doubles, exact)")
+    chain_k = phase_chain_kernels(dev, index, runs["pe"]["batch"])
+
+    print("[13] device chain stage: BwaMemAligner(device='cuda', "
+          "device_stages=('seed', 'sa_lookup', 'chain') / ('chain',)) vs the "
+          "host oracle")
+    chain_run = phase_device_chain(dev, index, runs)
     index.close()
 
     fm_src = "bwamem_tpu_torch/csrc/fmindex.cu"
@@ -1107,28 +1429,37 @@ def main() -> int:
          "source": "bwamem_tpu_torch/csrc/extend.cu",
          "replaces": "bwamem_tpu/ops/extend_pallas.py:83",
          "launches": runs["pe"]["launches"], "max_abs_err": max(err3, err5),
-         "ms": ms, "plain_ms": plain_ms},
+         "ms": ms, "plain_ms": plain_ms, **ksw_bound},
         {"name": "occ4", "route": "cuda", "source": fm_src,
          "replaces": "bwamem_tpu/ops/fmindex_tpu.py:249",
          "launches": big["launches"]["occ4"],
          "max_abs_err": max(fm_err["occ4"], big["rank"]["occ4"][2]),
-         "ms": big["rank"]["occ4"][0], "plain_ms": big["rank"]["occ4"][1]},
+         "ms": big["rank"]["occ4"][0], "plain_ms": big["rank"]["occ4"][1],
+         **big["rank"]["occ4"][3]},
         {"name": "bwt_extend", "route": "cuda", "source": fm_src,
          "replaces": "bwamem_tpu/ops/fmindex_tpu.py:296",
          "launches": big["launches"]["bwt_extend"],
          "max_abs_err": max(fm_err["bwt_extend"], big["rank"]["bwt_extend"][2]),
          "ms": big["rank"]["bwt_extend"][0],
-         "plain_ms": big["rank"]["bwt_extend"][1]},
+         "plain_ms": big["rank"]["bwt_extend"][1],
+         **big["rank"]["bwt_extend"][3]},
         {"name": "sa_lookup", "route": "cuda", "source": fm_src,
          "replaces": "bwamem_tpu/ops/fmindex_tpu.py:382",
          "launches": sa["pe"]["launches"],
          "max_abs_err": max(fm_err["sa_lookup"], seed_k["walks_err"]),
-         "ms": big["sa_ms"], "plain_ms": big["sa_plain_ms"]},
+         "ms": big["sa_ms"], "plain_ms": big["sa_plain_ms"], **big["sa_bound"]},
+        {"name": "backward_search", "route": "cuda", "source": fm_src,
+         "replaces": "bwamem_tpu/ops/seed_tpu.py:27",
+         "launches": big["launches"]["backward_search"],
+         "max_abs_err": big["rank"]["backward_search"][2],
+         "ms": big["rank"]["backward_search"][0],
+         "plain_ms": big["rank"]["backward_search"][1],
+         **big["rank"]["backward_search"][3]},
         {"name": "op_probe", "route": "cuda",
          "source": "bwamem_tpu_torch/csrc/op_probe.cu",
          "replaces": "benchmarks/mosaic_probe.py:44",
          "launches": probe["launches"], "max_abs_err": probe["err"],
-         "ms": probe["ms"], "plain_ms": probe["plain_ms"]},
+         "ms": probe["ms"], "plain_ms": probe["plain_ms"], **probe["bound"]},
     ] + [
         {"name": name, "route": "cuda", "source": "bwamem_tpu_torch/csrc/seed.cu",
          "replaces": SEED_REPLACES[name],
@@ -1138,15 +1469,22 @@ def main() -> int:
                          "kernel counts them",
          "own_kernel_launches": seed_run["launches"][name],
          "max_abs_err": seed_k[name]["err"], "ms": seed_k[name]["ms"],
-         "plain_ms": seed_k[name]["plain_ms"]}
+         "plain_ms": seed_k[name]["plain_ms"], **seed_k[name]["bound"]}
         for name in ("smem1a", "strategy1")
     ] + [
         {"name": name, "route": "cuda", "source": "bwamem_tpu_torch/csrc/seed.cu",
          "replaces": SEED_REPLACES[name],
          "launches": seed_run["launches"][name],
          "max_abs_err": seed_k[name]["err"], "ms": seed_k[name]["ms"],
-         "plain_ms": seed_k[name]["plain_ms"]}
+         "plain_ms": seed_k[name]["plain_ms"], **seed_k[name]["bound"]}
         for name in ("collect_intv", "sample_ks")
+    ] + [
+        {"name": name, "route": "cuda", "source": "bwamem_tpu_torch/csrc/chain.cu",
+         "replaces": "bwamem_tpu/ops/chain_tpu.py:41",
+         "launches": chain_run["launches"][name],
+         "max_abs_err": chain_k[name]["err"], "ms": chain_k[name]["ms"],
+         "plain_ms": chain_k[name]["plain_ms"], **chain_k[name]["bound"]}
+        for name in ("chain", "chain_emit")
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,25 +1,27 @@
 """The port's BwaMemAligner (extension waves, and with ``device_stages`` the
-seeding and the SA walks, on the CPU through the plain PyTorch versions)
-against bwamem_tpu's host aligner: equal records, read for read, on a
-synthetic genome and on the golden rotavirus reads."""
+seeding, the SA walks and the chaining, on the CPU through the plain PyTorch
+versions) against bwamem_tpu's host aligner: equal records, read for read
+and field for field, on a synthetic genome and on the golden rotavirus
+reads.  Each package opens its own index on the same image."""
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from bwamem_tpu import BwaMemAligner as HostAligner
-from bwamem_tpu import BwaMemIndex, BwaMemPairEndStats
-from bwamem_tpu.index import image
-from bwamem_tpu.index.build import build_index
-from bwamem_tpu.utils.fasta import Fasta, FastaContig
-from bwamem_tpu.utils.synth import simulate_pairs, synthetic_genome
-from bwamem_tpu_torch import BwaMemAligner
+import bwamem_tpu
+from bwamem_tpu_torch import BwaMemAligner, BwaMemIndex, BwaMemPairEndStats
+from bwamem_tpu_torch.engine import native_chain, native_fm
 from bwamem_tpu_torch.engine.extend_batch import STATS
-from bwamem_tpu_torch.engine.pipeline import SA_STATS
+from bwamem_tpu_torch.engine.pipeline import CHAIN_STATS, SA_STATS
 from bwamem_tpu_torch.engine.seed_device import SEED_STATS
+from bwamem_tpu_torch.index import image
+from bwamem_tpu_torch.index.build import build_index
+from bwamem_tpu_torch.ops import chain as chainops
 from bwamem_tpu_torch.ops import extend as ext
 from bwamem_tpu_torch.ops import seed as seedops
+from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
+from bwamem_tpu_torch.utils.synth import simulate_pairs, synthetic_genome
 
 ROTAVIRUS = os.path.join(os.path.dirname(__file__), "fixtures",
                          "rotavirus.bwa.img")
@@ -45,10 +47,28 @@ def _records(aligner, reads):
     return [[vars(a) for a in r] for r in aligner.align_seqs(reads)]
 
 
+HostAligner = bwamem_tpu.BwaMemAligner
+
+
+class _Indexes:
+    """One image opened by each package: ``port`` for the port's aligner,
+    ``ref`` for bwamem_tpu's."""
+
+    def __init__(self, path):
+        self.port = BwaMemIndex(path)
+        self.ref = bwamem_tpu.BwaMemIndex(path)
+
+    def close(self):
+        self.port.close()
+        self.ref.close()
+
+
 def _pe_mode(aligner, mode, stats=(350, 35)):
     aligner.align_pairs()
     if mode == "fixed":
-        aligner.set_proper_pair_end_stats(BwaMemPairEndStats.of(*stats))
+        stats_cls = (BwaMemPairEndStats if isinstance(aligner, BwaMemAligner)
+                     else bwamem_tpu.BwaMemPairEndStats)
+        aligner.set_proper_pair_end_stats(stats_cls.of(*stats))
     elif mode == "none":
         aligner.dont_infer_pair_end_stats()
 
@@ -58,7 +78,7 @@ def genome(tmp_path_factory):
     codes = synthetic_genome(200_000, np.random.default_rng(7))
     img = str(tmp_path_factory.mktemp("g") / "g.img")
     image.write_image(img, build_index(Fasta([FastaContig("chr", "", codes)])))
-    index = BwaMemIndex(img)
+    index = _Indexes(img)
     yield index, simulate_pairs(codes, np.random.default_rng(9), 200)
     index.close()
 
@@ -66,8 +86,8 @@ def genome(tmp_path_factory):
 @pytest.mark.parametrize("mode", ["se", "inferred", "fixed"])
 def test_records_match_host_aligner(genome, mode):
     index, reads = genome
-    host = HostAligner(index)
-    port = BwaMemAligner(index, device="cpu", min_device_jobs=1)
+    host = HostAligner(index.ref)
+    port = BwaMemAligner(index.port, device="cpu", min_device_jobs=1)
     if mode != "se":
         _pe_mode(host, mode)
         _pe_mode(port, mode)
@@ -84,8 +104,8 @@ def test_device_sa_lookup_matches_host_aligner(genome, mode):
     """device_stages=("sa_lookup",): every SA walk of the batch through the
     port's plain walk on the CPU, none on the host C++."""
     index, reads = genome
-    host = HostAligner(index)
-    port = BwaMemAligner(index, device="cpu", min_device_jobs=1,
+    host = HostAligner(index.ref)
+    port = BwaMemAligner(index.port, device="cpu", min_device_jobs=1,
                          device_stages=("sa_lookup",))
     if mode != "se":
         _pe_mode(host, mode)
@@ -99,12 +119,11 @@ def test_device_sa_lookup_matches_host_aligner(genome, mode):
 def test_device_sa_lookup_in_the_python_oracle_branch(genome, monkeypatch):
     """Without the native libraries the Python seeding oracle feeds the
     same device SA stage."""
-    from bwamem_tpu.engine import native_fm
-
     index, reads = genome
-    expected = _records(HostAligner(index), reads[:24])
+    expected = _records(HostAligner(index.ref), reads[:24])
     monkeypatch.setattr(native_fm, "available", lambda: False)
-    port = BwaMemAligner(index, device="cpu", min_device_jobs=1,
+    monkeypatch.setattr(native_chain, "available", lambda: False)
+    port = BwaMemAligner(index.port, device="cpu", min_device_jobs=1,
                          device_stages=("sa_lookup",))
     SA_STATS.reset()
     assert _records(port, reads[:24]) == expected
@@ -119,19 +138,18 @@ def test_device_seed_matches_host_aligner(genome, monkeypatch, stages, natives):
     seeding on the CPU (no read of this genome overflows a budget), the SA
     walks on the host or through the port's plain walk; with the host C++
     natives, and without them (the Python seeding and chaining branch)."""
-    from bwamem_tpu.engine import native_fm
-
     index, reads = genome
     if not natives:
         reads = reads[:24]
-    host = HostAligner(index)
-    port = BwaMemAligner(index, device="cpu", min_device_jobs=1,
+    host = HostAligner(index.ref)
+    port = BwaMemAligner(index.port, device="cpu", min_device_jobs=1,
                          device_stages=stages)
     for a in (host, port):
         _pe_mode(a, "fixed")
     expected = _records(host, reads)
     if not natives:
         monkeypatch.setattr(native_fm, "available", lambda: False)
+        monkeypatch.setattr(native_chain, "available", lambda: False)
     SEED_STATS.reset()
     SA_STATS.reset()
     before = dict(seedops.LAUNCHES)
@@ -148,36 +166,79 @@ def test_device_seed_matches_host_aligner(genome, monkeypatch, stages, natives):
 def test_sa_walks_stay_on_host_by_default(genome):
     index, reads = genome
     SA_STATS.reset()
-    BwaMemAligner(index, device="cpu").align_seqs(reads[:20])
+    BwaMemAligner(index.port, device="cpu").align_seqs(reads[:20])
     assert SA_STATS.host_sa_rows > 0 and SA_STATS.device_sa_rows == 0
 
 
-@pytest.mark.parametrize("stages", [("seed", "chain"), ("chain",), ("sa_lookup", "chain"),
-                                    ("extend",)])
+@pytest.mark.parametrize("natives", [True, False], ids=("native", "python"))
+@pytest.mark.parametrize(
+    "stages", [("chain",), ("seed", "chain"), ("sa_lookup", "chain"),
+               ("seed", "sa_lookup", "chain")],
+    ids=("chain", "seed_chain", "sa_chain", "all"))
+def test_device_chain_matches_host_aligner(genome, monkeypatch, stages, natives):
+    """device_stages with "chain": every read chained by the port's plain
+    chaining on the CPU (no read of this genome needs more than 128 chain
+    slots), alone and after the device seed and SA stages; with the host C++
+    natives, and without them (the Python seeding oracle)."""
+    index, reads = genome
+    if not natives:
+        reads = reads[:24]
+    host = HostAligner(index.ref)
+    port = BwaMemAligner(index.port, device="cpu", min_device_jobs=1,
+                         device_stages=stages)
+    for a in (host, port):
+        _pe_mode(a, "fixed")
+    expected = _records(host, reads)
+    if not natives:
+        monkeypatch.setattr(native_fm, "available", lambda: False)
+        monkeypatch.setattr(native_chain, "available", lambda: False)
+    CHAIN_STATS.reset()
+    SA_STATS.reset()
+    before = dict(chainops.LAUNCHES)
+    got = _records(port, reads)
+    assert chainops.LAUNCHES == before  # the CPU never launches the kernels
+    assert (CHAIN_STATS.device_reads, CHAIN_STATS.host_reads) == (len(reads), 0)
+    assert CHAIN_STATS.c_overflows == 0
+    if "sa_lookup" in stages:
+        assert SA_STATS.device_sa_rows > 0 and SA_STATS.host_sa_rows == 0
+    assert got == expected
+
+
+def test_device_chain_single_end(genome):
+    index, reads = genome
+    port = BwaMemAligner(index.port, device="cpu", min_device_jobs=1,
+                         device_stages=("seed", "sa_lookup", "chain"))
+    assert _records(port, reads[:60]) == _records(HostAligner(index.ref),
+                                                 reads[:60])
+
+
+@pytest.mark.parametrize("stages", [("extend",), ("seed", "extend"),
+                                    ("pipeline",), ("Chain",)])
 def test_device_stages_the_port_lacks_raise(rotavirus, stages):
+    """Only "seed", "sa_lookup" and "chain" name a device stage."""
     with pytest.raises(ValueError):
-        BwaMemAligner(rotavirus, device="cpu", device_stages=stages)
+        BwaMemAligner(rotavirus.port, device="cpu", device_stages=stages)
 
 
 def test_default_threshold_routes_small_waves_to_host(genome):
     index, reads = genome
-    port = BwaMemAligner(index, device="cpu")
+    port = BwaMemAligner(index.port, device="cpu")
     STATS.reset()
     got = _records(port, reads[:40])
     assert STATS.host_extend_jobs > 0 and STATS.device_extend_jobs == 0
-    assert got == _records(HostAligner(index), reads[:40])
+    assert got == _records(HostAligner(index.ref), reads[:40])
 
 
 @pytest.fixture(scope="module")
 def rotavirus():
-    index = BwaMemIndex(ROTAVIRUS)
+    index = _Indexes(ROTAVIRUS)
     yield index
     index.close()
 
 
 def test_golden_single_end(rotavirus):
     reads = [READ_L1, READ_SNV, READ_RC, READ_DEL]
-    port = BwaMemAligner(rotavirus, device="cpu", min_device_jobs=1)
+    port = BwaMemAligner(rotavirus.port, device="cpu", min_device_jobs=1)
     got = port.align_seqs(reads)
     assert [len(r) for r in got] == [1, 1, 1, 1]
     assert [(a[0].ref_start, a[0].ref_end, a[0].cigar, a[0].n_mismatches,
@@ -185,13 +246,13 @@ def test_golden_single_end(rotavirus):
         (0, 70, "70M", 0, 0), (0, 70, "70M", 3, 0), (0, 70, "70M", 0, 0x10),
         (70, 140, "32M2D36M", 2, 0)]
     assert [[vars(a) for a in r] for r in got] == _records(
-        HostAligner(rotavirus), reads)
+        HostAligner(rotavirus.ref), reads)
 
 
 @pytest.mark.parametrize("mode", ["inferred", "fixed", "none"])
 def test_golden_pair(rotavirus, mode):
-    port = BwaMemAligner(rotavirus, device="cpu", min_device_jobs=1)
-    host = HostAligner(rotavirus)
+    port = BwaMemAligner(rotavirus.port, device="cpu", min_device_jobs=1)
+    host = HostAligner(rotavirus.ref)
     for a in (port, host):  # BwaMemIndexTest.java's stats for this pair
         _pe_mode(a, mode, stats=(200, 10, 1, 600))
     got = port.align_seqs([READ_L1, READ_P2])
@@ -207,9 +268,9 @@ def test_cuda_device_without_card_raises(rotavirus):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError):
-        BwaMemAligner(rotavirus, device="cuda")
+        BwaMemAligner(rotavirus.port, device="cuda")
 
 
 def test_device_is_required(rotavirus):
     with pytest.raises(TypeError):
-        BwaMemAligner(rotavirus)  # no implicit device choice
+        BwaMemAligner(rotavirus.port)  # no implicit device choice

@@ -1,11 +1,13 @@
 """The port on the card: the CUDA kernels (SW extension, occ4, bwt_extend,
-SA walk, op probe, and the seeding kernels smem1a, strategy1, collect_intv
-and sample_ks) against their plain PyTorch versions on the same CUDA
-tensors, exactly, the FM and seeding kernels also against the host oracles,
-and the aligner with device="cuda" (with and without the device seed and SA
-stages) against bwamem_tpu's host aligner.
+SA walk, backward search, op probe, the seeding kernels smem1a, strategy1,
+collect_intv and sample_ks, and the chain kernels) against their plain
+PyTorch versions on the same CUDA tensors, exactly, the FM, seeding and
+chain kernels also against the host oracles, and the aligner with
+device="cuda" (with and without the device seed, SA and chain stages)
+against the port's aligner with every stage on the host.
 
-Imports nothing of JAX, so that it runs where JAX is not installed:
+Imports nothing of JAX and nothing of bwamem_tpu, so that it runs where JAX
+is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -16,10 +18,11 @@ import pytest
 import torch
 
 from bwamem_tpu_torch.benchmarks import op_probe
+from bwamem_tpu_torch.ops import chain as co
 from bwamem_tpu_torch.ops import extend as ext
 from bwamem_tpu_torch.ops import fmindex as fmops
 from bwamem_tpu_torch.ops import seed as so
-from bwamem_tpu_torch.utils import seed_cases
+from bwamem_tpu_torch.utils import chain_cases, seed_cases
 from bwamem_tpu_torch.utils.extend_cases import ARRAYS, CASES, jobs, make_case
 
 needs_card = pytest.mark.skipif("not torch.cuda.is_available()",
@@ -43,8 +46,8 @@ def test_cuda_kernel_matches_plain(name):
 @pytest.mark.cuda
 @needs_card
 def test_cuda_wave_entry_matches_host_ksw():
-    from bwamem_tpu.api.options import MemOptions
-    from bwamem_tpu.engine import native_ksw
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine import native_ksw
     from bwamem_tpu_torch.engine.state import device_scoring
 
     case = make_case("edges")
@@ -59,9 +62,9 @@ def test_cuda_wave_entry_matches_host_ksw():
 
 @pytest.fixture(scope="module", params=(8, 32), ids=("intv8", "intv32"))
 def host_fm(request):
-    from bwamem_tpu.engine.fmindex import FMIndex
-    from bwamem_tpu.index.build import build_index
-    from bwamem_tpu.utils.fasta import Fasta, FastaContig
+    from bwamem_tpu_torch.engine.fmindex import FMIndex
+    from bwamem_tpu_torch.index.build import build_index
+    from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
 
     rng = np.random.default_rng(44)
     codes = rng.integers(0, 4, 20000).astype(np.uint8)
@@ -111,8 +114,22 @@ def test_cuda_fm_kernels_match_plain_and_host(host_fm, span):
         x0 = np.where(keep, exp[0][ar, c], x0)
         x1 = np.where(keep, exp[1][ar, c], x1)
         s = np.where(keep, exp[2][ar, c], s)
+    # backward search: reads of the genome (some with a changed base or an
+    # N, some shorter than the batch's width), right-aligned
+    text = fm.idx.get_seq(0, fm.idx.bns.l_pac)
+    reads = []
+    for i in range(300):
+        st = int(rng.integers(0, len(text) - 64))
+        r = text[st: st + int(rng.integers(1, 65))].copy()
+        if i % 3 == 0:
+            r[int(rng.integers(0, len(r)))] = int(rng.integers(0, 5))
+        reads.append(r)
+    qseq, qlen = fmops.right_align_reads(reads, "cuda")
+    got = fmops.backward_search(dfm, qseq, qlen)
+    for g, p_ in zip(got, fmops.backward_search_torch(dfm, qseq, qlen)):
+        assert torch.equal(g, p_)
     assert {k: fmops.LAUNCHES[k] - before[k] for k in before} == {
-        "occ4": 1, "bwt_extend": 4, "sa_lookup": 1}
+        "occ4": 1, "bwt_extend": 4, "sa_lookup": 1, "backward_search": 1}
 
 
 @pytest.mark.cuda
@@ -153,9 +170,9 @@ def test_cuda_op_probe_matches_plain(name):
 def seed_data():
     """The seeding cases' genome (sa_intv 8) and reads; the last read
     overflows the K-slot budget."""
-    from bwamem_tpu.engine.fmindex import FMIndex
-    from bwamem_tpu.index.build import build_index
-    from bwamem_tpu.utils.fasta import Fasta, FastaContig
+    from bwamem_tpu_torch.engine.fmindex import FMIndex
+    from bwamem_tpu_torch.index.build import build_index
+    from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
 
     rng = np.random.default_rng(404)
     contigs, kread = seed_cases.genome(rng)
@@ -176,8 +193,8 @@ def _seed_lanes(reads, seed):
 @needs_card
 @pytest.mark.parametrize("K", (so.K_SLOTS, so.K_MAX), ids=("k24", "kmax"))
 def test_cuda_smem1a_and_strategy1_match_plain_and_oracle(seed_data, K):
-    from bwamem_tpu.api.options import MemOptions
-    from bwamem_tpu.engine.seed import seed_strategy1, smem1a
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine.seed import seed_strategy1, smem1a
 
     fm, reads = seed_data
     opt = MemOptions()
@@ -221,9 +238,9 @@ def test_cuda_seed_sa_matches_plain_and_oracle(seed_data, M, K):
     """collect_intv + sample_ks + the SA walk on the card against the plain
     chain on the card and the host oracle, per read; M = 4 forces
     M-overflows, K = 24 the K-overflow read's."""
-    from bwamem_tpu.api.options import MemOptions
-    from bwamem_tpu.engine.chain import sample_ks
-    from bwamem_tpu.engine.seed import collect_intv
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine.chain import sample_ks
+    from bwamem_tpu_torch.engine.seed import collect_intv
 
     fm, reads = seed_data
     opt = MemOptions()
@@ -267,28 +284,131 @@ def test_cuda_seed_sa_matches_plain_and_oracle(seed_data, M, K):
     assert (row, k) == (len(flat), len(rbegs))
 
 
+@pytest.fixture(scope="module")
+def chain_data():
+    """The chain cases' genome (three contigs, the last ALT) as the port's
+    engine, reads, and their seeds by the host oracle."""
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine.chain import sample_ks
+    from bwamem_tpu_torch.engine.pipeline import Engine
+    from bwamem_tpu_torch.engine.seed import collect_intv
+    from bwamem_tpu_torch.index.build import build_index
+    from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
+
+    contigs = chain_cases.genome(np.random.default_rng(7))
+    idx = build_index(Fasta([FastaContig(f"c{i}", "", c)
+                             for i, c in enumerate(contigs)]))
+    idx.bns.anns[2].is_alt = 1
+    eng = Engine(idx)
+    opt = MemOptions()
+    reads = chain_cases.reads(contigs, np.random.default_rng(11), 150)
+    reads += [np.ones(5, np.uint8), np.zeros(19, np.uint8)]
+    ivs = [collect_intv(opt, eng.fm, q) for q in reads]
+    rbs = [[eng.fm.sa_lookup(np.asarray(sample_ks(p, opt.max_occ), np.int64))
+            for p in iv] for iv in ivs]
+    return eng, opt, reads, ivs, rbs
+
+
+def _chain_key(c):
+    return (c.rid, c.w, c.kept, c.first, c.frac_rep, c.is_alt,
+            tuple((s.rbeg, s.qbeg, s.len, s.score) for s in c.seeds))
+
+
 @pytest.mark.cuda
 @needs_card
-@pytest.mark.parametrize("stages", [(), ("sa_lookup",), ("seed",), ("seed", "sa_lookup")],
-                         ids=("host_sa", "card_sa", "card_seed", "card_seed_sa"))
+@pytest.mark.parametrize("C", (co.C_MAX, 3), ids=("c128", "c3"))
+def test_cuda_chain_matches_plain_and_oracle(chain_data, C):
+    """The chain kernels against the plain version on the card, field for
+    field (C = 3 flags the multi-chain reads), and the rebuilt chains
+    against the host oracle."""
+    from bwamem_tpu_torch.engine.chain import chain_flt, mem_chain
+    from bwamem_tpu_torch.engine.state import device_contigs
+
+    eng, opt, reads, ivs, rbs = chain_data
+    ctg = device_contigs(eng.idx.bns, "cuda")
+    tab = co.SeedTable.from_numpy(
+        "cuda", *chain_cases.seed_table(ivs, rbs, [len(r) for r in reads]))
+    params = co.ChainParams.from_opt(opt)
+    before = dict(co.LAUNCHES)
+    got = co.chain(ctg, tab, params, C)
+    assert {k: co.LAUNCHES[k] - before[k] for k in before} == {
+        "chain": 1, "chain_emit": 1}
+    for g, p in zip(got, co.chain_torch(ctg, tab, params, C)):
+        assert torch.equal(g, p)
+    assert bool(got.ovf.any()) == (C == 3)
+    lists, (ovf, _, _) = co.chains_device_batch(ctg, tab, params, C)
+    for i, (q, iv, rb) in enumerate(zip(reads, ivs, rbs)):
+        if ovf[i]:
+            assert lists[i] is None
+            continue
+        exp = chain_flt(opt, mem_chain(opt, eng.fm, eng.idx.bns, len(q), iv, rb))
+        assert [_chain_key(c) for c in lists[i]] == [_chain_key(c) for c in exp], i
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("ratio", (0.5, 0.3), ids=("half", "three_tenths"))
+def test_cuda_chain_float_boundaries_follow_the_oracle(ratio):
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine.chain import chain_flt, mem_chain
+    from bwamem_tpu_torch.engine.seed import SmemIntv
+    from bwamem_tpu_torch.index.build import BntAnn, Bntseq
+
+    opt = MemOptions(mask_level=ratio, drop_ratio=ratio)
+    ivs, rbs, qlens, l_pac = chain_cases.boundary_table(ratio, ratio)
+    bns = Bntseq(l_pac=l_pac, anns=[BntAnn(offset=0, name="c", length=l_pac)])
+    lists, (ovf, _, _) = co.chains_device_batch(
+        co.DeviceContigs.from_host(bns, "cuda"),
+        co.SeedTable.from_numpy("cuda", *chain_cases.seed_table(ivs, rbs, qlens)),
+        co.ChainParams.from_opt(opt))
+    assert not ovf.any()
+    for i, (n, iv, rb) in enumerate(zip(qlens, ivs, rbs)):
+        exp = chain_flt(opt, mem_chain(opt, None, bns, n,
+                                       [SmemIntv(*p) for p in iv], rb))
+        assert [_chain_key(c) for c in lists[i]] == [_chain_key(c) for c in exp], i
+
+
+@pytest.mark.cuda
+@needs_card
+def test_cuda_chain_raises_on_seeds_outside_rbegs(chain_data):
+    from bwamem_tpu_torch.engine.state import device_contigs
+
+    eng, opt, reads, ivs, rbs = chain_data
+    tab = co.SeedTable.from_numpy(
+        "cuda", *chain_cases.seed_table(ivs, rbs, [len(r) for r in reads]))
+    with pytest.raises(ValueError):
+        co.chain_cuda(device_contigs(eng.idx.bns, "cuda"),
+                      tab._replace(rbeg_off=tab.rbeg_off + 1),
+                      co.ChainParams.from_opt(opt))
+
+
+ALL = ("seed", "sa_lookup", "chain")
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize(
+    "stages", [(), ("sa_lookup",), ("seed",), ("seed", "sa_lookup"), ("chain",),
+               ("seed", "chain"), ALL],
+    ids=("host_sa", "card_sa", "card_seed", "card_seed_sa", "card_chain",
+         "card_seed_chain", "card_all"))
 def test_cuda_aligner_matches_host(tmp_path, stages):
-    from bwamem_tpu import BwaMemAligner as HostAligner
-    from bwamem_tpu import BwaMemIndex
-    from bwamem_tpu.index import image
-    from bwamem_tpu.index.build import build_index
-    from bwamem_tpu.utils.fasta import Fasta, FastaContig
-    from bwamem_tpu.utils.synth import simulate_pairs, synthetic_genome
-    from bwamem_tpu_torch import BwaMemAligner
+    from bwamem_tpu_torch import BwaMemAligner, BwaMemIndex
     from bwamem_tpu_torch.engine.extend_batch import STATS
-    from bwamem_tpu_torch.engine.pipeline import SA_STATS
+    from bwamem_tpu_torch.engine.pipeline import CHAIN_STATS, SA_STATS
     from bwamem_tpu_torch.engine.seed_device import SEED_STATS
+    from bwamem_tpu_torch.index import image
+    from bwamem_tpu_torch.index.build import build_index
+    from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
+    from bwamem_tpu_torch.utils.synth import simulate_pairs, synthetic_genome
 
     codes = synthetic_genome(200_000, np.random.default_rng(7))
     img = str(tmp_path / "g.img")
     image.write_image(img, build_index(Fasta([FastaContig("chr", "", codes)])))
     index = BwaMemIndex(img)
     reads = simulate_pairs(codes, np.random.default_rng(9), 200)
-    host = HostAligner(index)
+    # the oracle: every stage in the port's host C++
+    host = BwaMemAligner(index, device="cpu", min_device_jobs=1 << 30)
     port = BwaMemAligner(index, device="cuda", min_device_jobs=1,
                          device_stages=stages)
     for a in (host, port):
@@ -296,9 +416,11 @@ def test_cuda_aligner_matches_host(tmp_path, stages):
     STATS.reset()
     SA_STATS.reset()
     SEED_STATS.reset()
+    CHAIN_STATS.reset()
     before = ext.LAUNCHES
     sa_before = fmops.LAUNCHES["sa_lookup"]
     seed_before = so.LAUNCHES["collect_intv"]
+    chain_before = dict(co.LAUNCHES)
     got = port.align_seqs(reads)
     assert ext.LAUNCHES - before == STATS.device_extend_waves > 0
     if "sa_lookup" in stages:
@@ -313,7 +435,13 @@ def test_cuda_aligner_matches_host(tmp_path, stages):
     else:
         assert so.LAUNCHES["collect_intv"] == seed_before
         assert SEED_STATS.device_reads == SEED_STATS.host_reads == 0
+    if "chain" in stages:
+        assert all(co.LAUNCHES[k] > chain_before[k] for k in chain_before)
+        assert CHAIN_STATS.device_reads + CHAIN_STATS.host_reads == len(reads)
+        assert CHAIN_STATS.device_reads >= 0.95 * len(reads)
+    else:
+        assert co.LAUNCHES == chain_before
+        assert CHAIN_STATS.device_reads == CHAIN_STATS.host_reads == 0
     ref = host.align_seqs(reads)
-    assert [[vars(a) for a in r] for r in got] == [
-        [vars(a) for a in r] for r in ref]
+    assert got == ref
     index.close()

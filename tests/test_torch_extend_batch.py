@@ -5,19 +5,23 @@ import numpy as np
 import pytest
 import torch
 
-from bwamem_tpu.api.index import BwaMemIndex
-from bwamem_tpu.api.options import MemOptions
+from bwamem_tpu.api.index import BwaMemIndex as JaxIndex
+from bwamem_tpu.api.options import MemOptions as JaxOptions
+from bwamem_tpu.engine import chain as jax_chain
 from bwamem_tpu.engine import extend_batch as ref_batch
 from bwamem_tpu.engine.exec_ctx import ExecConfig as JaxExecConfig
-from bwamem_tpu.index import image
-from bwamem_tpu.index.build import build_index
-from bwamem_tpu.utils.encoding import revcomp_codes
-from bwamem_tpu.utils.fasta import Fasta, FastaContig
-from bwamem_tpu.utils.synth import synthetic_genome
+from bwamem_tpu_torch.api.index import BwaMemIndex
+from bwamem_tpu_torch.api.options import MemOptions
 from bwamem_tpu_torch.engine import extend_batch as port_batch
+from bwamem_tpu_torch.engine import native_chain, native_fm
 from bwamem_tpu_torch.engine.exec_ctx import ExecConfig
-from bwamem_tpu_torch.engine.pipeline import _chains_native, _chains_python
+from bwamem_tpu_torch.engine.pipeline import _chains
+from bwamem_tpu_torch.index import image
+from bwamem_tpu_torch.index.build import build_index
 from bwamem_tpu_torch.ops import extend as ext
+from bwamem_tpu_torch.utils.encoding import revcomp_codes
+from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
+from bwamem_tpu_torch.utils.synth import synthetic_genome
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -63,8 +67,24 @@ def setup(tmp_path_factory):
     eng = index._require()
     opt = MemOptions()
     reads = _reads(codes, np.random.default_rng(8), 160)
-    chains = _chains_native(opt, eng, reads, ExecConfig(device="cpu"))
+    chains = _chains(opt, eng, reads, ExecConfig(device="cpu"))
     yield opt, eng, reads, chains
+    index.close()
+
+
+@pytest.fixture(scope="module")
+def jax_setup(setup, tmp_path_factory):
+    """The JAX package's own index of the same genome, and the same chains
+    as its objects."""
+    _, eng, _, chains = setup
+    img = str(tmp_path_factory.mktemp("j") / "g.img")
+    image.write_image(img, eng.idx)
+    index = JaxIndex(img)
+    jchains = [[jax_chain.Chain(
+        rid=c.rid, is_alt=c.is_alt, frac_rep=c.frac_rep, w=c.w, kept=c.kept,
+        first=c.first, seeds=[jax_chain.Seed(s.rbeg, s.qbeg, s.len, s.score)
+                              for s in c.seeds]) for c in cs] for cs in chains]
+    yield JaxOptions(), index._require(), jchains
     index.close()
 
 
@@ -96,10 +116,11 @@ def test_genome_exercises_chains_and_retries(setup, port_regs):
 
 
 @pytest.mark.parametrize("device_extend", [False, True])
-def test_regions_match_jax_package(setup, port_regs, device_extend):
+def test_regions_match_jax_package(setup, jax_setup, port_regs, device_extend):
     """device_extend=False: the reference's host waves (C++ ksw);
     True: its JAX waves on the CPU for waves of 48 jobs and more."""
-    opt, eng, reads, chains = setup
+    reads = setup[2]
+    opt, eng, chains = jax_setup
     ref = ref_batch.chain2aln_batch(
         opt, eng.idx, reads, chains,
         exec_cfg=JaxExecConfig(device_extend=device_extend),
@@ -121,11 +142,13 @@ def test_host_routing_counts_small_waves(setup, port_regs):
     assert _fields(regs) == _fields(port_regs[0])
 
 
-def test_python_seeding_fallback_gives_same_chains(setup):
+def test_python_seeding_fallback_gives_same_chains(setup, monkeypatch):
     """The pipeline's no-native route (Python seeding and chaining) builds
     the chains the native route does."""
     opt, eng, reads, chains = setup
-    py = _chains_python(opt, eng, reads[:24], ExecConfig(device="cpu"))
+    monkeypatch.setattr(native_fm, "available", lambda: False)
+    monkeypatch.setattr(native_chain, "available", lambda: False)
+    py = _chains(opt, eng, reads[:24], ExecConfig(device="cpu"))
 
     def key(cs):
         return [[(c.rid, c.pos, [(s.rbeg, s.qbeg, s.len) for s in c.seeds])

@@ -2,8 +2,9 @@
 oracle, exactly (integers, no tolerance): the fused lines bit for bit, and
 the plain PyTorch occ4 / bwt_extend / SA walk against
 ``fmindex_tpu.occ4``, ``extend_device`` and ``sa_lookup`` on the CPU and
-against ``engine.fmindex.FMIndex``.  The CUDA kernels are held against the
-plain versions in test_torch_cuda.py."""
+against ``engine.fmindex.FMIndex``; and the plain backward search against
+``seed_tpu.backward_search_batch`` and the host FMIndex's exact match.  The
+CUDA kernels are held against the plain versions in test_torch_cuda.py."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -14,6 +15,7 @@ import torch
 from bwamem_tpu.engine.fmindex import FMIndex
 from bwamem_tpu.index.build import build_index
 from bwamem_tpu.ops import fmindex_tpu as ft
+from bwamem_tpu.ops import seed_tpu
 from bwamem_tpu.utils.fasta import Fasta, FastaContig
 from bwamem_tpu_torch.engine.state import device_fm
 from bwamem_tpu_torch.ops import fmindex as fmops
@@ -227,3 +229,82 @@ def test_device_fm_builds_one_table_under_threads(fm):
         sys.setswitchinterval(interval)
     assert all(g is got[0] for g in got)
     assert list(fresh._torch_device_fms) == [torch.device("cpu")]
+
+
+def _host_exact_match(fm, read):
+    """bwa bwt_match_exact on the host FMIndex: the last non-empty
+    interval and the bases matched from the read's end."""
+    k, l, n = 0, fm.seq_len, 0
+    for c in read[::-1].tolist():
+        if c > 3:
+            break
+        k2 = int(fm.L2[c] + fm.occ(np.array([k - 1]), np.array([c]))[0] + 1)
+        l2 = int(fm.L2[c] + fm.occ(np.array([l]), np.array([c]))[0])
+        if k2 > l2:
+            break
+        k, l, n = k2, l2, n + 1
+    return k, l, n
+
+
+def _search_reads(fm, rng, n=48, width=40):
+    """Reads of the genome of 1 to ``width`` bases: a third as they are, a
+    third with one base changed (they stop early), a third with an N."""
+    text = fm.idx.get_seq(0, fm.idx.bns.l_pac)
+    reads = []
+    for i in range(n):
+        ln = int(rng.integers(1, width + 1))
+        st = int(rng.integers(0, len(text) - ln))
+        r = text[st: st + ln].copy()
+        if i % 3 == 1:
+            p = int(rng.integers(0, ln))
+            r[p] = (r[p] + 1 + rng.integers(0, 3)) % 4
+        elif i % 3 == 2:
+            r[int(rng.integers(0, ln))] = 4
+        reads.append(r.astype(np.uint8))
+    return reads
+
+
+def test_backward_search_matches_jax_and_host(fm):
+    """``backward_search_torch`` against ``backward_search_batch`` on the
+    same right-aligned reads, and against the host's exact match per read;
+    sa_intv 8 and 32 (the search reads no SA sample, so both agree)."""
+    reads = _search_reads(fm, np.random.default_rng(17))
+    dfm = fmops.DeviceFMIndex.from_host(fm, "cpu")
+    qseq, qlen = fmops.right_align_reads(reads, "cpu")
+    before = dict(fmops.LAUNCHES)
+    k, l, matched = fmops.backward_search(dfm, qseq, qlen)
+    assert fmops.LAUNCHES == before
+    assert (k.dtype, l.dtype, matched.dtype) == (
+        torch.int64, torch.int64, torch.int32)
+    jk, jl, jm = seed_tpu.backward_search(
+        ft.DeviceFMIndex.from_host(fm), jnp.asarray(qseq.numpy(), jnp.int32),
+        jnp.asarray(qlen.numpy()))
+    assert np.array_equal(k.numpy(), np.asarray(jk))
+    assert np.array_equal(l.numpy(), np.asarray(jl))
+    assert np.array_equal(matched.numpy(), np.asarray(jm))
+    host = [_host_exact_match(fm, r) for r in reads]
+    assert list(zip(k.tolist(), l.tolist(), matched.tolist())) == host
+    full = [m == len(r) for (_, _, m), r in zip(host, reads)]
+    assert any(full) and not all(full)  # whole matches and early stops
+    assert any(m < len(r) and r[len(r) - 1 - m] == 4
+               for (_, _, m), r in zip(host, reads))  # stopped on an N
+
+
+def test_backward_search_stops_at_qlen_and_needs_the_card(fm):
+    """A ``qlen`` below the read's width stops the search there, as the
+    JAX program's ``i < qlen``; the CUDA wrapper refuses CPU tensors."""
+    reads = [r for r in _search_reads(fm, np.random.default_rng(18), 12)
+             if len(r) > 4 and r.max() < 4]
+    dfm = fmops.DeviceFMIndex.from_host(fm, "cpu")
+    qseq, qlen = fmops.right_align_reads(reads, "cpu")
+    short = torch.clamp(qlen - 3, min=1)
+    k, l, matched = fmops.backward_search_torch(dfm, qseq, short)
+    jk, jl, jm = seed_tpu.backward_search(
+        ft.DeviceFMIndex.from_host(fm), jnp.asarray(qseq.numpy(), jnp.int32),
+        jnp.asarray(short.numpy()))
+    assert np.array_equal(k.numpy(), np.asarray(jk))
+    assert np.array_equal(l.numpy(), np.asarray(jl))
+    assert np.array_equal(matched.numpy(), np.asarray(jm))
+    assert (matched <= short).all()
+    with pytest.raises(ValueError):
+        fmops.backward_search_cuda(dfm, qseq, qlen)

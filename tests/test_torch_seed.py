@@ -23,15 +23,20 @@ from bwamem_tpu.index.build import build_index
 from bwamem_tpu.ops import fmindex_tpu as ft
 from bwamem_tpu.ops import seed_fused, seed_tpu, smem_tpu
 from bwamem_tpu.utils.fasta import Fasta, FastaContig
-from bwamem_tpu_torch.engine import pipeline
+from bwamem_tpu_torch.api.options import MemOptions as PortOptions
+from bwamem_tpu_torch.engine import native_fm, pipeline
 from bwamem_tpu_torch.engine.exec_ctx import ExecConfig
+from bwamem_tpu_torch.engine.fmindex import FMIndex as PortFMIndex
 from bwamem_tpu_torch.engine.seed_device import SEED_STATS, seed_batch
 from bwamem_tpu_torch.ops import fmindex as fmops
 from bwamem_tpu_torch.ops import seed as so
 from bwamem_tpu_torch.ops.fmindex import DeviceFMIndex
+from bwamem_tpu_torch.index.build import build_index as port_build_index
+from bwamem_tpu_torch.utils import fasta as port_fasta
 from bwamem_tpu_torch.utils import seed_cases as cases
 
 OPT = MemOptions()
+PORT_OPT = PortOptions()
 PARAMS = so.SeedParams.from_opt(OPT)
 READ_LEN = cases.READ_LEN
 
@@ -52,6 +57,10 @@ def data():
     contigs, kread = cases.genome(rng)
     fasta = Fasta([FastaContig(f"c{i}", "", c) for i, c in enumerate(contigs)])
     fms = {iv: FMIndex(build_index(fasta, sa_intv=iv)) for iv in (8, 32)}
+    # the port's own index of the same genome, for its engine-level entries
+    fms["port"] = PortFMIndex(port_build_index(port_fasta.Fasta(
+        [port_fasta.FastaContig(f"c{i}", "", c.copy())
+         for i, c in enumerate(contigs)]), sa_intv=8))
     reads = cases.reads(contigs, kread, rng)
     return fms, reads, len(reads) - 1
 
@@ -298,17 +307,15 @@ def test_seed_batch_seeds_overflowed_reads_on_host(data, monkeypatch):
     read's rows equal the oracle's, the K-overflow read seeded on the host
     and counted, with the host C++ natives and without them; with its own
     budget (K_MAX) every read is seeded on the device."""
-    from bwamem_tpu.engine import native_fm
-
     fms, reads, kidx = data
-    fm = fms[8]
-    expect = [_oracle(fm, r)[0] for r in reads]
+    fm = fms["port"]
+    expect = [_oracle(fms[8], r)[0] for r in reads]
     for natives, K in ((True, so.K_SLOTS), (False, so.K_SLOTS),
                        (True, so.K_MAX)):
         if not natives:
             monkeypatch.setattr(native_fm, "available", lambda: False)
         SEED_STATS.reset()
-        seeds = seed_batch(OPT, fm, reads, "cpu", K=K)
+        seeds = seed_batch(PORT_OPT, fm, reads, "cpu", K=K)
         n_host = int(K == so.K_SLOTS)
         assert (SEED_STATS.device_reads, SEED_STATS.host_reads) == (
             len(reads) - n_host, n_host)
@@ -335,10 +342,10 @@ def test_seed_stage_matches_host_seed_sa(data, monkeypatch, walk_on_device, K):
     fms, reads, _ = data
     monkeypatch.setattr(pipeline, "seed_batch",
                         functools.partial(seed_batch, K=K))
-    eng = types.SimpleNamespace(fm=fms[8])
-    host = pipeline._seed_sa(OPT, eng, reads, ExecConfig(device="cpu"))
+    eng = types.SimpleNamespace(fm=fms["port"])
+    host = pipeline._seed_sa(PORT_OPT, eng, reads, ExecConfig(device="cpu"))
     SA_STATS.reset()
-    got = pipeline._seed_sa(OPT, eng, reads, ExecConfig(
+    got = pipeline._seed_sa(PORT_OPT, eng, reads, ExecConfig(
         device="cpu", device_seed=True, device_sa_lookup=walk_on_device))
     for g, h in zip(got, host):
         assert np.array_equal(g, h)
