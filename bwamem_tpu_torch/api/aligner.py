@@ -4,8 +4,9 @@ Usage-pattern parity with BwaMemAligner.java, as the JAX package's aligner
 (bwamem_tpu/api/aligner.py): construct on an open BwaMemIndex, tweak options
 (the Java-style accessors), pick a PE-stats mode, call align_seqs on batches,
 close (or use as a context manager).  One per thread.  The extension waves,
-and optionally the seeding, the sampled-SA walks and the chaining, run on an
-explicit torch device.
+and optionally the seeding, the sampled-SA walks and the chaining (or, with
+``device_pipeline``, everything from seeding to regions), run on an explicit
+torch device.
 
 Record assembly reproduces the reference's binary record semantics
 (fmt_BAMish, jnibwa.c:43-97) at the Python object level, including the
@@ -103,7 +104,7 @@ def _aln_to_record(p: Aln, m: Optional[Aln]) -> BwaMemAlignment:
 class BwaMemAligner:
     def __init__(self, index: BwaMemIndex, options: Optional[MemOptions] = None,
                  *, device, min_device_jobs: int = HOST_FALLBACK_JOBS,
-                 device_stages=()):
+                 device_stages=(), device_pipeline: bool = False):
         """device: where the extension waves run ("cuda", "cuda:1", "cpu").
         A CUDA device with no card present raises; there is no fallback.
         min_device_jobs: waves with fewer jobs run on the host C++.
@@ -112,7 +113,12 @@ class BwaMemAligner:
         seeding kernels), "sa_lookup" (every sampled-SA walk of a batch in
         one kernel call) and "chain" (mem_chain + chain_flt of every read
         in the chain kernels; with all three, seeds go from seeding to
-        chaining without leaving the device)."""
+        chaining without leaving the device).
+        device_pipeline: the fused device path (the JAX package's field of
+        that name): seeding, the walks, chaining and the whole chain
+        extension run on ``device`` whatever ``device_stages`` says, and
+        regions come back; only reads that a budget flags take the staged
+        path (``engine.pipeline_device``)."""
         stages = set(device_stages)
         unknown = stages - set(DEVICE_STAGES)
         if unknown:
@@ -132,7 +138,8 @@ class BwaMemAligner:
         self._exec_cfg = ExecConfig(device=dev, min_device_jobs=min_device_jobs,
                                     device_sa_lookup="sa_lookup" in stages,
                                     device_seed="seed" in stages,
-                                    device_chain="chain" in stages)
+                                    device_chain="chain" in stages,
+                                    device_pipeline=bool(device_pipeline))
 
     # ------------------------------------------------------------ lifecycle
 

@@ -19,7 +19,7 @@ import numpy as np
 
 from ..api.options import MemOptions
 from ..ops.extend import ksw_extend_batch_np
-from . import native_ksw
+from . import exec_ctx, native_ksw
 from .chain import Chain
 from .exec_ctx import ExecConfig
 from .extend import MAX_BAND_TRY, AlnReg, ksw_extend2
@@ -29,8 +29,9 @@ from .state import device_scoring
 class WaveStats:
     """Counts of extension jobs and waves by where they ran, the host-clock
     seconds spent in each kind of wave (a device wave's include packing, the
-    copies and the kernel), and the largest device wave's inputs (so a
-    benchmark can time the kernel on it)."""
+    copies and the kernel), and, only under ``exec_ctx.KEEP_LARGEST``, the
+    largest device wave's inputs (so a benchmark can time the kernel on
+    it)."""
 
     def __init__(self):
         self.reset()
@@ -205,7 +206,8 @@ def _run_kernel(opt, jobs, bonuses, ws, h0s, exec_cfg: ExecConfig, scoring):
     STATS.device_extend_waves += 1
     STATS.device_extend_jobs += n
     STATS.device_wave_seconds += time.perf_counter() - t0
-    if STATS.largest_wave is None or n > len(STATS.largest_wave[0]):
+    if exec_ctx.KEEP_LARGEST and (STATS.largest_wave is None
+                                  or n > len(STATS.largest_wave[0])):
         STATS.largest_wave = (list(jobs), list(h0s), list(ws), list(bonuses))
     return out
 

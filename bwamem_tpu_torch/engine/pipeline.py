@@ -15,7 +15,11 @@ or, by ``exec_cfg``, on the port's device:
   the device;
 * ``device_chain``: mem_chain + chain_flt in ``ops.chain``; with the other
   two, the flat interval table and the walk's output stay on the device
-  from seeding to chaining, and only chains come back.
+  from seeding to chaining, and only chains come back;
+* ``device_pipeline``: the fused device path of ``engine.pipeline_device``
+  (seeding, walks, chaining and the whole mem_chain2aln loop on the device;
+  regions come back, no extension wave runs), whatever the three switches
+  above say.
 
 A read that overflows a stage's budget takes that stage on the host (the
 reference's rule) and is spliced in read order; there is no other fallback
@@ -33,7 +37,7 @@ from ..api.options import MEM_F_ALL, MEM_F_NO_MULTI, MemOptions
 from ..ops import chain as chainops
 from ..ops import fmindex as fmops
 from ..utils.timers import TIMERS
-from . import native_chain, native_fm
+from . import exec_ctx, native_chain, native_fm
 from .chain import chain_flt, flt_chained_seeds, mem_chain
 from .exec_ctx import ExecConfig
 from .extend import AlnReg
@@ -63,9 +67,9 @@ def _flag_alt_regs(bns, regs: List[AlnReg]) -> List[AlnReg]:
 
 
 class SaStats:
-    """Sampled-SA rows resolved on the device and on the host, and the
-    rows of the largest device call, a tensor on the device (so a
-    benchmark can time the kernel on them)."""
+    """Sampled-SA rows resolved on the device and on the host, and, only
+    under ``exec_ctx.KEEP_LARGEST``, the rows of the largest device call, a
+    tensor on the device (so a benchmark can time the kernel on them)."""
 
     def __init__(self):
         self.reset()
@@ -82,8 +86,9 @@ SA_STATS = SaStats()
 class ChainStats:
     """Reads chained on the device and on the host (seeded on the host, or
     flagged by the C budget: ``c_overflows``), the chain kernels launched,
-    the largest table chained on the device (so a benchmark can time the
-    kernels on it), and the reads the JAX package's per-batch budgets would
+    under ``exec_ctx.KEEP_LARGEST`` the largest table chained on the device
+    (so a benchmark can time the kernels on it), and the reads the JAX
+    package's per-batch budgets would
     have sent to the host (more seeds than its S bucket, more chains than
     its C bucket)."""
 
@@ -108,7 +113,8 @@ def _device_walk(dfm, ks: torch.Tensor) -> torch.Tensor:
     call of ``ops.fmindex.sa_lookup``."""
     out = fmops.sa_lookup(dfm, ks)
     SA_STATS.device_sa_rows += ks.numel()
-    if (SA_STATS.largest_rows is None
+    if exec_ctx.KEEP_LARGEST and (
+            SA_STATS.largest_rows is None
             or ks.numel() > SA_STATS.largest_rows.numel()):
         SA_STATS.largest_rows = ks
     return out
@@ -209,17 +215,18 @@ def _host_chains(opt, eng, qlens, which, rows, intv_off, n_intv, rbegs,
 
 
 def _device_table(opt, eng, reads, qlens, exec_cfg: ExecConfig):
-    """The batch's flat seed table on the device for the chain stage, and
-    the table on the host of the reads seeded there (None when there are
-    none).  With the seed and SA stages on the device too, the interval
-    table and the walk's output go to the chain kernels as the seeding and
-    SA kernels left them; else the host arrays of ``_seed_sa`` are
-    uploaded."""
+    """The batch's flat seed table on the device for the chain stage, the
+    indices and the table on the host of the reads seeded there (None when
+    there are none), and the seeding stage's ``DeviceSeeds`` (None when the
+    host seeded).  With the seed and SA stages on the device too, the
+    interval table and the walk's output go to the chain kernels as the
+    seeding and SA kernels left them; else the host arrays of ``_seed_sa``
+    are uploaded."""
     dev = exec_cfg.device
     qlen_d = torch.from_numpy(qlens).to(dev)
     if not (exec_cfg.device_seed and exec_cfg.device_sa_lookup):
         return chainops.SeedTable.from_numpy(
-            dev, qlens, *_seed_sa(opt, eng, reads, exec_cfg)), None, None
+            dev, qlens, *_seed_sa(opt, eng, reads, exec_cfg)), None, None, None
     with TIMERS.stage("seed"):
         seeds = seed_batch(opt, eng.fm, reads, dev)
     with TIMERS.stage("sa_lookup"):
@@ -237,7 +244,27 @@ def _device_table(opt, eng, reads, qlens, exec_cfg: ExecConfig):
             cnt_h, off_h = _ks_counts(rows_h, opt.max_occ)
             host_tab = (rows_h, _excl_scan(n_h), n_h, _sa_rows(
                 eng.fm, _sample_ks(rows_h, opt.max_occ), exec_cfg), off_h, cnt_h)
-    return tab, host, host_tab
+    return tab, host, host_tab, seeds
+
+
+def gather_reads(tab: chainops.SeedTable, which: np.ndarray):
+    """The seeds of the reads ``which`` of a device table, gathered on the
+    device and copied back in one piece: the arrays ``_host_chains`` takes
+    (rows, intv_off, n_intv, rbegs, rbeg_off, cnt) for just those reads."""
+    dev = tab.qlen.device
+    idx = torch.from_numpy(np.asarray(which, dtype=np.int64)).to(dev)
+    n = tab.n_intv.long()[idx]
+
+    row_idx = chainops.expand_ranges(tab.intv_off.long()[idx], n)
+    cnt = tab.cnt.long()[row_idx]
+    rbegs = tab.rbegs.long()[
+        chainops.expand_ranges(tab.rbeg_off.long()[row_idx], cnt)]
+    flat = torch.cat([n, cnt, tab.rows[row_idx].reshape(-1), rbegs]).cpu().numpy()
+    nr = row_idx.numel()
+    n, cnt, flat = flat[:len(which)], flat[len(which): len(which) + nr], flat[
+        len(which) + nr:]
+    return (flat[:5 * nr].reshape(nr, 5), _excl_scan(n), n, flat[5 * nr:],
+            _excl_scan(cnt), cnt)
 
 
 def _chains_device(opt, eng, reads, exec_cfg: ExecConfig):
@@ -245,21 +272,22 @@ def _chains_device(opt, eng, reads, exec_cfg: ExecConfig):
     seeded on the host and reads flagged by the C budget are chained on the
     host and spliced in read order."""
     qlens = np.asarray([len(r) for r in reads], dtype=np.int32)
-    tab, host, host_tab = _device_table(opt, eng, reads, qlens, exec_cfg)
+    tab, host, host_tab, _ = _device_table(opt, eng, reads, qlens, exec_cfg)
     with TIMERS.stage("chain"):
         before = sum(chainops.LAUNCHES.values())
         chains_list, (ovf, seed_cnt, nslots) = chainops.chains_device_batch(
             device_contigs(eng.idx.bns, exec_cfg.device), tab,
             chainops.ChainParams.from_opt(opt))
         CHAIN_STATS.launches += sum(chainops.LAUNCHES.values()) - before
-        if (CHAIN_STATS.largest_table is None
+        if exec_ctx.KEEP_LARGEST and (
+                CHAIN_STATS.largest_table is None
                 or tab.rbegs.numel() > CHAIN_STATS.largest_table.rbegs.numel()):
             CHAIN_STATS.largest_table = tab
         flagged = np.flatnonzero(ovf)
         if flagged.size:
-            arrays = [t.cpu().numpy() for t in tab[1:]]
             for i, chains in zip(flagged, _host_chains(
-                    opt, eng, qlens, flagged, *arrays)):
+                    opt, eng, qlens[flagged], np.arange(flagged.size),
+                    *gather_reads(tab, flagged))):
                 chains_list[i] = chains
         if host_tab is not None:
             rows_h, off_h, n_h, *rest = host_tab
@@ -297,9 +325,16 @@ def _chains(opt, eng, reads, exec_cfg: ExecConfig):
 def align_regs_batch(opt, eng, reads: List[np.ndarray],
                      exec_cfg: ExecConfig) -> List[List[AlnReg]]:
     """Reads (codes 0-4) -> deduplicated alignment regions per read."""
-    chains_list = _chains(opt, eng, reads, exec_cfg)
-    with TIMERS.stage("extend"):
-        regs_list = chain2aln_batch(opt, eng.idx, reads, chains_list, exec_cfg)
+    if exec_cfg.device_pipeline:
+        from .pipeline_device import regs_batch_fused
+
+        with TIMERS.stage("device_pipeline"), TIMERS.paused():
+            regs_list = regs_batch_fused(opt, eng, reads, exec_cfg)
+    else:
+        chains_list = _chains(opt, eng, reads, exec_cfg)
+        with TIMERS.stage("extend"):
+            regs_list = chain2aln_batch(opt, eng.idx, reads, chains_list,
+                                        exec_cfg)
     with TIMERS.stage("dedup"):
         return [
             _flag_alt_regs(eng.idx.bns, sort_dedup_patch(opt, eng.idx, q, regs))

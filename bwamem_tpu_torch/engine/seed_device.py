@@ -73,7 +73,9 @@ class DeviceSeeds:
     the device-seeded reads' rows in read order, on the device with their SA
     rows ``ks``; ``n_intv`` [n] int64, every read's row count; ``on_host``
     [n] bool (seeded on the host) and ``host_rows`` [Nh, 5], those reads'
-    rows in read order.  ``rows`` is the whole table on the host."""
+    rows in read order.  ``rows`` is the whole table on the host.  ``qseq``
+    [n, Lmax] uint8 and ``qlen`` [n] int32 are the padded reads as seeding
+    put them on the device."""
 
     rows_dev: torch.Tensor
     n_intv: np.ndarray
@@ -81,6 +83,8 @@ class DeviceSeeds:
     host_rows: np.ndarray
     ks: torch.Tensor
     dfm: fmops.DeviceFMIndex
+    qseq: torch.Tensor
+    qlen: torch.Tensor
 
     @cached_property
     def rows(self) -> np.ndarray:
@@ -116,7 +120,8 @@ def seed_batch(opt, fm, reads: List[np.ndarray], device,
     if not reads:
         none = np.zeros(0, dtype=np.int64)
         return DeviceSeeds(dfm.sa[:0].reshape(0, 5), none, none.astype(bool),
-                           np.zeros((0, 5), dtype=np.int64), dfm.sa[:0], dfm)
+                           np.zeros((0, 5), dtype=np.int64), dfm.sa[:0], dfm,
+                           *seedops.pad_reads([], dfm.device))
     qseq, qlen = seedops.pad_reads(reads, dfm.device)
     before = sum(seedops.LAUNCHES.values())
     work = torch.zeros((len(reads), 5), dtype=torch.int32, device=dfm.device)
@@ -143,4 +148,5 @@ def seed_batch(opt, fm, reads: List[np.ndarray], device,
         rows_fb, n_intv[fb] = host_rows(opt, fm, [reads[i] for i in fb])
     SEED_STATS.device_reads += len(reads) - fb.size
     SEED_STATS.host_reads += fb.size
-    return DeviceSeeds(out.flat, n_intv, on_host, rows_fb, out.ks, dfm)
+    return DeviceSeeds(out.flat, n_intv, on_host, rows_fb, out.ks, dfm, qseq,
+                       qlen)

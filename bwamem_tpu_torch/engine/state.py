@@ -1,12 +1,13 @@
 """Carries the JAX package's host state over to the port's device.
 
-Three pieces: the extension's scoring (``MemOptions`` holds the 5x5 matrix
+Four pieces: the extension's scoring (``MemOptions`` holds the 5x5 matrix
 as a flat list and the gap penalties as ints), the FM index tables
 (``device_fm``), built once per device and kept on the host ``FMIndex``
 object, as bwamem_tpu/engine/seed_device.py ``_get_dfm`` keeps the JAX
-package's, and the contig tables (``device_contigs``), kept on the host
-``Bntseq`` object (the JAX package keys its cache by ``id()``, which a new
-index can inherit).
+package's, the contig tables (``device_contigs``), kept on the host
+``Bntseq`` object, and the 2-bit reference (``device_ref``), kept on the host
+``BwaIndex`` object (the JAX package keys its caches of the last two by
+``id()``, which a new index can inherit).
 """
 from __future__ import annotations
 
@@ -48,6 +49,23 @@ def device_scoring(opt, device) -> DeviceScoring:
     )
 
 
+@dataclass(frozen=True)
+class DeviceRef:
+    """The forward reference on one device as bwa packs it: ``pac`` uint8
+    [ceil(l_pac / 4)], four bases a byte, the first in the high bits."""
+
+    pac: torch.Tensor
+    l_pac: int
+
+    @classmethod
+    def from_host(cls, idx, device) -> "DeviceRef":
+        """``idx`` (an ``index.build.BwaIndex``) -> its pac on ``device``."""
+        pac = np.ascontiguousarray(idx.pac, dtype=np.uint8)
+        if not pac.flags.writeable:  # a memory-mapped image: torch wants its own
+            pac = pac.copy()
+        return cls(torch.from_numpy(pac).to(device), int(idx.bns.l_pac))
+
+
 def _cached(host, attr: str, device, build):
     """``build(host, device)``, made once per device and kept on ``host``,
     so that it lives as long as the index object."""
@@ -71,3 +89,8 @@ def device_contigs(bns, device) -> DeviceContigs:
     """``bns`` (an ``index.build.Bntseq``) -> its contig tables on
     ``device``."""
     return _cached(bns, "_torch_device_contigs", device, DeviceContigs.from_host)
+
+
+def device_ref(idx, device) -> DeviceRef:
+    """``idx`` (an ``index.build.BwaIndex``) -> its 2-bit pac on ``device``."""
+    return _cached(idx, "_torch_device_refs", device, DeviceRef.from_host)

@@ -80,12 +80,13 @@ class ChainParams:
 
 @dataclass(frozen=True)
 class DeviceContigs:
-    """The contig tables on one device: cumulative forward ends and ALT
-    flags, and the forward length."""
+    """The contig tables on one device: forward starts, cumulative forward
+    ends and ALT flags, and the forward length."""
 
     ctg_end: torch.Tensor  # [Nc] int64
     ctg_alt: torch.Tensor  # [Nc] int32
     l_pac: int
+    ctg_off: torch.Tensor  # [Nc] int64
 
     @property
     def device(self) -> torch.device:
@@ -94,10 +95,12 @@ class DeviceContigs:
     @classmethod
     def from_host(cls, bns, device) -> "DeviceContigs":
         """``bns`` (an ``index.build.Bntseq``) -> its tables on ``device``."""
-        ends = np.asarray([a.offset + a.length for a in bns.anns], np.int64)
+        offs = np.asarray([a.offset for a in bns.anns], np.int64)
+        ends = offs + np.asarray([a.length for a in bns.anns], np.int64)
         alts = np.asarray([a.is_alt for a in bns.anns], np.int32)
         return cls(torch.from_numpy(ends).to(device),
-                   torch.from_numpy(alts).to(device), int(bns.l_pac))
+                   torch.from_numpy(alts).to(device), int(bns.l_pac),
+                   torch.from_numpy(offs).to(device))
 
 
 class SeedTable(NamedTuple):
@@ -160,6 +163,14 @@ def _check_table(tab: SeedTable):
 
 def _excl_scan(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x, 0) - x
+
+
+def expand_ranges(first: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """first[i], first[i] + 1, ... for count[i] places, for every i in
+    turn."""
+    ramp = torch.arange(int(count.sum()), device=count.device)
+    return torch.repeat_interleave(first, count) + (
+        ramp - torch.repeat_interleave(_excl_scan(count), count))
 
 
 def _seed_counts(tab: SeedTable):
@@ -527,7 +538,11 @@ def chains_device_batch(ctg: DeviceContigs, tab: SeedTable, params: ChainParams,
     ``first`` set (None for a read flagged by the C budget, which its
     caller chains on the host), and the ``Chains`` counts on the host as
     ``(ovf, seed_cnt, nslots)`` numpy arrays.  One copy back."""
-    out = chain(ctg, tab, params, C)
+    return chain_lists(chain(ctg, tab, params, C))
+
+
+def chain_lists(out: Chains):
+    """``chains_device_batch``'s result from the ``Chains`` of a batch."""
     B = out.n_chain.shape[0]
     nc = out.chain_rows.shape[0]
     flat = torch.cat([out.n_chain, out.n_seed, out.seed_cnt, out.ovf.long(),

@@ -32,6 +32,16 @@ class StageTimers:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
 
+    @contextmanager
+    def paused(self):
+        """No stage opened inside is recorded: an outer stage that spans
+        code with stages of its own keeps the totals disjoint."""
+        was, self.enabled = self.enabled, False
+        try:
+            yield
+        finally:
+            self.enabled = was
+
     def reset(self):
         self.totals.clear()
         self.counts.clear()

@@ -8,8 +8,9 @@ Phases, each of which stops the run with a non-zero exit if it fails:
 1. the card: its name and power limit as nvidia-smi reports them; no card
    (torch.cuda.is_available() false) exits at once;
 2. build: compiles csrc/extend.cu, csrc/fmindex.cu, csrc/op_probe.cu,
-   csrc/seed.cu and csrc/chain.cu with nvcc for sm_90a, one nvcc per source,
-   all at once, and prints the compiler's register and spill report;
+   csrc/seed.cu, csrc/chain.cu and csrc/chain2aln.cu with nvcc for sm_90a,
+   one nvcc per source, all at once, and prints the compiler's register and
+   spill report;
 3. kernel against plain: the SW extension kernel against the plain
    PyTorch version on the card and the host C++ ksw_extend2, field for
    field and exactly, on seeded batches (a 4096-job main-path wave, the JAX
@@ -85,16 +86,33 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    or seeded on the host, chained on the host and counted), no SA row walked
    on the host; the chain stage seconds beside phase 4's host C++ chain
    stage, and the reads the JAX package's S and C buckets would have sent to
-   the host.
+   the host;
+14. chain-to-region kernels, exactly, on phase 4's PE batch's real chains (as
+   the fused path's entry leaves them on the card): chain2aln_prep_kernel +
+   chain2aln_kernel against the plain version on the card, field for field,
+   on a sample of ~1,000 reads plus the reads with the most seeds and the
+   most chains, against the host wave runner (host C++ ksw) on that sample
+   and against the host oracle (engine/extend.py chain2aln) on part of it;
+   the band preamble of csrc/extend.cuh against ops.extend.band_width; the
+   kernels timed with CUDA events on the whole batch (also by batch size and
+   on the heaviest read alone), the plain version once;
+15. the fused device path: phase 4's batches (PE and SE) and phase 8's chr20
+   batch with device_pipeline=True: records equal to the host oracle's, all
+   the path's kernels launched, at least 95 % of the reads on the fused path
+   (the rest, seeded on the host, flagged by the C budget or long enough for
+   mem_flt_chained_seeds to act, on the staged path and counted by cause), no
+   extension wave when no read left the path; the device_pipeline, dedup and
+   pairing seconds beside phase 13's stages; the PE batch once more under
+   torch.profiler for the card's idle share.
 
 The launch counts in the ``kernels`` line come from the runs that drive
 each kernel: phase 4's PE batch (ksw_extend), phase 7's PE batch
 (sa_lookup), phase 8's seeding-shaped work (occ4, bwt_extend), phase 9's
 probe run (op_probe), phase 11's PE batch with the seed and SA stages
 (collect_intv, sample_ks), phase 13's PE batch with all three stages (chain,
-chain_emit) and phase 8's one-launch search (backward_search, which no
-aligner stage calls); each count is set to 0 just before and read just
-after.  Every entry also carries ``bound_ms``, the least time the card could
+chain_emit), phase 15's PE batch (chain2aln_prep, chain2aln) and phase 8's
+one-launch search (backward_search, which no aligner stage calls); each
+count is set to 0 just before and read just after.  Every entry also carries ``bound_ms``, the least time the card could
 take (this run's bytes at 3.35 TB/s or its integer operations at the int32
 rate, whichever is larger, named in ``bound_by``), and ``library_ms``, null
 throughout: no single PyTorch call computes any of these functions.  smem1a and strategy1 run on the main path as __device__ functions
@@ -123,7 +141,7 @@ ECOLI_LEN = 4_600_000
 CHR20_LEN = 64_000_000
 CHR20_PAIRS = 2000
 SEED_SAMPLE = 256
-SOURCES = ("extend", "fmindex", "op_probe", "seed", "chain")
+SOURCES = ("extend", "fmindex", "op_probe", "seed", "chain", "chain2aln")
 ALL_STAGES = ("seed", "sa_lookup", "chain")
 # the card's published peaks (H100 SXM): device memory rate, and the int32
 # rate of its 64 integer lanes per SM (half the float32 lanes, whose 67
@@ -324,33 +342,39 @@ def _pe_setup(aligner):
     aligner.set_proper_pair_end_stats(BwaMemPairEndStats.of(350, 35))
 
 
-def _port_run(tag, port, batch, ref, t_host, dev):
+def _port_run(tag, port, batch, ref, t_host, dev, fused=False):
     """One timed batch through the port, counts set to 0 just before and
     read just after; the records held against ``ref``.  Returns the
-    extension, SA-walk and seeding launch counts and the stage seconds."""
+    extension, SA-walk, seeding, chain and chain-to-region launch counts, the
+    stats and the stage seconds.  ``fused``: the run takes the fused device
+    path, where no extension wave is expected."""
     from bwamem_tpu_torch.utils.timers import TIMERS
     from bwamem_tpu_torch.engine.extend_batch import STATS
     from bwamem_tpu_torch.engine.pipeline import CHAIN_STATS, SA_STATS
+    from bwamem_tpu_torch.engine.pipeline_device import FUSED_STATS
     from bwamem_tpu_torch.engine.seed_device import SEED_STATS
     from bwamem_tpu_torch.ops import chain as chainops
     from bwamem_tpu_torch.ops import extend as ext
     from bwamem_tpu_torch.ops import fmindex as fmops
+    from bwamem_tpu_torch.ops import pipeline_fused as fusedops
     from bwamem_tpu_torch.ops import seed as seedops
 
     STATS.reset()
     SA_STATS.reset()
     SEED_STATS.reset()
     CHAIN_STATS.reset()
+    FUSED_STATS.reset()
     TIMERS.reset()
     ext.LAUNCHES = 0
     fmops.LAUNCHES["sa_lookup"] = 0
-    for counts in (seedops.LAUNCHES, chainops.LAUNCHES):
+    for counts in (seedops.LAUNCHES, chainops.LAUNCHES, fusedops.LAUNCHES):
         for name in counts:
             counts[name] = 0
     got, t_port = _timed(port, batch, dev)
     launches, sa_launches = ext.LAUNCHES, fmops.LAUNCHES["sa_lookup"]
     seed_launches = dict(seedops.LAUNCHES)
     chain_launches = dict(chainops.LAUNCHES)
+    fused_launches = dict(fusedops.LAUNCHES)
     stages = TIMERS.snapshot()
     ok = sum([vars(x) for x in g] == [vars(x) for x in r] for g, r in zip(got, ref))
     aligned = sum(1 for r in got if r and not (r[0].sam_flag & 0x4))
@@ -383,6 +407,19 @@ def _port_run(tag, port, batch, ref, t_host, dev):
               f"budgets would send {CHAIN_STATS.ref_s_overflows} (S) + "
               f"{CHAIN_STATS.ref_c_overflows} (C) reads to the host; chain "
               "launches " + ", ".join(f"{k} {v}" for k, v in chain_launches.items()))
+    fs = FUSED_STATS
+    if fs.device_reads or fs.host_reads:
+        print(f"  {tag}: FUSED_STATS: reads on the fused path {fs.device_reads}, "
+              f"on the staged path {fs.host_reads} (seeded on the host "
+              f"{fs.host_seeded}, flagged by C {fs.c_overflows}, fcs active "
+              f"{fs.fcs_reads}); tasks extended {fs.tasks}, pruned {fs.pruned}, "
+              f"extension jobs {fs.jobs}; the JAX package's budgets would flag "
+              f"{fs.ref_s_overflows} (S) + {fs.ref_c_overflows} (C) + "
+              f"{fs.ref_r_overflows} (R) + {fs.ref_t_overflows} (window) reads; "
+              "chain-to-region launches " + ", ".join(
+                  f"{k} {v}" for k, v in fused_launches.items())
+              + "; seconds inside device_pipeline: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in fs.seconds.items()))
     rest = t_port - sum(stages.values())
     print(f"  {tag}: port seconds by stage: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items())
@@ -393,13 +430,17 @@ def _port_run(tag, port, batch, ref, t_host, dev):
         raise AssertionError(f"{tag}: records differ from the host oracle's")
     if aligned < 0.95 * len(batch):
         raise AssertionError(f"{tag}: only {aligned} reads aligned")
-    if launches <= 0 or share < 0.5:
+    if not fused and (launches <= 0 or share < 0.5):
         raise AssertionError(f"{tag}: the extension did not run on the card")
     return dict(launches=launches, sa_launches=sa_launches,
                 seed_launches=seed_launches, chain_launches=chain_launches,
-                stages=stages, seed_stats=vars(SEED_STATS).copy(),
+                fused_launches=fused_launches, stages=stages, seconds=t_port,
+                seed_stats=vars(SEED_STATS).copy(),
                 chain_stats={k: v for k, v in vars(CHAIN_STATS).items()
-                             if k != "largest_table"})
+                             if k != "largest_table"},
+                fused_stats={k: v for k, v in vars(fs).items()
+                             if k != "largest_batch"},
+                waves=STATS.device_extend_waves + STATS.host_extend_waves)
 
 
 def phase_main_path(dev, index, codes):
@@ -847,9 +888,10 @@ def phase_chr20(dev):
                                             SA_STATS.largest_rows)
     launches, err, mid = _rank_drive(dev, fm, reads)
     rank = _time_rank(dev, fm, mid)
-    index.close()
     return dict(sa_ms=sa_ms, sa_plain_ms=sa_plain_ms, sa_bound=sa_bound,
-                launches=launches, rank=rank)
+                launches=launches, rank=rank, index=index,
+                run=dict(batch=reads, ref=ref, t_host=t_host, warm=warm,
+                         stages=res["stages"]))
 
 
 def phase_probe(dev):
@@ -1219,7 +1261,7 @@ def phase_chain_kernels(dev, index, batch):
     qlens = np.asarray([len(r) for r in reads], dtype=np.int32)
     # the table as the aligner's chain stage gets it: seeded and walked on
     # the card, never on the host
-    tab, _, _ = pipeline._device_table(opt, eng, reads, qlens, ExecConfig(
+    tab, _, _, _ = pipeline._device_table(opt, eng, reads, qlens, ExecConfig(
         device=dev, device_seed=True, device_sa_lookup=True, device_chain=True))
     ctg = device_contigs(bns, dev)
     params = co.ChainParams.from_opt(opt)
@@ -1357,6 +1399,236 @@ def phase_device_chain(dev, index, runs):
     return dict(runs=out, launches=out["pe+seed+sa+chain"]["chain_launches"])
 
 
+def _chains_of(chains, idx):
+    """``ops.chain.Chains`` of the reads ``idx`` (a tensor of read indices)
+    alone, rows gathered on the card."""
+    import torch
+
+    from bwamem_tpu_torch.ops.chain import expand_ranges as expand
+
+    n_chain, n_seed = chains.n_chain[idx], chains.n_seed[idx]
+    chain_off = torch.cumsum(chains.n_chain, 0) - chains.n_chain
+    seed_off = torch.cumsum(chains.n_seed, 0) - chains.n_seed
+    return chains._replace(
+        chain_rows=chains.chain_rows[expand(chain_off[idx], n_chain)],
+        seed_rows=chains.seed_rows[expand(seed_off[idx], n_seed)],
+        n_chain=n_chain, n_seed=n_seed, seed_cnt=chains.seed_cnt[idx],
+        ovf=chains.ovf[idx], nslots=chains.nslots[idx])
+
+
+def _region_rows(regs):
+    """``Regions`` -> per read its regions as tuples (rb, re, qb, qe, score,
+    truesc, w, seedcov, seedlen0, rid, frac_rep)."""
+    import numpy as np
+
+    rows = regs.compact().cpu().numpy()
+    frac = rows[:, 2].copy().view(np.float64).tolist()
+    flat = [tuple(r[:2]) + tuple(r[3:]) + (f,)
+            for r, f in zip(rows.tolist(), frac)]
+    out, k = [], 0
+    for n in regs.nregs.tolist():
+        out.append(flat[k: k + n])
+        k += n
+    return out
+
+
+def _reg_tuples(regs_list):
+    return [[(a.rb, a.re, a.qb, a.qe, a.score, a.truesc, a.w, a.seedcov,
+              a.seedlen0, a.rid, a.frac_rep) for a in regs] for regs in regs_list]
+
+
+def phase_chain2aln_kernels(dev, index, batch):
+    """Phase 14: the chain-to-region kernels = plain (card) = host wave
+    runner = host oracle on the PE batch's real chains, then their times."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine.exec_ctx import ExecConfig
+    from bwamem_tpu_torch.engine.extend import chain2aln
+    from bwamem_tpu_torch.engine.extend_batch import chain2aln_batch
+    from bwamem_tpu_torch.engine.pipeline_device import (FUSED_STATS,
+                                                         regs_batch_fused)
+    from bwamem_tpu_torch.ops import chain as co
+    from bwamem_tpu_torch.ops import extend as ext
+    from bwamem_tpu_torch.ops import pipeline_fused as fo
+    from bwamem_tpu_torch.utils.encoding import seq_to_codes_batch
+
+    opt = MemOptions()
+    eng = index._require()
+    reads = seq_to_codes_batch(batch)
+    # the operands as the fused path's entry leaves them on the card
+    FUSED_STATS.reset()
+    regs_batch_fused(opt, eng, reads, ExecConfig(device=dev, device_pipeline=True))
+    ctg, ref, chains, qseq, qlen, run, params, mat, t_cap = FUSED_STATS.largest_batch
+    B = len(reads)
+    # the band preamble the loop kernel computes per job
+    rng = np.random.default_rng(SEED + 8)
+    bw = [torch.from_numpy(rng.integers(lo, hi, 100_000)).int().to(dev)
+          for lo, hi in ((0, 200), (1, 250), (0, 12))]
+    sc = (params.max_sc, params.o_del, params.e_del, params.o_ins, params.e_ins)
+    e_bw = _diff(fo.band_width_cuda(*bw, *sc), ext.band_width(*bw, *sc))
+    # kernel = plain on a sample plus the heaviest reads
+    whole = fo.chain2aln_cuda(ctg, ref, chains, qseq, qlen, run, params, mat, t_cap)
+    work = whole.work.cpu().numpy()
+    n_seed, n_chain = chains.n_seed.cpu().numpy(), chains.n_chain.cpu().numpy()
+    pick = set(rng.choice(B, min(1000, B), replace=False).tolist())
+    for key in (n_seed, n_chain, work[:, fo.W_CELLS]):
+        pick |= set(np.argsort(key)[-8:].tolist())
+    pick = sorted(pick)
+    idx = torch.tensor(pick, device=dev)
+    sub = (ctg, ref, _chains_of(chains, idx), qseq[idx], qlen[idx], run[idx],
+           params, mat, t_cap)
+    got = fo.chain2aln_cuda(*sub)
+    plain, plain_ms = _once_ms(lambda: fo.chain2aln_torch(*sub), dev)
+    e_plain = max(_diff(getattr(got, k), getattr(plain, k))
+                  for k in ("reg_c", "reg_i", "nregs", "seed_off"))
+    e_plain = max(e_plain, _diff(got.work[:, :4], plain.work[:, :4]))
+    mine = _region_rows(got)
+    all_rows = _region_rows(whole)
+    e_sub = sum(mine[j] != all_rows[i] for j, i in enumerate(pick))
+    # the host wave runner (host C++ ksw) on the sample, the oracle on part
+    lists = [cl or [] for cl in co.chain_lists(sub[2])[0]]
+    sub_reads = [reads[i] for i in pick]
+    host = chain2aln_batch(opt, eng.idx, sub_reads, lists, ExecConfig(
+        device="cpu", min_device_jobs=1 << 30))
+    e_host = sum(a != b for a, b in zip(mine, _reg_tuples(host)))
+    part = list(range(0, len(pick), max(len(pick) // 64, 1)))
+    part = sorted(set(part) | {pick.index(int(np.argmax(work[:, fo.W_CELLS])))})
+    e_oracle = 0
+    for j in part:
+        regs = []
+        for c in lists[j]:
+            chain2aln(opt, eng.idx, len(sub_reads[j]), sub_reads[j], c, regs)
+        e_oracle += mine[j] != _reg_tuples([regs])[0]
+    # the kernels alone on prepared operands
+    chains_p, lay, q8, ql, run8 = fo.prepare(ctg, ref, chains, qseq, qlen, run)
+    i32, i64 = torch.int32, torch.int64
+    L = q8.shape[1]
+    Nc, Ns = chains_p.chain_rows.shape[0], chains_p.seed_rows.shape[0]
+    rmax = torch.empty((Nc, 2), dtype=i64, device=dev)
+    srt = torch.empty(Ns, dtype=i32, device=dev)
+    alive = torch.empty(Ns, dtype=torch.uint8, device=dev)
+    reg_c = torch.zeros((Ns, 3), dtype=i64, device=dev)
+    reg_i = torch.zeros((Ns, 8), dtype=i32, device=dev)
+    err = torch.zeros(1, dtype=i32, device=dev)
+    mat_c = mat.contiguous()
+
+    def prep():
+        fo.chain2aln_prep_launch(ctg, chains_p, lay, ql, params, rmax, srt, err)
+
+    def loop(lo=0, hi=B):
+        n = hi - lo
+        eh = torch.empty((2, L + 1, n), dtype=i32, device=dev)
+        nregs = torch.zeros(n, dtype=i32, device=dev)
+        wk = torch.zeros((n, 6), dtype=i64, device=dev)
+        fo.chain2aln_launch(
+            ref, chains_p, lay, chains_p.n_chain[lo:hi], chains_p.n_seed[lo:hi],
+            lay.chain_off[lo:hi], lay.seed_off[lo:hi], rmax, srt, alive,
+            run8[lo:hi], q8[lo:hi], ql[lo:hi], mat_c, params, t_cap, eh, reg_c,
+            reg_i, nregs, wk, err)
+        return nregs, wk
+
+    prep_ms = _event_ms(prep, 10, dev)
+    sizes = {nb: _event_ms(lambda: loop(0, nb), 3, dev)
+             for nb in sorted({n for n in (1000, 3000, B // 2) if n < B})}
+    top = int(np.argmax(work[:, fo.W_CELLS]))
+    top_ms = _event_ms(lambda: loop(top, top + 1), 3, dev)
+    ms = _event_ms(loop, 5, dev)
+    nregs, wk = loop()
+    fo.raise_flags(int(err.item()))
+    e_plain = max(e_plain, _diff(nregs, whole.nregs), _diff(wk, whole.work),
+                  _diff(reg_c, whole.reg_c), _diff(reg_i, whole.reg_i))
+    tasks, pruned, jobs = (int(work[:, k].sum())
+                           for k in (fo.W_TASKS, fo.W_PRUNED, fo.W_JOBS))
+    cells, rows = int(work[:, fo.W_CELLS].sum()), int(work[:, fo.W_ROWS].sum())
+    nr = int(whole.nregs.sum())
+    print(f"  chain2aln on {B} reads ({Nc} chains, {Ns} seeds; {tasks} tasks "
+          f"extended, {pruned} pruned, {jobs} extension jobs, {cells} band cells, "
+          f"{rows} target rows read from the pac, {nr} regions; per read tasks "
+          f"mean {work[:, fo.W_TASKS].mean():.2f} max "
+          f"{int(work[:, fo.W_TASKS].max())}, jobs mean "
+          f"{work[:, fo.W_JOBS].mean():.2f} max {int(work[:, fo.W_JOBS].max())}, "
+          f"cells mean {work[:, fo.W_CELLS].mean():.0f} p99 "
+          f"{np.percentile(work[:, fo.W_CELLS], 99):.0f} max "
+          f"{int(work[:, fo.W_CELLS].max())}): chain2aln_prep_kernel "
+          f"{prep_ms:.4f} ms, chain2aln_kernel {ms:.4f} ms; plain PyTorch on "
+          f"{len(pick)} reads {plain_ms:.1f} ms (once)")
+    print("  chain2aln_kernel by batch size: " + ", ".join(
+        f"B={nb} {t:.4f} ms" for nb, t in sizes.items())
+        + f", B={B} {ms:.4f} ms; the read with the most cells alone "
+        f"({int(work[top, fo.W_TASKS])} tasks, {int(work[top, fo.W_JOBS])} jobs, "
+        f"{int(work[top, fo.W_CELLS])} cells): {top_ms:.4f} ms, "
+        f"{top_ms * 1e6 / max(int(work[top, fo.W_CELLS]), 1):.1f} ns per cell")
+    print(f"  max|kernel-plain| {e_plain} ({len(pick)} reads, every field); reads "
+          f"whose regions differ between the sample's run and the whole batch's "
+          f"{e_sub}, from the host wave runner's {e_host} (of {len(pick)}), from "
+          f"the oracle chain2aln's {e_oracle} (of {len(part)}); band preamble "
+          f"max|kernel-band_width| {e_bw} (100,000 jobs)")
+    if e_plain or e_sub or e_host or e_oracle or e_bw:
+        raise AssertionError("a chain-to-region kernel disagrees with its "
+                             "references")
+    io_in = 56 * Nc + 32 * Ns + 4 * Ns + q8.numel() + 45 * B
+    return {
+        "chain2aln_prep": dict(err=0, ms=prep_ms, plain_ms=plain_ms,
+                               bound=_bound(56 * Nc + 32 * Ns + 16 * Nc + 4 * Ns,
+                                            30 * Ns)),
+        "chain2aln": dict(err=0, ms=ms, plain_ms=plain_ms, bound=_bound(
+            io_in + 16 * Nc + min(rows / 4, ref.pac.numel()) + 56 * nr + 52 * B,
+            10 * cells)),
+    }
+
+
+def phase_fused(dev, index, runs, chain_run, big):
+    """Phase 15: phase 4's batches and phase 8's chr20 batch through the
+    fused device path."""
+    from bwamem_tpu_torch import BwaMemAligner
+
+    out = {}
+    for tag, r, idx in (("pe+fused", runs["pe"], index),
+                        ("se+fused", runs["se"], index),
+                        ("chr20 pe+fused", big["run"], big["index"])):
+        port = BwaMemAligner(idx, device=dev, device_pipeline=True)
+        if tag != "se+fused":
+            _pe_setup(port)
+        port.align_seqs(r["warm"])
+        res = _port_run(tag, port, r["batch"], r["ref"], r["t_host"], dev,
+                        fused=True)
+        fs, la, n = res["fused_stats"], res["fused_launches"], len(r["batch"])
+        if any(v <= 0 for v in la.values()):
+            raise AssertionError(f"{tag}: the chain-to-region kernels did not run")
+        _check_seeded(tag, res, r["batch"])
+        if any(v <= 0 for v in res["chain_launches"].values()):
+            raise AssertionError(f"{tag}: the chain kernels did not run")
+        if fs["device_reads"] + fs["host_reads"] != n:
+            raise AssertionError(f"{tag}: reads {fs['device_reads']} + "
+                                 f"{fs['host_reads']}, not {n}")
+        if fs["device_reads"] < 0.95 * n:
+            raise AssertionError(f"{tag}: only {fs['device_reads']} of {n} reads "
+                                 "on the fused path")
+        if fs["host_reads"] != (fs["host_seeded"] + fs["c_overflows"]
+                                + fs["fcs_reads"]):
+            raise AssertionError(f"{tag}: a read left the fused path unflagged")
+        if fs["host_reads"] == 0 and (res["waves"] or res["launches"]):
+            raise AssertionError(f"{tag}: {res['waves']} extension waves though "
+                                 "no read left the fused path")
+        st = res["stages"]
+        print(f"  {tag}: device_pipeline {st['device_pipeline']:.4f} s, dedup "
+              f"{st['dedup']:.4f} s, pairing+records "
+              f"{res['seconds'] - sum(st.values()):.3f} s; {res['waves']} "
+              f"extension waves (all from the {fs['host_reads']} reads on the "
+              "staged path)")
+        if tag == "pe+fused":
+            ref_st = chain_run["runs"]["pe+seed+sa+chain"]["stages"]
+            print(f"  {tag}: phase 13's staged run of the same batch: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in ref_st.items()) + " s")
+            busy, wall = _device_busy(port, r["batch"], dev)
+            print(f"  {tag}: again under torch.profiler: card busy {busy:.4f} s "
+                  f"of {wall:.2f} s, idle share {1 - busy / wall:.4f}")
+        out[tag] = res
+    return dict(runs=out, launches=out["pe+fused"]["fused_launches"])
+
+
 def main() -> int:
     import torch
 
@@ -1366,8 +1638,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from bwamem_tpu_torch import BwaMemIndex
+    from bwamem_tpu_torch.engine import exec_ctx
     from bwamem_tpu_torch.ops import extend as ext
 
+    exec_ctx.KEEP_LARGEST = True  # the timing phases reuse the largest batches
     dev = torch.device("cuda", 0)
     card = _card_line()
     print(f"[1] card: {card}; torch {torch.__version__}, CUDA "
@@ -1421,6 +1695,16 @@ def main() -> int:
           "device_stages=('seed', 'sa_lookup', 'chain') / ('chain',)) vs the "
           "host oracle")
     chain_run = phase_device_chain(dev, index, runs)
+
+    print("[14] chain-to-region kernels vs plain PyTorch (card) vs host wave "
+          "runner vs host oracle, tolerance 0 (integers and bit-equal doubles, "
+          "exact)")
+    fused_k = phase_chain2aln_kernels(dev, index, runs["pe"]["batch"])
+
+    print("[15] fused device path: BwaMemAligner(device='cuda', "
+          "device_pipeline=True) vs the host oracle")
+    fused_run = phase_fused(dev, index, runs, chain_run, big)
+    big["index"].close()
     index.close()
 
     fm_src = "bwamem_tpu_torch/csrc/fmindex.cu"
@@ -1485,6 +1769,14 @@ def main() -> int:
          "max_abs_err": chain_k[name]["err"], "ms": chain_k[name]["ms"],
          "plain_ms": chain_k[name]["plain_ms"], **chain_k[name]["bound"]}
         for name in ("chain", "chain_emit")
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "bwamem_tpu_torch/csrc/chain2aln.cu",
+         "replaces": "bwamem_tpu/ops/pipeline_fused.py:111",
+         "launches": fused_run["launches"][name],
+         "max_abs_err": fused_k[name]["err"], "ms": fused_k[name]["ms"],
+         "plain_ms": fused_k[name]["plain_ms"], **fused_k[name]["bound"]}
+        for name in ("chain2aln_prep", "chain2aln")
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

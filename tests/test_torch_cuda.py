@@ -1,10 +1,11 @@
 """The port on the card: the CUDA kernels (SW extension, occ4, bwt_extend,
 SA walk, backward search, op probe, the seeding kernels smem1a, strategy1,
-collect_intv and sample_ks, and the chain kernels) against their plain
-PyTorch versions on the same CUDA tensors, exactly, the FM, seeding and
-chain kernels also against the host oracles, and the aligner with
-device="cuda" (with and without the device seed, SA and chain stages)
-against the port's aligner with every stage on the host.
+collect_intv and sample_ks, the chain kernels and the chain-to-region
+kernels) against their plain PyTorch versions on the same CUDA tensors,
+exactly, the FM, seeding, chain and chain-to-region kernels also against the
+host oracles, and the aligner with device="cuda" (with and without the device
+seed, SA and chain stages, and with the fused device path) against the
+port's aligner with every stage on the host.
 
 Imports nothing of JAX and nothing of bwamem_tpu, so that it runs where JAX
 is not installed:
@@ -21,8 +22,9 @@ from bwamem_tpu_torch.benchmarks import op_probe
 from bwamem_tpu_torch.ops import chain as co
 from bwamem_tpu_torch.ops import extend as ext
 from bwamem_tpu_torch.ops import fmindex as fmops
+from bwamem_tpu_torch.ops import pipeline_fused as fo
 from bwamem_tpu_torch.ops import seed as so
-from bwamem_tpu_torch.utils import chain_cases, seed_cases
+from bwamem_tpu_torch.utils import chain_cases, fused_cases, seed_cases
 from bwamem_tpu_torch.utils.extend_cases import ARRAYS, CASES, jobs, make_case
 
 needs_card = pytest.mark.skipif("not torch.cuda.is_available()",
@@ -444,4 +446,191 @@ def test_cuda_aligner_matches_host(tmp_path, stages):
         assert CHAIN_STATS.device_reads == CHAIN_STATS.host_reads == 0
     ref = host.align_seqs(reads)
     assert got == ref
+    index.close()
+
+
+@pytest.fixture(scope="module")
+def fused_engine():
+    """The chain cases' genome (three contigs, the last ALT) as the port's
+    engine."""
+    from bwamem_tpu_torch.engine.pipeline import Engine
+    from bwamem_tpu_torch.index.build import build_index
+    from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
+
+    contigs = chain_cases.genome(np.random.default_rng(7))
+    idx = build_index(Fasta([FastaContig(f"c{i}", "", c)
+                             for i, c in enumerate(contigs)]))
+    idx.bns.anns[2].is_alt = 1
+    return Engine(idx), contigs
+
+
+def _fused_operands(eng, opt, reads):
+    """The reads' chains on the card (seeds by the host oracle, chained by
+    the chain kernels), the same chains as ``Chain`` lists, and the other
+    operands of ``chain2aln``."""
+    from bwamem_tpu_torch.engine.chain import sample_ks
+    from bwamem_tpu_torch.engine.seed import collect_intv
+    from bwamem_tpu_torch.engine.state import (device_contigs, device_ref,
+                                               device_scoring)
+
+    ivs = [collect_intv(opt, eng.fm, q) for q in reads]
+    rbs = [[eng.fm.sa_lookup(np.asarray(sample_ks(p, opt.max_occ), np.int64))
+            for p in iv] for iv in ivs]
+    tab = co.SeedTable.from_numpy(
+        "cuda", *chain_cases.seed_table(ivs, rbs, [len(r) for r in reads]))
+    ctg = device_contigs(eng.idx.bns, "cuda")
+    params = co.ChainParams.from_opt(opt)
+    lists, _ = co.chains_device_batch(ctg, tab, params)
+    qseq, qlen = so.pad_reads(reads, "cuda")
+    run = torch.ones(len(reads), dtype=torch.bool, device="cuda")
+    return lists, (ctg, device_ref(eng.idx, "cuda"), co.chain(ctg, tab, params),
+                   qseq, qlen, run, fo.ExtendParams.from_opt(opt),
+                   device_scoring(opt, "cuda").mat)
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("case", fused_cases.CASES)
+def test_cuda_chain2aln_matches_plain_and_oracle(fused_engine, case):
+    """The chain-to-region kernels against the plain version on the card,
+    field for field, and against the host oracle ``chain2aln`` on the same
+    chains; a window budget of 300 bases sets the same ``ref_t`` marks."""
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine.extend import chain2aln
+
+    eng, contigs = fused_engine
+    kw, make = fused_cases.CASES[case]
+    opt = fused_cases.options(MemOptions(), kw)
+    reads = make(contigs)
+    lists, args = _fused_operands(eng, opt, reads)
+    before = dict(fo.LAUNCHES)
+    got = fo.chain2aln(*args, 300)
+    assert {k: fo.LAUNCHES[k] - before[k] for k in before} == {
+        "chain2aln_prep": 1, "chain2aln": 1}
+    plain = fo.chain2aln_torch(*args, 300)
+    for name in ("reg_c", "reg_i", "nregs", "seed_off"):
+        assert torch.equal(getattr(got, name), getattr(plain, name)), name
+    assert torch.equal(got.work[:, :4], plain.work[:, :4])
+    assert int(got.work[:, fo.W_CELLS].sum()) > 0
+    rows = got.compact().cpu().numpy()
+    frac = rows[:, 2].copy().view(np.float64)
+    k = 0
+    for q, chains, n in zip(reads, lists, got.nregs.tolist()):
+        regs = []
+        for c in chains:
+            chain2aln(opt, eng.idx, len(q), q, c, regs)
+        mine = [(int(r[0]), int(r[1]), int(r[3]), int(r[4]), int(r[5]),
+                 int(r[6]), int(r[7]), int(r[8]), int(r[9]), int(r[10]), float(f))
+                for r, f in zip(rows[k: k + n], frac[k: k + n])]
+        assert mine == [(a.rb, a.re, a.qb, a.qe, a.score, a.truesc, a.w,
+                         a.seedcov, a.seedlen0, a.rid, a.frac_rep) for a in regs]
+        k += n
+    assert k == len(rows)
+    # leaving reads out, and running twice on the same scratch
+    run = torch.arange(len(reads), device="cuda") % 2 == 0
+    part = fo.chain2aln(*args[:5], run, *args[6:])
+    assert part.nregs.tolist() == [n if i % 2 == 0 else 0
+                                   for i, n in enumerate(got.nregs.tolist())]
+
+
+@pytest.mark.cuda
+@needs_card
+def test_cuda_chain2aln_flags_impossible_states(fused_engine):
+    """A window that does not hold its seeds, and fewer region rows than a
+    read needs, set the kernel's flag bits; the wrapper's reader raises."""
+    from bwamem_tpu_torch.api.options import MemOptions
+
+    eng, contigs = fused_engine
+    opt = MemOptions()
+    reads = chain_cases.reads(contigs, np.random.default_rng(3), 20)
+    _, (ctg, ref, chains, qseq, qlen, run, p, mat) = _fused_operands(
+        eng, opt, reads)
+    chains, lay, qseq, qlen, run = fo.prepare(ctg, ref, chains, qseq, qlen, run)
+    i32, i64 = torch.int32, torch.int64
+    B, L = qseq.shape
+    Nc, Ns = chains.chain_rows.shape[0], chains.seed_rows.shape[0]
+
+    def launch(rmax, n_seed):
+        out = dict(
+            eh=torch.empty((2, L + 1, B), dtype=i32, device="cuda"),
+            reg_c=torch.zeros((Ns, 3), dtype=i64, device="cuda"),
+            reg_i=torch.zeros((Ns, 8), dtype=i32, device="cuda"),
+            nregs=torch.zeros(B, dtype=i32, device="cuda"),
+            work=torch.zeros((B, 6), dtype=i64, device="cuda"),
+            err=torch.zeros(1, dtype=i32, device="cuda"))
+        fo.chain2aln_launch(
+            ref, chains, lay, chains.n_chain, n_seed, lay.chain_off,
+            lay.seed_off, rmax, srt, alive, run, qseq, qlen, mat.contiguous(), p,
+            fo.NO_T_CAP, **out)
+        return int(out["err"].item())
+
+    rmax = torch.empty((Nc, 2), dtype=i64, device="cuda")
+    srt = torch.empty(Ns, dtype=i32, device="cuda")
+    alive = torch.empty(Ns, dtype=torch.uint8, device="cuda")
+    err = torch.zeros(1, dtype=i32, device="cuda")
+    fo.chain2aln_prep_launch(ctg, chains, lay, qlen, p, rmax, srt, err)
+    assert int(err.item()) == 0 and launch(rmax, chains.n_seed) == 0
+    assert launch(torch.zeros_like(rmax), chains.n_seed) == fo.ERR_WINDOW
+    assert launch(rmax, torch.zeros_like(chains.n_seed)) == fo.ERR_ROWS
+    for bit in (fo.ERR_WINDOW, fo.ERR_ROWS, fo.ERR_CONTIG):
+        with pytest.raises(RuntimeError):
+            fo.raise_flags(bit)
+    with pytest.raises(ValueError):  # tensors on the CPU never reach the kernel
+        fo.chain2aln_cuda(ctg, ref, chains, qseq.cpu(), qlen, run, p, mat)
+
+
+@pytest.mark.cuda
+@needs_card
+def test_cuda_band_width_matches_band_width():
+    """``ksw_band_width`` of csrc/extend.cuh, which the chain-to-region kernel
+    computes per job, against ``ops.extend.band_width``."""
+    rng = np.random.default_rng(3)
+    for max_sc, o_del, e_del, o_ins, e_ins in ((1, 6, 1, 6, 1), (2, 9, 3, 4, 2),
+                                               (1, 40, 7, 55, 5)):
+        qlen, w, bonus = (torch.from_numpy(rng.integers(lo, hi, 4000)).int().cuda()
+                          for lo, hi in ((0, 200), (1, 250), (0, 12)))
+        args = (qlen, w, bonus, max_sc, o_del, e_del, o_ins, e_ins)
+        assert torch.equal(fo.band_width_cuda(*args), ext.band_width(*args))
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("mode", ("pe", "se"))
+def test_cuda_fused_aligner_matches_host(tmp_path, mode):
+    """device_pipeline=True: records equal to the host oracle's, all four
+    kernel stages launched, every read on the fused path and no extension
+    wave."""
+    from bwamem_tpu_torch import BwaMemAligner, BwaMemIndex
+    from bwamem_tpu_torch.engine.extend_batch import STATS
+    from bwamem_tpu_torch.engine.pipeline_device import FUSED_STATS
+    from bwamem_tpu_torch.index import image
+    from bwamem_tpu_torch.index.build import build_index
+    from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
+    from bwamem_tpu_torch.utils.synth import simulate_pairs, synthetic_genome
+
+    codes = synthetic_genome(200_000, np.random.default_rng(7))
+    img = str(tmp_path / "g.img")
+    image.write_image(img, build_index(Fasta([FastaContig("chr", "", codes)])))
+    index = BwaMemIndex(img)
+    reads = simulate_pairs(codes, np.random.default_rng(9), 200)
+    host = BwaMemAligner(index, device="cpu", min_device_jobs=1 << 30)
+    port = BwaMemAligner(index, device="cuda", device_pipeline=True)
+    if mode == "pe":
+        for a in (host, port):
+            a.align_pairs()
+    STATS.reset()
+    FUSED_STATS.reset()
+    before = (dict(so.LAUNCHES), dict(co.LAUNCHES), dict(fo.LAUNCHES),
+              fmops.LAUNCHES["sa_lookup"], ext.LAUNCHES)
+    got = port.align_seqs(reads)
+    for now, was in zip((so.LAUNCHES, co.LAUNCHES, fo.LAUNCHES), before):
+        assert all(now[k] == was[k] + 1 for k in was
+                   if k not in ("smem1a", "strategy1")), (now, was)
+    assert fmops.LAUNCHES["sa_lookup"] == before[3] + 1
+    assert FUSED_STATS.device_reads + FUSED_STATS.host_reads == len(reads)
+    assert FUSED_STATS.device_reads >= 0.95 * len(reads)
+    if FUSED_STATS.host_reads == 0:
+        assert ext.LAUNCHES == before[4]
+        assert STATS.device_extend_waves + STATS.host_extend_waves == 0
+    assert got == host.align_seqs(reads)
     index.close()

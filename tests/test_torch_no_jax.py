@@ -1,8 +1,8 @@
 """The port stands alone: no module of bwamem_tpu_torch, and not
 chip_smoke.py, imports JAX or anything of bwamem_tpu, and an image load, an
 index build and SE and PE alignments through the port (with the host C++
-natives and without them, with and without the device stages) leave both
-out of sys.modules.  The check runs in a fresh interpreter, since this test
+natives and without them, with and without the device stages and through
+the fused device path) leave both out of sys.modules.  The check runs in a fresh interpreter, since this test
 process has JAX loaded."""
 import os
 import re
@@ -37,14 +37,15 @@ with tempfile.TemporaryDirectory() as d:
     built = BwaMemIndex(os.path.join(d, "g.img"))
     reads = simulate_pairs(codes, np.random.default_rng(6), 6)
     ref = None
-    for stages in ((), ("sa_lookup",), ("seed", "sa_lookup", "chain")):
+    for stages, fused in (((), False), (("sa_lookup",), False),
+                          (("seed", "sa_lookup", "chain"), False), ((), True)):
         al = BwaMemAligner(built, device="cpu", min_device_jobs=1,
-                           device_stages=stages)
+                           device_stages=stages, device_pipeline=fused)
         se = al.align_seqs(reads)
         al.align_pairs()
         got = (se, al.align_seqs(reads))
         ref = ref or got
-        assert got == ref, stages
+        assert got == ref, (stages, fused)
     built.close()
 assert extend.LAUNCHES == 0
 print(sorted(m for m in sys.modules
