@@ -24,27 +24,36 @@
 //   seeds; write the region.
 //
 // Design: `chain2aln_prep_kernel`, one thread per chain, and
-// `chain2aln_kernel`, one thread per read, a sequential state machine as the
+// `chain2aln_kernel`, one warp per read, a sequential state machine as the
 // oracle writes it, so regions of a read's earlier chains prune seeds of its
 // later ones.  The JAX program's barrel shifts, 128-base pac-row gathers,
 // one-hot region writes and lane-compaction ladder are TPU shapes of a gather,
-// an append and a loop that ends early; none is carried over.  The DP is the
-// shared __device__ function of extend.cuh.  Its target is read from the
-// 2-bit pac as the DP walks, base by base (a position at or past l_pac is the
-// complement of the mirrored forward base), so there is no window buffer, no
-// T_cap and nothing uploaded per wave; its query is read from the padded
-// reads that seeding put on the card.  The eh scratch is [2, Q+1, B] with the
-// read index fastest, re-initialised per job.  A read's regions go to its
-// offset in a table as long as seed_rows (a read makes at most one region per
-// seed), so there is no R budget.  cal_max_gap and the two ratio tests are
-// computed in double as the oracle computes them, and the file is built
-// without --use_fast_math.
+// an append and a loop that ends early; none is carried over.  The DP is
+// extend.cuh's `ksw_extend_warp`: a target row's band across the 32 lanes,
+// its row state (H, E) and the job's query in the warp's slice of shared
+// memory for the whole job, sized from Q, the longest read it runs (the
+// wrapper checks Q and the scores against the DP's limits, and
+// `bwamem_chain2aln_max_qlen` gives the longest read whose slices fit a
+// block; `regs_batch_fused` sends longer reads to the staged path).  Its
+// target is read from the 2-bit pac as the DP walks, 32 rows at a time, a
+// byte a lane (a position at or past l_pac is the complement of the
+// mirrored forward base), so there is no window buffer, no T_cap and
+// nothing uploaded per wave.  The per-task tests are "any" predicates over the read's
+// regions and the chain's later seeds, a region or seed a lane; seedcov is
+// a warp sum.  A read's regions go to its offset in a table as long as
+// seed_rows (a read makes at most one region per seed), so there is no R
+// budget.  cal_max_gap and the two ratio tests are computed in double as
+// the oracle computes them, and the file is built without --use_fast_math.
 //
-// What bounds it: the read with the most extension work.  A thread runs its
-// read's jobs one after another (a few per read on average, tens for a read
-// in a repeat), each a DP of dependent loads of eh cells through L1/L2; a
-// warp runs as long as its slowest read.  Bytes (a few tens of MB a batch)
-// and operations (~10 per band cell) would take well under a millisecond.
+// What bounds it: the latency of one warp's chain of target rows for the
+// read with the most cells (a row is a few shared-memory loads, a 5-step
+// shuffle scan, four warp reductions and a few shuffles), not bytes or
+// operations (a few tens of MB and ~10 operations a band cell would take
+// well under a millisecond).  So the grid is persistent and warps take
+// reads from a global counter in the order the wrapper gives, heaviest
+// first (n_seed x qlen): the read with the most cells starts at once and
+// the light reads fill the card around it.  Results do not depend on that
+// order: a read writes only its own rows.
 //
 // Errors: a seed outside its chain's window, a region past the read's rows
 // or a first seed in no contig set a bit of *err; the wrapper raises.
@@ -57,7 +66,8 @@
 namespace {
 
 constexpr int kPrepThreads = 128;
-constexpr int kThreads = 32;  // one warp a block: a batch spreads over the SMs
+constexpr int kWarps = 8;  // a read a warp
+constexpr int kThreads = 32 * kWarps;
 constexpr int kErrWindow = 1;
 constexpr int kErrRows = 2;
 constexpr int kErrContig = 4;
@@ -156,13 +166,6 @@ __global__ void __launch_bounds__(kPrepThreads) chain2aln_prep_kernel(
   rmax[ci * 2 + 1] = r1 < far_end ? r1 : far_end;
 }
 
-// Query bases of a read, forward from p or backward from it.
-struct QueryView {
-  const uint8_t* __restrict__ p;
-  int dir;
-  __device__ __forceinline__ int operator()(int j) const { return p[dir * j]; }
-};
-
 // Reference bases from the 2-bit pac (four bases a byte, the first in the
 // high bits) at doubled-domain positions pos, pos + dir, ...
 struct PacView {
@@ -178,28 +181,28 @@ struct PacView {
   }
 };
 
-// One extension job of a read: the band preamble, then the DP.
-__device__ __noinline__ bwamem::KswResult extend_job(
-    QueryView q, PacView t, int qlen, int tlen, int h0, int w, int end_bonus,
-    const Opts& o, const int32_t* smat, int32_t* H, int32_t* E, int64_t st) {
-  const int w_adj = bwamem::ksw_band_width(qlen, w, end_bonus, o.max_sc,
-                                           o.o_del, o.e_del, o.o_ins, o.e_ins);
-  return bwamem::ksw_extend_core(q, t, qlen, tlen, h0, w_adj, smat, H, E, st,
-                                 qlen, o.o_del, o.e_del, o.o_ins, o.e_ins,
-                                 o.zdrop);
+// The warp's slice of dynamic shared memory for reads of up to Q bases:
+// H and E [Q + 1] int32, then the job's query codes [Q] uint8.
+__host__ __device__ __forceinline__ int slice_words(int Q) {
+  return 2 * (Q + 1) + (Q + 3) / 4;
 }
 
 // One side of a seed: the job at w, then at 2w under the oracle's break rule
-// (`score` enters as the previous score and leaves as the job's).
+// (`score` enters as the previous score and leaves as the job's).  `qs`
+// already holds the side's query, `qlen` codes.
+template <class TSeq>
 __device__ __forceinline__ bwamem::KswResult extend_side(
-    QueryView q, PacView t, int qlen, int tlen, int h0, int end_bonus,
-    const Opts& o, const int32_t* smat, int32_t* H, int32_t* E, int64_t st,
-    int& score, int& aw, int64_t* work) {
+    const uint8_t* qs, TSeq t, int qlen, int tlen, int h0, int end_bonus,
+    const Opts& o, const uint32_t* sprof, int32_t* H, int32_t* E, int& score,
+    int& aw, int64_t* work) {
   bwamem::KswResult res;
   for (int i2 = 0; i2 < kMaxBandTry; ++i2) {
     const int prev = score;
     aw = o.w << i2;
-    res = extend_job(q, t, qlen, tlen, h0, aw, end_bonus, o, smat, H, E, st);
+    const int w_adj = bwamem::ksw_band_width(qlen, aw, end_bonus, o.max_sc,
+                                             o.o_del, o.e_del, o.o_ins, o.e_ins);
+    res = bwamem::ksw_extend_warp(qs, t, qlen, tlen, h0, w_adj, sprof, H, E,
+                                  o.o_del, o.e_del, o.o_ins, o.e_ins, o.zdrop);
     work[2] += 1;
     work[4] += res.cells;
     work[5] += res.rows;
@@ -209,42 +212,37 @@ __device__ __forceinline__ bwamem::KswResult extend_side(
   return res;
 }
 
-__global__ void __launch_bounds__(kThreads) chain2aln_kernel(
-    const int64_t* __restrict__ chain_rows,      // [Nc, 7]
-    const int64_t* __restrict__ seed_rows,       // [Ns, 4]
-    const int64_t* __restrict__ chain_off,       // [B] first chain of the read
-    const int64_t* __restrict__ n_chain,         // [B]
-    const int64_t* __restrict__ seed_off,        // [B] first seed row of the read
-    const int64_t* __restrict__ n_seed,          // [B]
-    const int64_t* __restrict__ chain_seed_off,  // [Nc]
-    const int64_t* __restrict__ rmax,            // [Nc, 2]
-    const int32_t* __restrict__ srt,             // [Ns]
-    uint8_t* __restrict__ alive,                 // [Ns] scratch, by srt position
-    const uint8_t* __restrict__ run,             // [B]
-    const uint8_t* __restrict__ qseq, int64_t ldq,  // [B, ldq] codes 0-4
-    const int32_t* __restrict__ qlen, int B, int Q,
-    const uint8_t* __restrict__ pac, int64_t l_pac,
-    const int32_t* __restrict__ mat, Opts o, int64_t t_cap,
-    int32_t* __restrict__ eh_h,   // [Q+1, B] scratch
-    int32_t* __restrict__ eh_e,   // [Q+1, B] scratch
-    int64_t* __restrict__ reg_c,  // [Ns, 3] rb re frac_rep bits
-    int32_t* __restrict__ reg_i,  // [Ns, 8] qb qe score truesc w seedcov seedlen0 rid
-    int32_t* __restrict__ nregs,  // [B]
-    int64_t* __restrict__ work_out,  // [B, 6]
-    int32_t* __restrict__ err) {
-  __shared__ int32_t smat[25];
-  if (threadIdx.x < 25) smat[threadIdx.x] = mat[threadIdx.x];
-  __syncthreads();
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
+// The query of a side into the warp's shared memory: qlen codes from p,
+// forward (dir 1) or backward (dir -1).
+__device__ __forceinline__ void load_query(uint8_t* qs, const uint8_t* p,
+                                           int dir, int qlen) {
+  __syncwarp();  // the last job is done with qs
+  for (int j = threadIdx.x & 31; j < qlen; j += 32) qs[j] = p[dir * j];
+  __syncwarp();
+}
+
+// mem_chain2aln for read b on the 32 lanes of a warp.  Every value that
+// steers the loop is warp-uniform; lane 0 writes the shared rows (alive,
+// regions, counts), each followed by __syncwarp before other lanes read it.
+__device__ void chain2aln_read(
+    int b, const int64_t* __restrict__ chain_rows,
+    const int64_t* __restrict__ seed_rows, const int64_t* __restrict__ chain_off,
+    const int64_t* __restrict__ n_chain, const int64_t* __restrict__ seed_off,
+    const int64_t* __restrict__ n_seed,
+    const int64_t* __restrict__ chain_seed_off, const int64_t* __restrict__ rmax,
+    const int32_t* __restrict__ srt, uint8_t* __restrict__ alive,
+    const uint8_t* __restrict__ run, const uint8_t* __restrict__ qseq,
+    int64_t ldq, const int32_t* __restrict__ qlen, const uint8_t* __restrict__ pac,
+    int64_t l_pac, const uint32_t* sprof, const Opts& o, int64_t t_cap,
+    int32_t* H, int32_t* E, uint8_t* qs, int64_t* __restrict__ reg_c,
+    int32_t* __restrict__ reg_i, int32_t* __restrict__ nregs,
+    int64_t* __restrict__ work_out, int32_t* __restrict__ err) {
+  const int lane = threadIdx.x & 31;
   int64_t work[6] = {0, 0, 0, 0, 0, 0};
   int nreg = 0;
   if (run[b]) {
     const int ql = qlen[b];
     const uint8_t* qrow = qseq + b * ldq;
-    int32_t* H = eh_h + b;
-    int32_t* E = eh_e + b;
-    const int64_t st = B;
     const int64_t base = seed_off[b], max_regs = n_seed[b];
     const int64_t c_end = chain_off[b] + n_chain[b];
     bool failed = false;
@@ -252,65 +250,76 @@ __global__ void __launch_bounds__(kThreads) chain2aln_kernel(
       const int64_t* cr = chain_rows + ci * 7;
       const int64_t ns = cr[2], so = chain_seed_off[ci];
       const int64_t r0 = rmax[ci * 2], r1 = rmax[ci * 2 + 1];
-      for (int64_t k = 0; k < ns; ++k) alive[so + k] = 1;
+      for (int64_t k = lane; k < ns; k += 32) alive[so + k] = 1;
+      __syncwarp();
       for (int64_t k = ns - 1; k >= 0; --k) {
         const int64_t* s = seed_rows + (so + srt[so + k]) * 4;
         const int64_t rbeg = s[0];
         const int qb = static_cast<int>(s[1]), len = static_cast<int>(s[2]);
-        // has this seed's neighbourhood been extended already?
+        // has this seed's neighbourhood been extended already?  a region a
+        // lane, then any
         bool contained = false;
-        for (int r = 0; r < nreg && !contained; ++r) {
-          const int64_t* pc = reg_c + (base + r) * 3;
-          const int32_t* pi = reg_i + (base + r) * 8;
-          const int64_t p_rb = pc[0], p_re = pc[1];
-          const int p_qb = pi[0], p_qe = pi[1], p_w = pi[4], p_sl0 = pi[6];
-          if (rbeg < p_rb || rbeg + len > p_re || qb < p_qb || qb + len > p_qe)
-            continue;
-          if (static_cast<double>(len - p_sl0) > 0.1 * static_cast<double>(ql))
-            continue;
-          int64_t qd = qb - p_qb, rd = rbeg - p_rb;
-          int64_t w = cal_max_gap(o, qd < rd ? qd : rd);
-          if (w > p_w) w = p_w;
-          if (qd - rd < w && rd - qd < w) {
-            contained = true;
-            break;
+        for (int r0i = 0; r0i < nreg && !contained; r0i += 32) {
+          const int r = r0i + lane;
+          bool hit = false;
+          if (r < nreg) {
+            const int64_t* pc = reg_c + (base + r) * 3;
+            const int32_t* pi = reg_i + (base + r) * 8;
+            const int64_t p_rb = pc[0], p_re = pc[1];
+            const int p_qb = pi[0], p_qe = pi[1], p_w = pi[4], p_sl0 = pi[6];
+            if (rbeg >= p_rb && rbeg + len <= p_re && qb >= p_qb &&
+                qb + len <= p_qe &&
+                !(static_cast<double>(len - p_sl0) >
+                  0.1 * static_cast<double>(ql))) {
+              int64_t qd = qb - p_qb, rd = rbeg - p_rb;
+              int64_t w = cal_max_gap(o, qd < rd ? qd : rd);
+              if (w > p_w) w = p_w;
+              hit = qd - rd < w && rd - qd < w;
+              if (!hit) {
+                qd = p_qe - (qb + len);
+                rd = p_re - (rbeg + len);
+                w = cal_max_gap(o, qd < rd ? qd : rd);
+                if (w > p_w) w = p_w;
+                hit = qd - rd < w && rd - qd < w;
+              }
+            }
           }
-          qd = p_qe - (qb + len);
-          rd = p_re - (rbeg + len);
-          w = cal_max_gap(o, qd < rd ? qd : rd);
-          if (w > p_w) w = p_w;
-          if (qd - rd < w && rd - qd < w) contained = true;
+          contained = __any_sync(bwamem::kFullMask, hit);
         }
         if (contained) {
-          // unless a live later seed of the chain argues for another alignment
+          // unless a live later seed of the chain argues for another
+          // alignment: a later seed a lane
           bool diff = false;
-          for (int64_t i2 = k + 1; i2 < ns && !diff; ++i2) {
-            if (!alive[so + i2]) continue;
-            const int64_t* t = seed_rows + (so + srt[so + i2]) * 4;
-            const int64_t t_rbeg = t[0];
-            const int t_qb = static_cast<int>(t[1]), t_len = static_cast<int>(t[2]);
-            if (static_cast<double>(t_len) < static_cast<double>(len) * 0.95)
-              continue;
-            if (qb <= t_qb && qb + len - t_qb >= (len >> 2) &&
-                t_qb - qb != t_rbeg - rbeg)
-              diff = true;
-            else if (t_qb <= qb && t_qb + t_len - qb >= (len >> 2) &&
-                     qb - t_qb != rbeg - t_rbeg)
-              diff = true;
+          for (int64_t i0 = k + 1; i0 < ns && !diff; i0 += 32) {
+            const int64_t i2 = i0 + lane;
+            bool d = false;
+            if (i2 < ns && alive[so + i2]) {
+              const int64_t* t = seed_rows + (so + srt[so + i2]) * 4;
+              const int64_t t_rbeg = t[0];
+              const int t_qb = static_cast<int>(t[1]);
+              const int t_len = static_cast<int>(t[2]);
+              if (!(static_cast<double>(t_len) < static_cast<double>(len) * 0.95))
+                d = (qb <= t_qb && qb + len - t_qb >= (len >> 2) &&
+                     t_qb - qb != t_rbeg - rbeg) ||
+                    (t_qb <= qb && t_qb + t_len - qb >= (len >> 2) &&
+                     qb - t_qb != rbeg - t_rbeg);
+            }
+            diff = __any_sync(bwamem::kFullMask, d);
           }
           if (!diff) {
-            alive[so + k] = 0;
+            if (lane == 0) alive[so + k] = 0;
+            __syncwarp();
             work[1] += 1;
             continue;
           }
         }
         if (rbeg < r0 || rbeg + len > r1) {
-          atomicOr(err, kErrWindow);
+          if (lane == 0) atomicOr(err, kErrWindow);
           failed = true;
           break;
         }
         if (nreg >= max_regs) {
-          atomicOr(err, kErrRows);
+          if (lane == 0) atomicOr(err, kErrRows);
           failed = true;
           break;
         }
@@ -320,10 +329,11 @@ __global__ void __launch_bounds__(kThreads) chain2aln_kernel(
         int score = -1, truesc, qb_f, qe_f;
         int64_t rb_f, re_f;
         if (qb > 0) {  // left extension on the reversed prefix
+          load_query(qs, qrow + qb - 1, -1, qb);
           const bwamem::KswResult res = extend_side(
-              QueryView{qrow + qb - 1, -1}, PacView{pac, l_pac, rbeg - 1, -1},
-              qb, static_cast<int>(rbeg - r0), len * o.a, o.pen_clip5, o, smat,
-              H, E, st, score, aw0, work);
+              qs, PacView{pac, l_pac, rbeg - 1, -1}, qb,
+              static_cast<int>(rbeg - r0), len * o.a, o.pen_clip5, o, sprof, H,
+              E, score, aw0, work);
           if (res.gscore <= 0 || res.gscore <= score - o.pen_clip5) {
             qb_f = qb - res.qle;
             rb_f = rbeg - res.tle;
@@ -342,9 +352,10 @@ __global__ void __launch_bounds__(kThreads) chain2aln_kernel(
         const int64_t re0 = rbeg + len;
         if (qe != ql) {  // right extension
           const int sc0 = score;
+          load_query(qs, qrow + qe, 1, ql - qe);
           const bwamem::KswResult res = extend_side(
-              QueryView{qrow + qe, 1}, PacView{pac, l_pac, re0, 1}, ql - qe,
-              static_cast<int>(r1 - re0), sc0, o.pen_clip3, o, smat, H, E, st,
+              qs, PacView{pac, l_pac, re0, 1}, ql - qe,
+              static_cast<int>(r1 - re0), sc0, o.pen_clip3, o, sprof, H, E,
               score, aw1, work);
           if (res.gscore <= 0 || res.gscore <= score - o.pen_clip3) {
             qe_f = qe + res.qle;
@@ -359,32 +370,85 @@ __global__ void __launch_bounds__(kThreads) chain2aln_kernel(
           qe_f = ql;
           re_f = re0;
         }
-        int seedcov = 0;
-        for (int64_t t2 = 0; t2 < ns; ++t2) {
+        // seedcov: a warp sum over the chain's seeds
+        int cov = 0;
+        for (int64_t t2 = lane; t2 < ns; t2 += 32) {
           const int64_t* t = seed_rows + (so + t2) * 4;
           if (t[1] >= qb_f && t[1] + t[2] <= qe_f && t[0] >= rb_f &&
               t[0] + t[2] <= re_f)
-            seedcov += static_cast<int>(t[2]);
+            cov += static_cast<int>(t[2]);
         }
-        int64_t* pc = reg_c + (base + nreg) * 3;
-        int32_t* pi = reg_i + (base + nreg) * 8;
-        pc[0] = rb_f;
-        pc[1] = re_f;
-        pc[2] = cr[3];
-        pi[0] = qb_f;
-        pi[1] = qe_f;
-        pi[2] = score;
-        pi[3] = truesc;
-        pi[4] = aw0 > aw1 ? aw0 : aw1;
-        pi[5] = seedcov;
-        pi[6] = len;
-        pi[7] = static_cast<int32_t>(cr[0]);
+        const int seedcov = __reduce_add_sync(bwamem::kFullMask, cov);
+        if (lane == 0) {
+          int64_t* pc = reg_c + (base + nreg) * 3;
+          int32_t* pi = reg_i + (base + nreg) * 8;
+          pc[0] = rb_f;
+          pc[1] = re_f;
+          pc[2] = cr[3];
+          pi[0] = qb_f;
+          pi[1] = qe_f;
+          pi[2] = score;
+          pi[3] = truesc;
+          pi[4] = aw0 > aw1 ? aw0 : aw1;
+          pi[5] = seedcov;
+          pi[6] = len;
+          pi[7] = static_cast<int32_t>(cr[0]);
+        }
+        __syncwarp();
         ++nreg;
       }
     }
   }
-  nregs[b] = nreg;
-  for (int k = 0; k < 6; ++k) work_out[b * 6 + k] = work[k];
+  if (lane == 0) {
+    nregs[b] = nreg;
+    for (int k = 0; k < 6; ++k) work_out[b * 6 + k] = work[k];
+  }
+}
+
+// A warp per read, on a persistent grid: warps take reads in `order` (the
+// heaviest first) from a global counter until none is left.
+__global__ void __launch_bounds__(kThreads) chain2aln_kernel(
+    const int64_t* __restrict__ chain_rows,      // [Nc, 7]
+    const int64_t* __restrict__ seed_rows,       // [Ns, 4]
+    const int64_t* __restrict__ chain_off,       // [B] first chain of the read
+    const int64_t* __restrict__ n_chain,         // [B]
+    const int64_t* __restrict__ seed_off,        // [B] first seed row of the read
+    const int64_t* __restrict__ n_seed,          // [B]
+    const int64_t* __restrict__ chain_seed_off,  // [Nc]
+    const int64_t* __restrict__ rmax,            // [Nc, 2]
+    const int32_t* __restrict__ srt,             // [Ns]
+    uint8_t* __restrict__ alive,                 // [Ns] scratch, by srt position
+    const uint8_t* __restrict__ run,             // [B]
+    const uint8_t* __restrict__ qseq, int64_t ldq,  // [B, ldq] codes 0-4
+    const int32_t* __restrict__ qlen, int B,
+    int Q,  // the longest read of run, which sizes the warp's slice
+    const uint8_t* __restrict__ pac, int64_t l_pac,
+    const int32_t* __restrict__ mat, Opts o, int64_t t_cap,
+    const int32_t* __restrict__ order,  // [B] reads, heaviest first
+    int32_t* __restrict__ next,         // [1] the next position of order
+    int64_t* __restrict__ reg_c,  // [Ns, 3] rb re frac_rep bits
+    int32_t* __restrict__ reg_i,  // [Ns, 8] qb qe score truesc w seedcov seedlen0 rid
+    int32_t* __restrict__ nregs,  // [B]
+    int64_t* __restrict__ work_out,  // [B, 6]
+    int32_t* __restrict__ err) {
+  extern __shared__ int32_t slices[];
+  __shared__ uint32_t sprof[10];
+  bwamem::pack_scores(mat, sprof);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  int32_t* H = slices + (threadIdx.x >> 5) * slice_words(Q);
+  int32_t* E = H + Q + 1;
+  uint8_t* qs = reinterpret_cast<uint8_t*>(E + Q + 1);
+  for (;;) {
+    int r = 0;
+    if (lane == 0) r = atomicAdd(next, 1);
+    r = __shfl_sync(bwamem::kFullMask, r, 0);
+    if (r >= B) break;
+    chain2aln_read(order[r], chain_rows, seed_rows, chain_off, n_chain,
+                   seed_off, n_seed, chain_seed_off, rmax, srt, alive, run,
+                   qseq, ldq, qlen, pac, l_pac, sprof, o, t_cap, H, E, qs,
+                   reg_c, reg_i, nregs, work_out, err);
+  }
 }
 
 __global__ void band_width_kernel(const int32_t* __restrict__ qlen,
@@ -396,6 +460,15 @@ __global__ void band_width_kernel(const int32_t* __restrict__ qlen,
   if (i < n)
     out[i] = bwamem::ksw_band_width(qlen[i], w[i], end_bonus[i], max_sc, o_del,
                                     e_del, o_ins, e_ins);
+}
+
+// The loop kernel's dynamic shared memory a block for reads of up to Q
+// bases, allowed past the default 48 KB.
+cudaError_t allow_loop_smem(int Q, size_t* bytes) {
+  *bytes = sizeof(int32_t) * kWarps * slice_words(Q);
+  return cudaFuncSetAttribute(chain2aln_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*bytes));
 }
 
 }  // namespace
@@ -429,19 +502,67 @@ extern "C" int bwamem_chain2aln_launch(
     const uint8_t* qseq, int64_t ldq, const int32_t* qlen, int B, int Q,
     const uint8_t* pac, int64_t l_pac, const int32_t* mat, int a, int o_del,
     int e_del, int o_ins, int e_ins, int zdrop, int w, int pen_clip5,
-    int pen_clip3, int max_sc, int64_t t_cap, int32_t* eh, int64_t* reg_c,
-    int32_t* reg_i, int32_t* nregs, int64_t* work, int32_t* err,
-    cudaStream_t stream) {
+    int pen_clip3, int max_sc, int64_t t_cap, const int32_t* order,
+    int32_t* next, int64_t* reg_c, int32_t* reg_i, int32_t* nregs,
+    int64_t* work, int32_t* err, cudaStream_t stream) {
   if (B <= 0) return 0;
   const Opts o{a, o_del, e_del, o_ins, e_ins, zdrop, w, pen_clip5, pen_clip3,
                max_sc};
-  int32_t* eh_e = eh + static_cast<int64_t>(Q + 1) * B;
-  const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
-  chain2aln_kernel<<<blocks, kThreads, 0, stream>>>(
+  size_t smem = 0;
+  cudaError_t rc = allow_loop_smem(Q, &smem);
+  if (rc != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(rc);
+  }
+  // a persistent grid: as many blocks as fit on the card at once
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain2aln_kernel,
+                                                kThreads, smem);
+  const int64_t need = (static_cast<int64_t>(B) + kWarps - 1) / kWarps;
+  const int64_t fit = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
+  rc = cudaMemsetAsync(next, 0, sizeof(int32_t), stream);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  chain2aln_kernel<<<static_cast<unsigned>(need < fit ? need : fit), kThreads,
+                     smem, stream>>>(
       chain_rows, seed_rows, chain_off, n_chain, seed_off, n_seed,
       chain_seed_off, rmax, srt, alive, run, qseq, ldq, qlen, B, Q, pac, l_pac,
-      mat, o, t_cap, eh, eh_e, reg_c, reg_i, nregs, work, err);
+      mat, o, t_cap, order, next, reg_c, reg_i, nregs, work, err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Warps of chain2aln_kernel resident on one SM for reads of up to Q bases
+// (the occupancy calculator's figure).
+extern "C" int bwamem_chain2aln_warps_per_sm(int Q) {
+  size_t smem = 0;
+  int per_sm = 0;
+  if (allow_loop_smem(Q, &smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, chain2aln_kernel, kThreads, smem) != cudaSuccess) {
+    cudaGetLastError();  // a refused size is no error of a later launch
+    return -1;
+  }
+  return per_sm * kWarps;
+}
+
+// The longest read whose warp slices fit a block on the current card: the
+// dynamic shared memory plus the kernel's static shared memory within what
+// the card allows a block (cudaFuncSetAttribute refuses more); -1 on error.
+extern "C" int bwamem_chain2aln_max_qlen() {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&fa, chain2aln_kernel) != cudaSuccess)
+    return -1;
+  const int64_t words =
+      (static_cast<int64_t>(optin) - static_cast<int64_t>(fa.sharedSizeBytes)) /
+      static_cast<int64_t>(sizeof(int32_t) * kWarps);
+  int Q = static_cast<int>(words / 2);  // slice_words(Q) > 2 Q
+  while (Q > 0 && slice_words(Q) > words) --Q;
+  return Q;
 }
 
 extern "C" int bwamem_band_width_launch(

@@ -143,4 +143,83 @@ __device__ __forceinline__ bool bwt_extend(const Fm& fm, int64_t x0,
   return ok;
 }
 
+// The four counts of one char word among a line's first nchars chars,
+// packed two to a u32 (16-bit fields: a line's count of a symbol is at most
+// its span, 512 at most here).
+__device__ __forceinline__ void count4_packed(uint32_t x, uint32_t keep,
+                                              uint32_t* c01, uint32_t* c23) {
+  const uint32_t hi = (x >> 1) & kM55, lo = x & kM55;
+  const uint32_t nhi = hi ^ kM55, nlo = lo ^ kM55;
+  *c01 += __popc(nhi & nlo & keep) | (__popc(nhi & lo & keep) << 16);
+  *c23 += __popc(hi & nlo & keep) | (__popc(hi & lo & keep) << 16);
+}
+
+// bwt_extend on the 32 lanes of a warp: the same contract as `bwt_extend`,
+// every lane calling it with the same interval and getting the same result.
+// The two rank queries (rows ka and kb) are one round of loads: lane l reads
+// char word l of the words of both lines laid end to end (one line when ka
+// and kb share it; lanes loop when there are more than 32 words) and every
+// lane reads the two lines' four counts (broadcasts), so the query costs
+// one memory latency instead of two chains of word loads.  The per-lane
+// counts are packed two to a u32 and summed by four warp reductions.
+__device__ __forceinline__ bool bwt_extend_warp(const Fm& fm, int64_t x0,
+                                                int64_t x1, int64_t s,
+                                                bool is_back, int64_t ox0[4],
+                                                int64_t ox1[4], int sz[4]) {
+  const int lane = threadIdx.x & 31;
+  const int64_t xq = is_back ? x0 : x1;
+  const int64_t xo = is_back ? x1 : x0;
+  const int64_t ka = xq - 1, kb = xq - 1 + s;
+  int tk[4] = {0, 0, 0, 0}, tl[4] = {0, 0, 0, 0};
+  const bool ok = ka >= -1 && ka <= fm.seq_len && kb >= -1 && kb <= fm.seq_len;
+  if (ok) {
+    // rows -1 and seq_len need no line: no counts, and the full counts
+    const bool need_a = ka != -1 && ka != fm.seq_len;
+    const bool need_b = kb != -1 && kb != fm.seq_len;
+    int wa = 0, wb = 0;
+    const uint32_t* la = need_a ? fm_line(fm, ka, &wa) : nullptr;
+    const uint32_t* lb = need_b ? fm_line(fm, kb, &wb) : nullptr;
+    const bool two = need_a && need_b && la != lb;
+    const uint32_t* l0 = need_a ? la : lb;
+    const int nw = fm.W - 4;
+    const int total = need_a || need_b ? (two ? 2 * nw : nw) : 0;
+    uint32_t a01 = 0, a23 = 0, b01 = 0, b23 = 0;
+    for (int w0 = 0; w0 < total; w0 += 32) {
+      const int idx = w0 + lane;
+      if (idx < total) {
+        const bool second = two && idx >= nw;
+        const int w = second ? idx - nw : idx;
+        const uint32_t x = (second ? lb : l0)[4 + w];
+        if (need_a && !second) count4_packed(x, keep_mask(wa, w), &a01, &a23);
+        if (need_b && (second || !two))
+          count4_packed(x, keep_mask(wb, w), &b01, &b23);
+      }
+    }
+    a01 = __reduce_add_sync(0xffffffffu, a01);
+    a23 = __reduce_add_sync(0xffffffffu, a23);
+    b01 = __reduce_add_sync(0xffffffffu, b01);
+    b23 = __reduce_add_sync(0xffffffffu, b23);
+    const uint32_t pa[4] = {a01 & 0xffffu, a01 >> 16, a23 & 0xffffu, a23 >> 16};
+    const uint32_t pb[4] = {b01 & 0xffffu, b01 >> 16, b23 & 0xffffu, b23 >> 16};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int full = static_cast<int>(fm.L2[c + 1] - fm.L2[c]);
+      tk[c] = need_a ? static_cast<int>(la[c] + pa[c]) : (ka == -1 ? 0 : full);
+      tl[c] = need_b ? static_cast<int>(lb[c] + pb[c]) : (kb == -1 ? 0 : full);
+    }
+  }
+  int64_t* q = is_back ? ox0 : ox1;  // queried side
+  int64_t* o = is_back ? ox1 : ox0;  // co-interval side
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    q[c] = fm.L2[c] + 1 + tk[c];
+    sz[c] = tl[c] - tk[c];
+  }
+  o[3] = xo + (xq <= fm.primary && xq + s - 1 >= fm.primary);
+  o[2] = o[3] + sz[3];
+  o[1] = o[2] + sz[2];
+  o[0] = o[1] + sz[1];
+  return ok;
+}
+
 }  // namespace bwamem_fm

@@ -14,7 +14,11 @@ chain is rebuilt in Python and no extension wave passes through
 Reads that leave it, by the reference's budget rule: reads seeded on the host
 (flagged by the K or M budget), reads flagged by the C budget, and reads for
 which mem_flt_chained_seeds would act (``fcs_noop`` false: about 700 bases
-and longer at default options).  They go, as one sub-batch, through the
+and longer at default options); and, by the port's own limit, reads longer
+than the loop kernel runs (``ops.pipeline_fused.kernel_max_qlen``: about
+3,200 bases on an H100, which only options such as a large
+``min_chain_weight`` keep past the first rule).  They go, as one sub-batch,
+through the
 staged path (host chaining, ``flt_chained_seeds``, ``chain2aln_batch``) and
 are spliced in read order.  That is not a device fallback: a failed build,
 launch or kernel flag raises.  The JAX package's further budgets (S = 64
@@ -53,8 +57,9 @@ REF_L_BUCKETS = (64, 192, 512)
 
 class FusedStats:
     """Reads that stayed on the fused path and reads that took the staged
-    one, by cause (seeded on the host, flagged by C, ``fcs`` active; a read
-    counts under its first cause in that order), the kernels launched, the
+    one, by cause (seeded on the host, flagged by C, ``fcs`` active, longer
+    than the loop kernel runs; a read counts under its first cause in that
+    order), the kernels launched, the
     tasks extended and pruned and the extension jobs run by the loop kernel,
     host-clock seconds by step, the reads the JAX package's budgets would
     have flagged (S, then C, then R, then the window; each read once), and,
@@ -70,6 +75,7 @@ class FusedStats:
         self.host_seeded = 0
         self.c_overflows = 0
         self.fcs_reads = 0
+        self.long_reads = 0
         self.launches = 0
         self.tasks = 0
         self.pruned = 0
@@ -166,7 +172,8 @@ def regs_batch_fused(opt: MemOptions, eng, reads: List[np.ndarray],
     t2 = clock()
     noop = {q: fcs_noop(opt, q) for q in set(qlens.tolist())}
     fcs_ok = np.asarray([noop[q] for q in qlens.tolist()], dtype=bool)
-    run = torch.from_numpy(fcs_ok & ~seeds.on_host).to(dev) & ~chains.ovf
+    fits = qlens <= fusedops.kernel_max_qlen(torch.tensor(opt.mat), dev)
+    run = torch.from_numpy(fcs_ok & fits & ~seeds.on_host).to(dev) & ~chains.ovf
     args = (ctg, device_ref(eng.idx, dev), chains, seeds.qseq, seeds.qlen, run,
             fusedops.ExtendParams.from_opt(opt), device_scoring(opt, dev).mat,
             ref_t_cap(opt, int(qlens.max())))
@@ -187,7 +194,7 @@ def regs_batch_fused(opt: MemOptions, eng, reads: List[np.ndarray],
     tasks, pruned, jobs, ref_t = meta[4:8]
     out = _regs_from_rows(flat[8 * n:].reshape(-1, 11), nregs)
     t4 = clock()
-    staged = np.flatnonzero(seeds.on_host | ovf | ~fcs_ok)
+    staged = np.flatnonzero(seeds.on_host | ovf | ~fcs_ok | ~fits)
     if staged.size:
         for i, r in zip(staged, _staged(opt, eng, reads, qlens, staged,
                                         seeds.on_host, tab, host, host_tab,
@@ -201,6 +208,7 @@ def regs_batch_fused(opt: MemOptions, eng, reads: List[np.ndarray],
     st.host_seeded += int(seeds.on_host.sum())
     st.c_overflows += int((ovf & ~seeds.on_host).sum())
     st.fcs_reads += int((~fcs_ok & ~ovf & ~seeds.on_host).sum())
+    st.long_reads += int((~fits & fcs_ok & ~ovf & ~seeds.on_host).sum())
     st.tasks += int(tasks.sum())
     st.pruned += int(pruned.sum())
     st.jobs += int(jobs.sum())

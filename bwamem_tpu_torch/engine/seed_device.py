@@ -22,9 +22,9 @@ the reads that needed more than 24, the ones the JAX package seeds on the
 host.  The flat table and the SA rows are sized exactly, so the JAX
 package's whole-batch demotions (``R_cap``/``F_cap``) cannot happen.
 ``SEED_STATS`` counts the reads seeded on the device and on the host, the
-kernel launches and, as the collect_intv kernel counts them on the card, its
-smem1a, strategy1 and bwt_extend calls, the flagged reads by budget and the
-reads past the JAX package's K.
+kernel launches and, as the collect_intv kernel (or on the CPU its plain
+version) counts them, the smem1a, strategy1 and bwt_extend calls, the
+flagged reads by budget and the reads past the JAX package's K.
 """
 from __future__ import annotations
 
@@ -44,10 +44,11 @@ from .state import device_fm
 
 class SeedStats:
     """Reads seeded on the device, reads seeded on the host because they
-    overflowed a budget, the seeding kernels launched, and the device
-    functions the collect_intv kernel ran, the reads it flagged by budget
-    (K slots of an smem1a call, M accumulator slots) and the reads that
-    needed more than the JAX package's K_SLOTS, counted on the card only."""
+    overflowed a budget, the seeding kernels launched, and the seeding
+    calls the collect_intv kernel (or its plain version on the CPU) made,
+    the reads it flagged by budget (K slots of an smem1a call, M
+    accumulator slots) and the reads that needed more than the JAX
+    package's K_SLOTS."""
 
     def __init__(self):
         self.reset()

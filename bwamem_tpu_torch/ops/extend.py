@@ -57,9 +57,12 @@ def _first_true(m: torch.Tensor) -> torch.Tensor:
 
 def ksw_extend_torch(qseq, tseq, qlen, tlen, h0, w, end_bonus, mat,
                      o_del: int, e_del: int, o_ins: int, e_ins: int,
-                     zdrop: int, max_sc: int) -> Dict[str, torch.Tensor]:
+                     zdrop: int, max_sc: int,
+                     count: bool = False) -> Dict[str, torch.Tensor]:
     """Plain PyTorch ksw_extend2 over a batch; a line-for-line translation of
-    ``extend_tpu.ksw_extend_batch`` (row scan with early exit)."""
+    ``extend_tpu.ksw_extend_batch`` (row scan with early exit).  With
+    ``count`` the result also holds each job's target ``rows`` and band
+    ``cells`` walked (int64), counted as csrc/extend.cuh counts them."""
     dev = qseq.device
     i32 = torch.int32
     B, Q = qseq.shape
@@ -92,6 +95,8 @@ def ksw_extend_torch(qseq, tseq, qlen, tlen, h0, w, end_bonus, mat,
     max_off = torch.zeros(B, dtype=i32, device=dev)
     brow = torch.arange(B, device=dev)
     zcol = torch.zeros((B, 1), dtype=i32, device=dev)
+    rows = torch.zeros(B, dtype=torch.int64, device=dev)
+    cells = torch.zeros(B, dtype=torch.int64, device=dev)
 
     for i in range(T):
         if bool(done.all()):
@@ -126,6 +131,8 @@ def ksw_extend_torch(qseq, tseq, qlen, tlen, h0, w, end_bonus, mat,
         reaches = end_w == qlen
         h_last = (H_shift * qmask).sum(dim=1, dtype=i32)
         active = ~done & (i < tlen)
+        rows += active.long()
+        cells += torch.where(active, (end_w - beg_w).clamp(min=0), zero).long()
         upd_g = reaches & (gscore <= h_last) & active
         gscore = torch.where(upd_g, h_last, gscore)
         max_ie = torch.where(upd_g, i, max_ie)
@@ -155,8 +162,11 @@ def ksw_extend_torch(qseq, tseq, qlen, tlen, h0, w, end_bonus, mat,
         eh_e = torch.where(keep, eh_e2, eh_e)
         beg = torch.where(active, beg2, beg)
         end = torch.where(active, end2, end)
-    return dict(score=maxv, qle=max_j + 1, tle=max_i + 1, gtle=max_ie + 1,
-                gscore=gscore, max_off=max_off)
+    out = dict(score=maxv, qle=max_j + 1, tle=max_i + 1, gtle=max_ie + 1,
+               gscore=gscore, max_off=max_off)
+    if count:
+        out.update(rows=rows, cells=cells)
+    return out
 
 
 # ------------------------------------------------------------------ kernel

@@ -16,7 +16,8 @@ on the device.
   lie.
 * ``chain2aln_cuda`` launches the hand-written Hopper kernels of
   ``csrc/chain2aln.cu`` (a prep kernel, one thread per chain, and the loop
-  kernel, one thread per read).
+  kernel, one warp per read, a target row's band across the lanes; warps
+  take reads heaviest first, in the order ``read_order`` gives).
 * ``chain2aln`` dispatches on the device of its inputs.
 
 Semantics are the host oracle's, engine/extend.py ``chain2aln``.  The three
@@ -48,6 +49,10 @@ ERR_WINDOW = 1  # a seed outside its chain's window
 ERR_ROWS = 2  # a region past the read's rows
 ERR_CONTIG = 4  # a chain's first seed in no contig
 NO_T_CAP = 1 << 62
+# the loop kernel's limits (csrc/extend.cuh ksw_extend_warp): a column in 12
+# bits and every H below 2^19, for the packed (h, j) of a row's max
+MAX_QLEN = (1 << 12) - 1
+MAX_H = 1 << 19
 # columns of Regions.work
 W_TASKS, W_PRUNED, W_JOBS, W_REF_T, W_CELLS, W_ROWS = range(6)
 
@@ -81,7 +86,7 @@ class Regions(NamedTuple):
     seedlen0, rid), in the order the oracle appends them.  ``work`` [B, 6]
     int64 counts per read the tasks extended, the tasks pruned, the
     extension jobs, whether a task's window was longer than ``t_cap``, and
-    (the kernel only) the band cells and target rows walked."""
+    the band cells and target rows its extensions walked."""
 
     reg_c: torch.Tensor
     reg_i: torch.Tensor
@@ -196,7 +201,8 @@ def chain_windows(ctg: DeviceContigs, chains: Chains, lay: _Layout, qlen,
 def _retry(ext, ql, tl, h0, prev, p: ExtendParams):
     """MAX_BAND_TRY = 2: every job at ``w``; those whose score moved off
     ``prev`` and whose max_off reached 3/4 of the band again at ``2w``.
-    Returns the results and the band each job ended with."""
+    Returns the results (the rows and cells of both tries summed) and the
+    band each job ended with."""
     w0 = torch.full_like(ql, p.w)
     res = ext(slice(None), ql, tl, h0, w0)
     retry = ((res["score"] != prev)
@@ -205,7 +211,10 @@ def _retry(ext, ql, tl, h0, prev, p: ExtendParams):
     if retry.numel():
         again = ext(retry, ql[retry], tl[retry], h0[retry], w0[retry] << 1)
         for k in res:
-            res[k][retry] = again[k]
+            if k in ("rows", "cells"):
+                res[k][retry] += again[k]
+            else:
+                res[k][retry] = again[k]
         aw[retry] = p.w << 1
     return res, aw
 
@@ -298,7 +307,8 @@ def chain2aln_torch(ctg: DeviceContigs, ref: DeviceRef, chains: Chains, qseq,
             return ksw_extend_torch(
                 qa[sel], ta[sel], ql_.to(i32), tl_.to(i32), h0_.to(i32),
                 w_.to(i32), torch.full_like(ql_, bonus, dtype=i32), mat,
-                p.o_del, p.e_del, p.o_ins, p.e_ins, p.zdrop, p.max_sc)
+                p.o_del, p.e_del, p.o_ins, p.e_ins, p.zdrop, p.max_sc,
+                count=True)
 
         res, aw = _retry(ext, ql, tl, h0, prev, p)
         return {k: v.long() for k, v in res.items()}, aw
@@ -338,6 +348,8 @@ def chain2aln_torch(ctg: DeviceContigs, ref: DeviceRef, chains: Chains, qseq,
                 score[li], torch.full_like(li, -1), p.pen_clip5)
             work[cur[li], W_JOBS] += 1
             work[cur[li[aw0[li] > p.w]], W_JOBS] += 1
+            work[cur[li], W_CELLS] += res["cells"]
+            work[cur[li], W_ROWS] += res["rows"]
             loc = (res["gscore"] <= 0) | (res["gscore"] <= res["score"] - p.pen_clip5)
             score[li] = res["score"]
             qb_f[li] = torch.where(loc, qb[li] - res["qle"], 0)
@@ -354,6 +366,8 @@ def chain2aln_torch(ctg: DeviceContigs, ref: DeviceRef, chains: Chains, qseq,
                 ql[ri] - qe[ri], r1[c[ri]] - re0[ri], sc0, sc0, p.pen_clip3)
             work[cur[ri], W_JOBS] += 1
             work[cur[ri[aw1[ri] > p.w]], W_JOBS] += 1
+            work[cur[ri], W_CELLS] += res["cells"]
+            work[cur[ri], W_ROWS] += res["rows"]
             loc = (res["gscore"] <= 0) | (res["gscore"] <= res["score"] - p.pen_clip3)
             score[ri] = res["score"]
             qe_f[ri] = torch.where(loc, qe[ri] + res["qle"], ql[ri])
@@ -391,7 +405,11 @@ def _bind(lib):
         [p] * 5 + [i64] + [p, p, i32, i64] + opts + [p] * 4)
     lib.bwamem_chain2aln_launch.restype = ctypes.c_int
     lib.bwamem_chain2aln_launch.argtypes = (
-        [p] * 12 + [i64, p, i32, i32, p, i64, p] + opts + [i64] + [p] * 6 + [p])
+        [p] * 12 + [i64, p, i32, i32, p, i64, p] + opts + [i64] + [p] * 7 + [p])
+    lib.bwamem_chain2aln_warps_per_sm.restype = ctypes.c_int
+    lib.bwamem_chain2aln_warps_per_sm.argtypes = [i32]
+    lib.bwamem_chain2aln_max_qlen.restype = ctypes.c_int
+    lib.bwamem_chain2aln_max_qlen.argtypes = []
     lib.bwamem_band_width_launch.restype = ctypes.c_int
     lib.bwamem_band_width_launch.argtypes = [p, p, p, i32] + [i32] * 5 + [p, p]
 
@@ -436,22 +454,76 @@ def chain2aln_prep_launch(ctg, chains: Chains, lay: _Layout, qlen, p, rmax, srt,
         _stream(ctg.device)))
 
 
+def read_order(n_seed, qlen, run) -> torch.Tensor:
+    """The order in which the loop kernel's warps take the reads: heaviest
+    first by ``n_seed x qlen`` (reads left out of ``run`` last), int32 [B].
+    Scheduling only: no result depends on it."""
+    est = torch.where(run.bool(), n_seed.long() * qlen.long(), -1)
+    return torch.sort(est, descending=True, stable=True).indices.to(torch.int32)
+
+
+def kernel_max_qlen(mat, device) -> int:
+    """The longest read that the loop kernel runs on ``device`` with the
+    scores ``mat``: ``MAX_QLEN`` bases, (qlen + 1) x the largest score below
+    ``MAX_H`` (every H of a job lies below it), and on a card the warps'
+    slices of shared memory within what the card allows a block.  Raises
+    for scores outside [-128, 127] (int8, as the host ksw takes them).  The
+    plain version has no such limit; ``regs_batch_fused`` sends longer reads
+    to the staged path, whichever device runs it."""
+    lo, hi = int(mat.min()), int(mat.max())
+    if lo < -128 or hi > 127:
+        raise ValueError("chain2aln: the loop kernel takes scores in [-128, 127]")
+    Q = min(MAX_QLEN, (MAX_H - 1) // max(hi, 1) - 1)
+    device = torch.device(device)
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            fit = int(_lib().bwamem_chain2aln_max_qlen())
+        if fit < 0:
+            raise RuntimeError("chain2aln: could not read the card's shared "
+                               "memory a block")
+        Q = min(Q, fit)
+    return Q
+
+
+def kernel_query_len(qlen, run, mat) -> int:
+    """The longest read that the loop kernel runs (its shared memory is
+    sized from it), after checking it against ``kernel_max_qlen`` on the
+    reads' device.  One copy to the host."""
+    Q = int(torch.where(run.bool(), qlen.long(), 0).max())
+    limit = kernel_max_qlen(mat, qlen.device)
+    if Q > limit:
+        raise ValueError(f"chain2aln: a read of {Q} bases exceeds the loop "
+                         f"kernel's limit of {limit} bases here")
+    return Q
+
+
 def chain2aln_launch(ref, chains: Chains, lay: _Layout, n_chain, n_seed,
                      chain_off, seed_off, rmax, srt, alive, run, qseq, qlen,
-                     mat, p, t_cap, eh, reg_c, reg_i, nregs, work, err):
+                     mat, p, t_cap, order, Q, reg_c, reg_i, nregs, work, err):
     """The loop kernel on the reads of the per-read operands (``n_chain``,
     ``n_seed``, ``chain_off``, ``seed_off``, ``run`` uint8, ``qseq``,
-    ``qlen``, all of one length B; ``eh`` int32 [2, L + 1, B] scratch)."""
-    B, L = qseq.shape
+    ``qlen``, all of one length B), the warps taking them in ``order``
+    (int32 [B], ``read_order``); ``Q`` (``kernel_query_len``) bounds the
+    reads it runs."""
+    B = qseq.shape[0]
+    # the warps' read counter, which the launcher zeroes
+    nxt = torch.empty(1, dtype=torch.int32, device=qseq.device)
     _launched("chain2aln", _lib().bwamem_chain2aln_launch(
         chains.chain_rows.data_ptr(), chains.seed_rows.data_ptr(),
         chain_off.data_ptr(), n_chain.data_ptr(), seed_off.data_ptr(),
         n_seed.data_ptr(), lay.chain_seed_off.data_ptr(), rmax.data_ptr(),
         srt.data_ptr(), alive.data_ptr(), run.data_ptr(), qseq.data_ptr(),
-        qseq.stride(0), qlen.data_ptr(), B, L, ref.pac.data_ptr(), ref.l_pac,
-        mat.data_ptr(), *_opts(p), t_cap, eh.data_ptr(), reg_c.data_ptr(),
-        reg_i.data_ptr(), nregs.data_ptr(), work.data_ptr(), err.data_ptr(),
-        _stream(qseq.device)))
+        qseq.stride(0), qlen.data_ptr(), B, Q, ref.pac.data_ptr(), ref.l_pac,
+        mat.data_ptr(), *_opts(p), t_cap, order.data_ptr(), nxt.data_ptr(),
+        reg_c.data_ptr(), reg_i.data_ptr(), nregs.data_ptr(), work.data_ptr(),
+        err.data_ptr(), _stream(qseq.device)))
+
+
+def warps_per_sm(Q: int) -> int:
+    """Warps of the loop kernel resident on one SM when it runs reads of up
+    to ``Q`` bases (the CUDA occupancy calculator's figure); -1 when the
+    card refuses the shared memory that takes."""
+    return int(_lib().bwamem_chain2aln_warps_per_sm(Q))
 
 
 def prepare(ctg: DeviceContigs, ref: DeviceRef, chains: Chains, qseq, qlen, run):
@@ -489,7 +561,7 @@ def chain2aln_cuda(ctg: DeviceContigs, ref: DeviceRef, chains: Chains, qseq,
     chains, lay, qseq, qlen, run = prepare(ctg, ref, chains, qseq, qlen, run)
     dev = ctg.device
     i32, i64 = torch.int32, torch.int64
-    B, L = qseq.shape
+    B = qseq.shape[0]
     Nc, Ns = chains.chain_rows.shape[0], chains.seed_rows.shape[0]
     reg_c = torch.zeros((Ns, 3), dtype=i64, device=dev)
     reg_i = torch.zeros((Ns, 8), dtype=i32, device=dev)
@@ -500,15 +572,17 @@ def chain2aln_cuda(ctg: DeviceContigs, ref: DeviceRef, chains: Chains, qseq,
     rmax = torch.empty((Nc, 2), dtype=i64, device=dev)
     srt = torch.empty(Ns, dtype=i32, device=dev)
     alive = torch.empty(Ns, dtype=torch.uint8, device=dev)
-    eh = torch.empty((2, L + 1, B), dtype=i32, device=dev)
     err = torch.zeros(1, dtype=i32, device=dev)
     mat = mat.to(i32).contiguous()
     if mat.numel() != 25 or mat.device != dev:
         raise ValueError("mat must be [5, 5] on the card")
+    Q = kernel_query_len(qlen, run, mat)
     chain2aln_prep_launch(ctg, chains, lay, qlen, params, rmax, srt, err)
     chain2aln_launch(ref, chains, lay, chains.n_chain, chains.n_seed,
                      lay.chain_off, lay.seed_off, rmax, srt, alive, run, qseq,
-                     qlen, mat, params, t_cap, eh, reg_c, reg_i, nregs, work, err)
+                     qlen, mat, params, t_cap,
+                     read_order(chains.n_seed, qlen, run), Q, reg_c, reg_i,
+                     nregs, work, err)
     raise_flags(int(err.item()))
     return Regions(reg_c, reg_i, nregs, lay.seed_off, work)
 

@@ -12,7 +12,10 @@ ops/seed_tpu.py ``strategy1_body`` and ops/seed_fused.py ``seed_sa_core``:
   wherever their tensors lie.
 * ``smem1a_cuda``, ``strategy1_cuda``, ``collect_intv_cuda`` and
   ``sample_ks_cuda`` launch the hand-written Hopper kernels of
-  ``csrc/seed.cu``: one thread per lane (per read in ``collect_intv``).
+  ``csrc/seed.cu``: one warp per lane (per read in ``collect_intv``),
+  each rank query of a serial step spread over the lanes, each backward
+  step's intervals a lane each.  ``collect_intv_torch`` and the kernel both
+  fill a ``work`` table of what each read's seeding cost.
 * ``smem1a``, ``strategy1``, ``collect_intv`` and ``sample_ks`` dispatch on
   the device of their inputs: CPU tensors go to the plain version, CUDA
   tensors to the kernel.
@@ -25,11 +28,11 @@ Budgets follow the JAX package's rules: at most K forward snapshots and K
 SMEMs per ``smem1a`` call, at most M intervals per read.  A read past either
 is flagged (``ovf``) and stops there; its rows are unspecified and its
 caller seeds it on the host.  K and M are run-time arguments, by default
-``K_MAX`` and the JAX package's ``M_SLOTS``, the sizes of the kernels'
-stacks.  K = ``K_MAX`` never overflows on reads of up to ``K_MAX`` bases
-(one snapshot or SMEM per base at most); the JAX package's ``K_SLOTS``
-(24) is passed where its flags are to be matched.  The JAX
-package's TPU workarounds (the 8/16-slot split, the log-step candidate
+``K_MAX`` and the JAX package's ``M_SLOTS``, their upper limits (the
+kernels size each warp's stacks from them).  K = ``K_MAX`` never overflows
+on reads of up to ``K_MAX`` bases (one snapshot or SMEM per base at most);
+the JAX package's ``K_SLOTS`` (24) is passed where its flags are to be
+matched.  The JAX package's TPU workarounds (the 8/16-slot split, the log-step candidate
 scan, one-hot compactions, the round-1 lane ladder, ``qb<<16|qe`` packing,
 ``R_cap``/``F_cap``) are not carried over: the flat table and the SA rows
 are sized exactly.
@@ -150,6 +153,14 @@ def smem1a_torch(dfm: DeviceFMIndex, qseq, qlen, x, min_intv,
     interval ``min_intv`` [B] on each read of ``qseq`` [B, L], with the
     K budget; lanes with x >= qlen or an ambiguous base at x yield nothing
     and ret = x + 1."""
+    return _smem1a_work(dfm, qseq, qlen, x, min_intv, K)[0]
+
+
+def _smem1a_work(dfm: DeviceFMIndex, qseq, qlen, x, min_intv, K: int):
+    """``smem1a_torch`` and, per lane, what the kernel's walk counts: its
+    bwt_extend calls (the intervals it extended; an overflowing emission
+    stops the walk after prev[0]) and the most K slots it needed (its
+    snapshots, its SMEMs, K + 1 when an SMEM overflowed)."""
     _check_budget(K=K)
     dev = qseq.device
     q = qseq.long()
@@ -164,9 +175,12 @@ def smem1a_torch(dfm: DeviceFMIndex, qseq, qlen, x, min_intv,
     cnt = torch.zeros(B, dtype=torch.long, device=dev)
     ret = x + 1
     ovf = torch.zeros(B, dtype=torch.bool, device=dev)
+    n_ext = torch.zeros(B, dtype=torch.long, device=dev)
+    n_snap = torch.zeros(B, dtype=torch.long, device=dev)
 
     def snapshot(lanes):
         ret[lanes] = ik[lanes, 3]
+        n_snap[lanes] += 1
         room = cnt[lanes] < K
         ovf[lanes[~room]] = True
         w = lanes[room]
@@ -187,6 +201,7 @@ def smem1a_torch(dfm: DeviceFMIndex, qseq, qlen, x, min_intv,
         ci = 3 - c[~stop]
         cur = ik[gi]
         ox0, ox1, sz = extend_torch(dfm, cur[:, 0], cur[:, 1], cur[:, 2], False)
+        n_ext[gi] += 1
         r = torch.arange(gi.numel(), device=dev)
         nxt = torch.stack([ox0[r, ci], ox1[r, ci], sz[r, ci].long(),
                            p[~stop] + 1], dim=1)
@@ -206,6 +221,7 @@ def smem1a_torch(dfm: DeviceFMIndex, qseq, qlen, x, min_intv,
     mems = torch.zeros((B, K, 5), dtype=torch.long, device=dev)
     m_cnt = torch.zeros(B, dtype=torch.long, device=dev)
     last_qb = torch.zeros(B, dtype=torch.long, device=dev)
+    peak = n_snap.clone()
     live = ok0 & ~ovf
     t = 0
     while True:
@@ -233,6 +249,7 @@ def smem1a_torch(dfm: DeviceFMIndex, qseq, qlen, x, min_intv,
         cand = slot & ~dead
         curr = torch.zeros((nl, K, 4), dtype=torch.long, device=dev)
         n_curr = torch.zeros(nl, dtype=torch.long, device=dev)
+        stopped = torch.zeros(nl, dtype=torch.bool, device=dev)
         for jj in range(W):
             # the first dying interval before any survivor emits an SMEM,
             # if it starts left of the last one emitted
@@ -242,6 +259,8 @@ def smem1a_torch(dfm: DeviceFMIndex, qseq, qlen, x, min_intv,
                 el = idx[e]
                 full = m_cnt[el] >= K
                 ovf[el[full]] = True
+                stopped[e[full]] = True
+                peak[el[full]] = torch.maximum(peak[el[full]], m_cnt[el[full]] + 1)
                 e, el = e[~full], el[~full]
                 pv = P[e, jj]
                 mems[el, m_cnt[el]] = torch.stack(
@@ -253,20 +272,29 @@ def smem1a_torch(dfm: DeviceFMIndex, qseq, qlen, x, min_intv,
             k = _lanes(cand[:, jj] & ((n_curr == 0) | (ext[:, jj, 2] != last_s)))
             curr[k, n_curr[k]] = torch.cat([ext[k, jj], P[k, jj, 3:]], dim=1)
             n_curr[k] += 1
+        n_ext[idx] += torch.where(have, torch.where(stopped, 1, n_prev[idx]), 0)
         prev[idx] = curr
         n_prev[idx] = n_curr
         live[idx] = (n_curr > 0) & ~ovf[idx]
         t += 1
+    peak = torch.where(ovf, peak, torch.maximum(peak, m_cnt))
     mems[ovf] = 0
     m_cnt[ovf] = 0
     i32 = torch.int32
     return Smem1a(ret.to(i32), mems[..., 0], mems[..., 1], mems[..., 2].to(i32),
-                  mems[..., 3].to(i32), mems[..., 4].to(i32), m_cnt.to(i32), ovf)
+                  mems[..., 3].to(i32), mems[..., 4].to(i32), m_cnt.to(i32),
+                  ovf), n_ext, peak
 
 
 def strategy1_torch(dfm: DeviceFMIndex, qseq, qlen, x, min_len: int,
                     max_intv: int) -> Strategy1:
     """bwt_seed_strategy1 from start ``x`` [B] on each read of ``qseq``."""
+    return _strategy1_work(dfm, qseq, qlen, x, min_len, max_intv)[0]
+
+
+def _strategy1_work(dfm: DeviceFMIndex, qseq, qlen, x, min_len: int,
+                    max_intv: int):
+    """``strategy1_torch`` and each lane's bwt_extend calls."""
     dev = qseq.device
     q = qseq.long()
     B, L = q.shape
@@ -277,6 +305,7 @@ def strategy1_torch(dfm: DeviceFMIndex, qseq, qlen, x, min_len: int,
     hit = torch.zeros((B, 4), dtype=torch.long, device=dev)  # x0, x1, s, qe
     found = torch.zeros(B, dtype=torch.bool, device=dev)
     nxt = x + 1
+    n_ext = torch.zeros(B, dtype=torch.long, device=dev)
     alive = (c0 <= 3) & (x < qlen)
     t = 0
     while True:
@@ -293,6 +322,7 @@ def strategy1_torch(dfm: DeviceFMIndex, qseq, qlen, x, min_len: int,
         ci = 3 - c[go]
         cur = ik[gi]
         ox0, ox1, sz = extend_torch(dfm, cur[:, 0], cur[:, 1], cur[:, 2], False)
+        n_ext[gi] += 1
         r = torch.arange(gi.numel(), device=dev)
         nx = torch.stack([ox0[r, ci], ox1[r, ci], sz[r, ci].long()], dim=1)
         h = (nx[:, 2] < max_intv) & (pg - x[gi] >= min_len)
@@ -305,15 +335,16 @@ def strategy1_torch(dfm: DeviceFMIndex, qseq, qlen, x, min_len: int,
         t += 1
     i32 = torch.int32
     return Strategy1(found, hit[:, 0], hit[:, 1], hit[:, 2].to(i32), x.to(i32),
-                     hit[:, 3].to(i32), nxt.to(i32))
+                     hit[:, 3].to(i32), nxt.to(i32)), n_ext
 
 
 def collect_intv_torch(dfm: DeviceFMIndex, qseq, qlen, params: SeedParams,
-                       M: int = M_SLOTS, K: int = K_MAX) -> Intervals:
+                       M: int = M_SLOTS, K: int = K_MAX, work=None) -> Intervals:
     """mem_collect_intv on each read of ``qseq`` [B, L] (``qlen`` [B]):
     round 1 all SMEMs, round 2 re-seeding of round 1's long low-occurrence
     SMEMs, round 3 strategy-1 seeds, into M slots per read (K slots per
-    smem1a call), then the stable (qb, qe) sort."""
+    smem1a call), then the stable (qb, qe) sort.  Given ``work`` ([B, 5]
+    int32), fills it as the kernel does (``collect_intv_launch``)."""
     _check_budget(M, K)
     dev = qseq.device
     B, L = qseq.shape
@@ -321,18 +352,27 @@ def collect_intv_torch(dfm: DeviceFMIndex, qseq, qlen, params: SeedParams,
     acc = torch.zeros((B, M, 5), dtype=torch.long, device=dev)
     n = torch.zeros(B, dtype=torch.long, device=dev)
     ovf = torch.zeros(B, dtype=torch.bool, device=dev)
+    # smem1a calls, strategy1 calls, bwt_extend calls, cause, peak K slots
+    wk = torch.zeros((B, 5), dtype=torch.long, device=dev)
     marr = torch.arange(M, device=dev)
 
     def append(lanes, vals):  # distinct lanes, one row each
         room = n[lanes] < M
         ovf[lanes[~room]] = True
+        wk[lanes[~room], 3] = 2
         w = lanes[room]
         acc[w, n[w]] = vals[room]
         n[w] += 1
 
-    def append_wave(lanes, out: Smem1a):
+    def smem_call(lanes, x, min_intv):
+        out, n_ext, peak = _smem1a_work(dfm, qseq[lanes], qlen[lanes], x,
+                                        min_intv, K)
+        wk[lanes, 0] += 1
+        wk[lanes, 2] += n_ext
+        wk[lanes, 4] = torch.maximum(wk[lanes, 4], peak)
         # the SMEMs in ascending qb, those of min_seed_len or longer
         ovf[lanes[out.ovf]] = True
+        wk[lanes[out.ovf], 3] = 1
         for k in range(int(out.m_cnt.max()) if lanes.numel() else 0):
             src = (out.m_cnt.long() - 1 - k).clamp(min=0)
             r = torch.arange(lanes.numel(), device=dev)
@@ -340,6 +380,7 @@ def collect_intv_torch(dfm: DeviceFMIndex, qseq, qlen, params: SeedParams,
                                out.qb[r, src].long(), out.qe[r, src].long()], dim=1)
             keep = (out.m_cnt > k) & (row[:, 4] - row[:, 3] >= params.min_seed_len)
             append(lanes[keep], row[keep])
+        return out
 
     def busy(x):
         return _lanes((x < qlen) & ~ovf)
@@ -347,9 +388,7 @@ def collect_intv_torch(dfm: DeviceFMIndex, qseq, qlen, params: SeedParams,
     # round 1: all SMEMs, one call per start and read
     x = torch.zeros(B, dtype=torch.long, device=dev)
     while (act := busy(x)).numel():
-        out = smem1a_torch(dfm, qseq[act], qlen[act], x[act],
-                           torch.ones_like(act), K)
-        append_wave(act, out)
+        out = smem_call(act, x[act], torch.ones_like(act))
         x[act] = out.ret.long()
     # round 2: round 1's SMEMs in accumulator order, the qualifying ones
     # re-seeded from their middle
@@ -363,20 +402,22 @@ def collect_intv_torch(dfm: DeviceFMIndex, qseq, qlen, params: SeedParams,
             break
         j = todo[act].to(torch.int8).argmax(dim=1)
         p = acc[act, j]
-        out = smem1a_torch(dfm, qseq[act], qlen[act], (p[:, 3] + p[:, 4]) >> 1,
-                           p[:, 2] + 1, K)
-        append_wave(act, out)
+        smem_call(act, (p[:, 3] + p[:, 4]) >> 1, p[:, 2] + 1)
         jc[act] = j + 1
     # round 3: LAST-like strategy-1 seeds, one call per start and read
     if params.max_mem_intv > 0:
         x = torch.zeros(B, dtype=torch.long, device=dev)
         while (act := busy(x)).numel():
-            h = strategy1_torch(dfm, qseq[act], qlen[act], x[act],
-                                params.min_seed_len, params.max_mem_intv)
+            h, n_ext = _strategy1_work(dfm, qseq[act], qlen[act], x[act],
+                                       params.min_seed_len, params.max_mem_intv)
+            wk[act, 1] += 1
+            wk[act, 2] += n_ext
             app = h.found & (h.s > 0)
             row = torch.stack([h.x0, h.x1, h.s.long(), x[act], h.qe.long()], dim=1)
             append(act[app], row[app])
             x[act] = h.nxt.long()
+    if work is not None:
+        work.copy_(wk)
     # stable sort by (qb, qe), as the oracle's list.sort
     valid = marr < n[:, None]
     key = torch.where(valid, acc[:, :, 3] * (L + 1) + acc[:, :, 4],
@@ -426,6 +467,7 @@ def _bind(lib):
         ("bwamem_seed_collect_intv_launch",
          fm + q + [i32, i32, i32, i64, i64, i64, i32, i32, p, p, p, p, p, p, p]),
         ("bwamem_seed_sample_ks_launch", [p, i32, p, p, p, i32, i64, p, p, p]),
+        ("bwamem_seed_collect_intv_warps_per_sm", [i32, i32]),
     ):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -506,6 +548,12 @@ def collect_intv_launch(dfm, qseq, qlen, params: SeedParams, M, K, rows, n,
         err.data_ptr(), fmops._stream(dfm)))
 
 
+def warps_per_sm(M: int = M_SLOTS, K: int = K_MAX) -> int:
+    """Warps of the collect_intv kernel resident on one SM with budgets M
+    and K (the CUDA occupancy calculator's figure)."""
+    return int(_lib().bwamem_seed_collect_intv_warps_per_sm(K, M))
+
+
 def sample_ks_launch(rows, nrows, row_off, ks_off, max_occ, flat, ks):
     """``rows`` [B, M, 5] int64, ``nrows`` int32 and the exclusive scans
     ``row_off``/``ks_off`` int64 [B] -> ``flat`` [N, 5], ``ks`` [R]."""
@@ -518,7 +566,7 @@ def sample_ks_launch(rows, nrows, row_off, ks_off, max_occ, flat, ks):
 
 def smem1a_cuda(dfm: DeviceFMIndex, qseq, qlen, x, min_intv,
                 K: int = K_MAX) -> Smem1a:
-    """The smem1a kernel, one thread per lane; same contract as
+    """The smem1a kernel, one warp per lane; same contract as
     ``smem1a_torch``."""
     _check_budget(K=K)
     qseq, qlen = _reads_on_card(dfm, qseq, qlen, x, min_intv)
@@ -539,7 +587,7 @@ def smem1a_cuda(dfm: DeviceFMIndex, qseq, qlen, x, min_intv,
 
 def strategy1_cuda(dfm: DeviceFMIndex, qseq, qlen, x, min_len: int,
                    max_intv: int) -> Strategy1:
-    """The strategy-1 kernel, one thread per lane; same contract as
+    """The strategy-1 kernel, one warp per lane; same contract as
     ``strategy1_torch``."""
     qseq, qlen = _reads_on_card(dfm, qseq, qlen, x)
     B, dev = qseq.shape[0], dfm.device
@@ -559,7 +607,7 @@ def strategy1_cuda(dfm: DeviceFMIndex, qseq, qlen, x, min_len: int,
 def collect_intv_cuda(dfm: DeviceFMIndex, qseq, qlen, params: SeedParams,
                       M: int = M_SLOTS, K: int = K_MAX,
                       work=None) -> Intervals:
-    """The collect_intv kernel, one thread per read; same contract as
+    """The collect_intv kernel, one warp per read; same contract as
     ``collect_intv_torch``.  Given ``work`` (int32 [B, 5] on the card), the
     kernel writes there each read's seeding work (``collect_intv_launch``)."""
     _check_budget(M, K)
@@ -625,11 +673,10 @@ def strategy1(dfm: DeviceFMIndex, qseq, qlen, x, min_len: int,
 
 def collect_intv(dfm: DeviceFMIndex, qseq, qlen, params: SeedParams,
                  M: int = M_SLOTS, K: int = K_MAX, work=None) -> Intervals:
-    """CPU tensors -> ``collect_intv_torch`` (which leaves ``work`` as it
-    is); CUDA tensors -> the kernel."""
-    if qseq.device.type == "cuda":
-        return collect_intv_cuda(dfm, qseq, qlen, params, M, K, work)
-    return collect_intv_torch(dfm, qseq, qlen, params, M, K)
+    """CPU tensors -> ``collect_intv_torch``; CUDA tensors -> the kernel.
+    Both fill ``work`` when it is given."""
+    fn = collect_intv_cuda if qseq.device.type == "cuda" else collect_intv_torch
+    return fn(dfm, qseq, qlen, params, M, K, work)
 
 
 def sample_ks(rows, nrows, nks, max_occ: int):
@@ -653,7 +700,7 @@ def seed_sa(dfm: DeviceFMIndex, qseq, qlen, params: SeedParams,
 
 
 def seed_sa_torch(dfm: DeviceFMIndex, qseq, qlen, params: SeedParams,
-                  M: int = M_SLOTS, K: int = K_MAX) -> SeedSA:
+                  M: int = M_SLOTS, K: int = K_MAX, work=None) -> SeedSA:
     """``seed_sa`` through the plain versions only."""
-    return _seed_sa(collect_intv_torch(dfm, qseq, qlen, params, M, K),
+    return _seed_sa(collect_intv_torch(dfm, qseq, qlen, params, M, K, work),
                     sample_ks_torch, params)

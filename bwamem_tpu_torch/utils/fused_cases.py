@@ -69,6 +69,63 @@ CASES = {
 }
 
 
+def repeat_genome(rng) -> List[np.ndarray]:
+    """One 60 kbp contig: 20 kbp of random bases, then 100 copies of a
+    150-base unit between random 100-base spacers, then random bases.  The
+    base on each side of every copy is an A, so a match of the unit in a
+    read whose flanks differ there stops at the unit's ends in every copy."""
+    unit = rng.integers(0, 4, 150).astype(np.uint8)
+    parts = [rng.integers(0, 4, 20_000).astype(np.uint8)]
+    for _ in range(100):
+        parts[-1][-1] = 0
+        spacer = rng.integers(0, 4, 100).astype(np.uint8)
+        spacer[0] = 0
+        parts += [unit, spacer]
+    parts.append(rng.integers(0, 4, 15_000).astype(np.uint8))
+    return [np.concatenate(parts)]
+
+
+def repeat_reads(contigs) -> List[np.ndarray]:
+    """The repeat unit between 20 random bases on each side (a C next to
+    the unit), on both strands: one SMEM of 100 occurrences, so 100 chains
+    of one seed that no region of another contains, each extended into the
+    flanks, 100 tasks a read."""
+    rng = np.random.default_rng(41)
+    left, right = (rng.integers(0, 4, 20).astype(np.uint8) for _ in range(2))
+    left[-1] = right[0] = 1
+    read = np.concatenate([left, contigs[0][20_000:20_150], right])
+    return [read, revcomp(read)]
+
+
+def wide_reads(contigs) -> List[np.ndarray]:
+    """Reads of 161 to 1,500 bases from the random part of the repeat
+    genome, with a substitution every ~70 bases and one insertion or
+    deletion: at a band of 1,000, rows of up to ten passes of a warp on the
+    card."""
+    c = contigs[0]
+    rng = np.random.default_rng(42)
+    out = []
+    for L in (161, 250, 480, 777, 1_100, 1_500):
+        st = int(rng.integers(0, 20_000 - L - 20))
+        r = c[st: st + L + 8].copy()
+        for p in rng.integers(0, len(r), len(r) // 70):
+            r[p] = (r[p] + 1) % 4
+        at = int(rng.integers(L // 4, 3 * L // 4))
+        r = (np.concatenate([r[:at], r[at + 8:]]) if L % 2 else
+             np.concatenate([r[:at], rng.integers(0, 4, 8).astype(np.uint8), r[at:]]))
+        r = r[:L]
+        out.append(revcomp(r) if L % 3 == 0 else r)
+    return out
+
+
+# the card tests' cases: those above on chain_cases' genome, and two on the
+# repeat genome (the third field makes the genome)
+CARD_CASES = {name: (kw, make, chain_cases.genome) for name, (kw, make)
+              in CASES.items()}
+CARD_CASES["repeat_copies"] = (dict(), repeat_reads, repeat_genome)
+CARD_CASES["wide_band"] = (dict(w=1000), wide_reads, repeat_genome)
+
+
 def options(opt, kw: dict):
     """``opt`` (any package's ``MemOptions``) with the case's overrides."""
     for k, v in kw.items():

@@ -75,6 +75,25 @@ def reads(contigs, kread, rng, n: int = 36) -> List[np.ndarray]:
             + [a[2_200:2_350].copy(), kread.copy()])
 
 
+def long_reads(contigs, rng) -> List[np.ndarray]:
+    """Reads of 161 to 1,500 bases of the first contig, either strand, with
+    2 % substitutions and an N run: longer than a 150-base read's stacks,
+    and with more intervals than the M slots hold."""
+    out = []
+    a = contigs[0]
+    for L in (161, 300, 640, 1_000, 1_500):
+        st = int(rng.integers(0, len(a) - L))
+        r = a[st: st + L].copy()
+        for p in rng.integers(0, L, rng.binomial(L, 0.02)):
+            r[p] = (r[p] + 1 + rng.integers(0, 3)) % 4
+        p = int(rng.integers(0, L - 3))
+        r[p: p + 3] = 4
+        if L % 2:
+            r = np.where(r < 4, 3 - r, 4)[::-1].copy()
+        out.append(r.astype(np.uint8))
+    return out
+
+
 def lanes(reads, seed) -> List[Tuple[int, int, int]]:
     """(read, start, min_intv) lanes for single smem1a / strategy-1 calls:
     every read from 0, from a random start and from the middle with a

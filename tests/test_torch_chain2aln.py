@@ -7,7 +7,8 @@ three-contig genome with repeats.  Then the parts around it: the windows
 against the wave runner's, the budget rules of ``regs_batch_fused`` (reads
 with ``fcs`` active and reads flagged by C take the staged path and are
 counted by cause), the band preamble, the device reference, the gather of
-flagged reads' rows, and the opt-in bench hooks.
+flagged reads' rows, the opt-in bench hooks, and the loop kernel's limits
+and read order, which its wrapper computes on the host side.
 """
 import dataclasses
 import functools
@@ -160,6 +161,50 @@ def test_chain2aln_torch_matches_oracle(engines, case):
         assert all(not pipeline_device.fcs_noop(opt, len(r)) for r in reads)
 
 
+@pytest.mark.parametrize("case", ["band_retry", "clips_zdrop"])
+def test_chain2aln_torch_counts_cells_and_rows(engines, monkeypatch, case):
+    """``work``'s band cells and target rows per read equal the sums over
+    the read's extension jobs (band retries included) of the scalar
+    recurrence's counts, each job taken from the host oracle's own calls."""
+    from test_torch_warp_models import scalar_extend
+
+    from bwamem_tpu_torch.engine import extend as host_extend
+
+    _, eng, contigs = engines
+    kw, make = CASES[case]
+    _, opt = _opts(**kw)
+    reads = make(contigs)[:24]
+    chains, lists = _chains(eng, opt, reads)
+    regs = _plain(eng, opt, reads, chains)
+    orig, tally = host_extend.ksw_extend2, [0, 0]
+
+    def counted(q, t, mat, o_del, e_del, o_ins, e_ins, w, bonus, zdrop, h0):
+        res = orig(q, t, mat, o_del, e_del, o_ins, e_ins, w, bonus, zdrop, h0)
+        w_adj = int(ext.band_width(*(torch.tensor([v], dtype=torch.int32)
+                                     for v in (len(q), w, bonus)),
+                                   max(mat), o_del, e_del, o_ins, e_ins))
+        got = scalar_extend([int(x) for x in q], [int(x) for x in t], h0, w_adj,
+                            np.reshape(mat, (5, 5)).tolist(), o_del, e_del,
+                            o_ins, e_ins, zdrop)
+        assert got["score"] == res.score
+        tally[0] += got["cells"]
+        tally[1] += got["rows"]
+        return res
+
+    monkeypatch.setattr(host_extend, "ksw_extend2", counted)
+    want = []
+    for q, cl in zip(reads, lists):
+        tally[:] = [0, 0]
+        out = []
+        for c in cl:
+            port_chain2aln(opt, eng.idx, len(q), q, c, out)
+        want.append(tuple(tally))
+    work = regs.work.numpy()
+    assert list(zip(work[:, fo.W_CELLS].tolist(),
+                    work[:, fo.W_ROWS].tolist())) == want
+    assert work[:, fo.W_JOBS].sum() > len(reads)
+
+
 def test_run_mask_leaves_reads_out(engines):
     _, eng, contigs = engines
     opt = MemOptions()
@@ -247,6 +292,42 @@ def test_fcs_and_c_flagged_reads_take_the_staged_path(engines, monkeypatch,
     assert st.c_overflows > 0 and st.fcs_reads + st.host_seeded >= 2
     assert st.host_reads == st.c_overflows + st.fcs_reads + st.host_seeded
     assert st.device_reads + st.host_reads == len(reads) and st.device_reads > 0
+
+
+def test_reads_past_the_loop_kernels_limit_take_the_staged_path(engines,
+                                                                monkeypatch):
+    """With the loop kernel's read-length limit cut below some reads of a
+    batch, those reads leave the fused path as a counted cause of their own
+    (the batch does not raise), and every read's regions still equal the
+    host oracle's."""
+    _, eng, contigs = engines
+    opt = MemOptions()
+    reads = chain_cases.reads(contigs, np.random.default_rng(17), 16)
+    reads = [r[: 2 * len(r) // 3] if i % 2 else r for i, r in enumerate(reads)]
+    limit = max(len(r) for r in reads[1::2])
+    assert limit < min(len(r) for r in reads[::2])
+    monkeypatch.setattr(fo, "MAX_QLEN", limit)
+
+    def oracle(q):
+        chains = port_chain.chain_flt(opt, port_chain.mem_chain(
+            opt, eng.fm, eng.idx.bns, len(q), port_seed.collect_intv(
+                opt, eng.fm, q), None))
+        port_chain.flt_chained_seeds(opt, eng.idx, len(q), q, chains)
+        regs = []
+        for c in chains:
+            port_chain2aln(opt, eng.idx, len(q), q, c, regs)
+        return regs
+
+    FUSED_STATS.reset()
+    got = regs_batch_fused(opt, eng, reads, CPU)
+    for g, q in zip(got, reads):
+        assert ([dataclasses.astuple(a) for a in g]
+                == [dataclasses.astuple(a) for a in oracle(q)])
+    st = FUSED_STATS
+    assert st.long_reads == sum(len(r) > limit for r in reads) > 0
+    assert st.host_reads == (st.c_overflows + st.fcs_reads + st.host_seeded
+                             + st.long_reads)
+    assert st.device_reads == len(reads) - st.host_reads > 0
 
 
 def test_fcs_gate_and_window_budget_are_the_references():
@@ -354,3 +435,30 @@ def test_bench_hooks_are_opt_in(engines, monkeypatch):
         assert [getattr(s, name) is not None for s, name in stats] == [keep] * 4
     for s, _ in stats:
         s.reset()
+
+
+def test_kernel_limits_and_read_order():
+    """The loop kernel's limits, checked before a launch on the longest
+    read it runs (reads left out of ``run`` do not count): scores in
+    int8, reads of up to ``MAX_QLEN`` bases, every H of a job below
+    ``MAX_H`` (the card's shared memory is a limit only there); and the
+    order its warps take reads in, heaviest first."""
+    mat = torch.from_numpy(np.asarray(MemOptions().mat, np.int32).reshape(5, 5))
+    assert fo.kernel_max_qlen(mat, "cpu") == fo.MAX_QLEN
+    assert fo.kernel_max_qlen(torch.where(mat > 0, 127, mat), "cpu") == min(
+        fo.MAX_QLEN, (fo.MAX_H - 1) // 127 - 1)
+    with pytest.raises(ValueError):
+        fo.kernel_max_qlen(mat * 200, "cpu")
+    qlen = torch.tensor([150, 5000, 90], dtype=torch.int32)
+    run = torch.tensor([True, False, True])
+    assert fo.kernel_query_len(qlen, run, mat) == 150
+    with pytest.raises(ValueError):
+        fo.kernel_query_len(qlen, torch.ones(3, dtype=torch.bool), mat)
+    with pytest.raises(ValueError):
+        fo.kernel_query_len(qlen, run, mat * 200)
+    with pytest.raises(ValueError):  # (150 + 1) x 4,000 >= 2^19
+        fo.kernel_query_len(qlen, run, torch.where(mat > 0, 4000, mat))
+    n_seed = torch.tensor([3, 9, 9, 0, 40])
+    order = fo.read_order(n_seed, torch.tensor([100, 150, 150, 150, 10]),
+                          torch.tensor([True, True, True, True, False]))
+    assert order.dtype == torch.int32 and order.tolist() == [1, 2, 0, 3, 4]

@@ -171,7 +171,7 @@ def test_cuda_op_probe_matches_plain(name):
 @pytest.fixture(scope="module")
 def seed_data():
     """The seeding cases' genome (sa_intv 8) and reads; the last read
-    overflows the K-slot budget."""
+    overflows the K-slot budget.  Then reads of 161 to 1,500 bases."""
     from bwamem_tpu_torch.engine.fmindex import FMIndex
     from bwamem_tpu_torch.index.build import build_index
     from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
@@ -180,7 +180,8 @@ def seed_data():
     contigs, kread = seed_cases.genome(rng)
     fasta = Fasta([FastaContig(f"c{i}", "", c) for i, c in enumerate(contigs)])
     fm = FMIndex(build_index(fasta, sa_intv=8))
-    return fm, seed_cases.reads(contigs, kread, rng)
+    return fm, seed_cases.reads(contigs, kread, rng), seed_cases.long_reads(
+        contigs, rng)
 
 
 def _seed_lanes(reads, seed):
@@ -198,7 +199,7 @@ def test_cuda_smem1a_and_strategy1_match_plain_and_oracle(seed_data, K):
     from bwamem_tpu_torch.api.options import MemOptions
     from bwamem_tpu_torch.engine.seed import seed_strategy1, smem1a
 
-    fm, reads = seed_data
+    fm, reads, _ = seed_data
     opt = MemOptions()
     dfm = fmops.DeviceFMIndex.from_host(fm, "cuda")
     lanes, qseq, qlen, x, mi = _seed_lanes(reads, 1)
@@ -238,23 +239,33 @@ def test_cuda_smem1a_and_strategy1_match_plain_and_oracle(seed_data, K):
                          ids=("m48k24", "m4k24", "m48kmax"))
 def test_cuda_seed_sa_matches_plain_and_oracle(seed_data, M, K):
     """collect_intv + sample_ks + the SA walk on the card against the plain
-    chain on the card and the host oracle, per read; M = 4 forces
-    M-overflows, K = 24 the K-overflow read's."""
+    chain on the card and the host oracle, per read, reads of up to 1,500
+    bases among them; M = 4 forces M-overflows (so do the long reads at
+    M = 48), K = 24 the K-overflow read's.  The work table (calls, rank
+    queries, cause, slots needed) equals the plain version's, column by
+    column."""
     from bwamem_tpu_torch.api.options import MemOptions
     from bwamem_tpu_torch.engine.chain import sample_ks
     from bwamem_tpu_torch.engine.seed import collect_intv
 
-    fm, reads = seed_data
+    fm, reads, long = seed_data
+    reads = reads[:-1] + long + reads[-1:]  # the K-overflow read stays last
     opt = MemOptions()
     params = so.SeedParams.from_opt(opt)
     dfm = fmops.DeviceFMIndex.from_host(fm, "cuda")
     qseq, qlen = so.pad_reads(reads, "cuda")
+    work = torch.zeros((len(reads), 5), dtype=torch.int32, device="cuda")
     before = dict(so.LAUNCHES)
-    got = so.seed_sa(dfm, qseq, qlen, params, M, K=K)
+    got = so.seed_sa(dfm, qseq, qlen, params, M, K=K, work=work)
     assert {k: so.LAUNCHES[k] - before[k]
             for k in ("collect_intv", "sample_ks")} == {
         "collect_intv": 1, "sample_ks": 1}
-    plain = so.seed_sa_torch(dfm, qseq, qlen, params, M, K=K)
+    plain_work = torch.zeros_like(work)
+    plain = so.seed_sa_torch(dfm, qseq, qlen, params, M, K=K, work=plain_work)
+    assert torch.equal(work, plain_work)
+    cause = work[:, 3].cpu().numpy()
+    assert ((cause != 0) == got.intervals.ovf.cpu().numpy()).all()
+    assert (cause == 2).any() and (cause[-1] == 1) == (K == so.K_SLOTS)
     ovf = got.intervals.ovf
     assert torch.equal(ovf, plain.intervals.ovf)
     ok = ~ovf
@@ -268,8 +279,11 @@ def test_cuda_seed_sa_matches_plain_and_oracle(seed_data, M, K):
     n = got.intervals.n.cpu().numpy()
     ovf = ovf.cpu().numpy()
     flat, rbegs = got.flat.cpu().numpy(), rbegs.cpu().numpy()
-    expect_ovf = [len(collect_intv(opt, fm, r)) > M for r in reads]
-    expect_ovf[-1] = expect_ovf[-1] or K == so.K_SLOTS
+    # flagged: more intervals than M, or a call that needs more than K slots
+    peak = work[:, 4].cpu().numpy()
+    expect_ovf = [len(collect_intv(opt, fm, r)) > M or peak[i] > K
+                  for i, r in enumerate(reads)]
+    assert expect_ovf[-1] == (K == so.K_SLOTS)
     assert ovf.tolist() == expect_ovf
     row, k = 0, 0
     for r, read in enumerate(reads):
@@ -450,18 +464,34 @@ def test_cuda_aligner_matches_host(tmp_path, stages):
 
 
 @pytest.fixture(scope="module")
-def fused_engine():
-    """The chain cases' genome (three contigs, the last ALT) as the port's
-    engine."""
+def fused_engines():
+    """The chain-to-region cases' genomes as the port's engines, each built
+    on first use from seed 7: chain_cases' three contigs (the last ALT) and
+    fused_cases' repeat genome."""
     from bwamem_tpu_torch.engine.pipeline import Engine
     from bwamem_tpu_torch.index.build import build_index
     from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
 
-    contigs = chain_cases.genome(np.random.default_rng(7))
-    idx = build_index(Fasta([FastaContig(f"c{i}", "", c)
-                             for i, c in enumerate(contigs)]))
-    idx.bns.anns[2].is_alt = 1
-    return Engine(idx), contigs
+    made = {}
+
+    def get(make):
+        if make not in made:
+            contigs = make(np.random.default_rng(7))
+            idx = build_index(Fasta([FastaContig(f"c{i}", "", c)
+                                     for i, c in enumerate(contigs)]))
+            if make is chain_cases.genome:
+                idx.bns.anns[2].is_alt = 1
+            made[make] = (Engine(idx), contigs)
+        return made[make]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def fused_engine(fused_engines):
+    """The chain cases' genome (three contigs, the last ALT) as the port's
+    engine."""
+    return fused_engines(chain_cases.genome)
 
 
 def _fused_operands(eng, opt, reads):
@@ -490,16 +520,18 @@ def _fused_operands(eng, opt, reads):
 
 @pytest.mark.cuda
 @needs_card
-@pytest.mark.parametrize("case", fused_cases.CASES)
-def test_cuda_chain2aln_matches_plain_and_oracle(fused_engine, case):
+@pytest.mark.parametrize("case", fused_cases.CARD_CASES)
+def test_cuda_chain2aln_matches_plain_and_oracle(fused_engines, case):
     """The chain-to-region kernels against the plain version on the card,
     field for field, and against the host oracle ``chain2aln`` on the same
-    chains; a window budget of 300 bases sets the same ``ref_t`` marks."""
+    chains; a window budget of 300 bases sets the same ``ref_t`` marks.
+    The cases include reads of 161 to 1,500 bases at a band of 1,000 (rows
+    of up to ten passes of a warp) and reads of 100 tasks each."""
     from bwamem_tpu_torch.api.options import MemOptions
     from bwamem_tpu_torch.engine.extend import chain2aln
 
-    eng, contigs = fused_engine
-    kw, make = fused_cases.CASES[case]
+    kw, make, genome = fused_cases.CARD_CASES[case]
+    eng, contigs = fused_engines(genome)
     opt = fused_cases.options(MemOptions(), kw)
     reads = make(contigs)
     lists, args = _fused_operands(eng, opt, reads)
@@ -510,8 +542,12 @@ def test_cuda_chain2aln_matches_plain_and_oracle(fused_engine, case):
     plain = fo.chain2aln_torch(*args, 300)
     for name in ("reg_c", "reg_i", "nregs", "seed_off"):
         assert torch.equal(getattr(got, name), getattr(plain, name)), name
-    assert torch.equal(got.work[:, :4], plain.work[:, :4])
+    assert torch.equal(got.work, plain.work)
     assert int(got.work[:, fo.W_CELLS].sum()) > 0
+    if case == "repeat_copies":
+        assert int(got.work[:, fo.W_TASKS].min()) >= 90
+    if case == "wide_band":
+        assert max(len(r) for r in reads) == 1500
     rows = got.compact().cpu().numpy()
     frac = rows[:, 2].copy().view(np.float64)
     k = 0
@@ -547,12 +583,13 @@ def test_cuda_chain2aln_flags_impossible_states(fused_engine):
         eng, opt, reads)
     chains, lay, qseq, qlen, run = fo.prepare(ctg, ref, chains, qseq, qlen, run)
     i32, i64 = torch.int32, torch.int64
-    B, L = qseq.shape
+    B = qseq.shape[0]
     Nc, Ns = chains.chain_rows.shape[0], chains.seed_rows.shape[0]
 
     def launch(rmax, n_seed):
         out = dict(
-            eh=torch.empty((2, L + 1, B), dtype=i32, device="cuda"),
+            order=fo.read_order(n_seed, qlen, run),
+            Q=fo.kernel_query_len(qlen, run, mat),
             reg_c=torch.zeros((Ns, 3), dtype=i64, device="cuda"),
             reg_i=torch.zeros((Ns, 8), dtype=i32, device="cuda"),
             nregs=torch.zeros(B, dtype=i32, device="cuda"),
@@ -577,6 +614,123 @@ def test_cuda_chain2aln_flags_impossible_states(fused_engine):
             fo.raise_flags(bit)
     with pytest.raises(ValueError):  # tensors on the CPU never reach the kernel
         fo.chain2aln_cuda(ctg, ref, chains, qseq.cpu(), qlen, run, p, mat)
+
+
+@pytest.mark.cuda
+@needs_card
+def test_cuda_chain2aln_read_order_does_not_change_results(fused_engine):
+    """The loop kernel's warps take reads heaviest first; the same reads
+    taken in the reverse order, and the batch itself reversed, give the
+    same rows for every read."""
+    from bwamem_tpu_torch.api.options import MemOptions
+
+    eng, contigs = fused_engine
+    opt = MemOptions()
+    reads = chain_cases.reads(contigs, np.random.default_rng(21), 80)
+    args = _fused_operands(eng, opt, reads)[1]
+    got = fo.chain2aln(*args)
+    ctg, ref, chains, qseq, qlen, run, p, mat = args
+    chains_p, lay, q8, ql, run8 = fo.prepare(ctg, ref, chains, qseq, qlen, run)
+    B, Nc, Ns = q8.shape[0], chains_p.chain_rows.shape[0], chains_p.seed_rows.shape[0]
+    i32, i64 = torch.int32, torch.int64
+    rmax = torch.empty((Nc, 2), dtype=i64, device="cuda")
+    srt = torch.empty(Ns, dtype=i32, device="cuda")
+    alive = torch.empty(Ns, dtype=torch.uint8, device="cuda")
+    err = torch.zeros(1, dtype=i32, device="cuda")
+    out = dict(reg_c=torch.zeros((Ns, 3), dtype=i64, device="cuda"),
+               reg_i=torch.zeros((Ns, 8), dtype=i32, device="cuda"),
+               nregs=torch.zeros(B, dtype=i32, device="cuda"),
+               work=torch.zeros((B, 6), dtype=i64, device="cuda"), err=err)
+    fo.chain2aln_prep_launch(ctg, chains_p, lay, ql, p, rmax, srt, err)
+    fo.chain2aln_launch(ref, chains_p, lay, chains_p.n_chain, chains_p.n_seed,
+                        lay.chain_off, lay.seed_off, rmax, srt, alive, run8, q8,
+                        ql, mat.to(i32).contiguous(), p, fo.NO_T_CAP,
+                        fo.read_order(chains_p.n_seed, ql, run8).flip(0),
+                        fo.kernel_query_len(ql, run8, mat), **out)
+    assert int(err.item()) == 0
+    for name in ("reg_c", "reg_i", "nregs", "work"):
+        assert torch.equal(out[name], getattr(got, name)), name
+    back = fo.chain2aln(*_fused_operands(eng, opt, reads[::-1])[1])
+    per_read = [r for r in _regions_per_read(got)]
+    assert _regions_per_read(back) == per_read[::-1]
+    assert torch.equal(back.work, got.work.flip(0))
+
+
+@pytest.mark.cuda
+@needs_card
+def test_cuda_loop_kernel_limit_routes_long_reads(fused_engine):
+    """The loop kernel's read-length limit on this card is where its warps'
+    shared memory stops fitting a block: the kernel configures at the limit
+    and refuses one base more.  A batch with a read past it (kept from the
+    ``fcs`` rule by a large min_chain_weight) does not raise: that read
+    takes the staged path, counted under its first cause (its many SMEMs
+    may already flag it for host seeding), and every read's regions equal
+    the host oracle's."""
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine.chain import (chain_flt, flt_chained_seeds,
+                                               mem_chain)
+    from bwamem_tpu_torch.engine.exec_ctx import ExecConfig
+    from bwamem_tpu_torch.engine.extend import chain2aln
+    from bwamem_tpu_torch.engine.pipeline_device import (FUSED_STATS, fcs_noop,
+                                                         regs_batch_fused)
+    from bwamem_tpu_torch.engine.seed import collect_intv
+    from bwamem_tpu_torch.engine.state import device_scoring
+
+    opt = MemOptions()
+    limit = fo.kernel_max_qlen(device_scoring(opt, "cuda").mat, "cuda")
+    assert 1500 <= limit < fo.MAX_QLEN
+    assert fo.warps_per_sm(limit) > 0
+    assert fo.warps_per_sm(limit + 1) == -1
+    eng, contigs = fused_engine
+    opt.min_chain_weight = 300
+    long_read = contigs[0][2_000: 2_000 + limit + 50].copy()
+    long_read[::90] = (long_read[::90] + 1) % 4
+    reads = chain_cases.reads(contigs, np.random.default_rng(23), 8)
+    reads = reads[:4] + [long_read] + reads[4:]
+    assert all(fcs_noop(opt, len(r)) for r in reads)
+    FUSED_STATS.reset()
+    got = regs_batch_fused(opt, eng, reads,
+                           ExecConfig(device="cuda", device_pipeline=True))
+    st = FUSED_STATS
+    assert st.host_reads == st.host_seeded + st.long_reads == 1, vars(st)
+    for g, q in zip(got, reads):
+        chains = chain_flt(opt, mem_chain(opt, eng.fm, eng.idx.bns, len(q),
+                                          collect_intv(opt, eng.fm, q), None))
+        flt_chained_seeds(opt, eng.idx, len(q), q, chains)
+        want = []
+        for c in chains:
+            chain2aln(opt, eng.idx, len(q), q, c, want)
+        assert g == want
+
+
+def _regions_per_read(regs):
+    rows = regs.compact().cpu().numpy().tolist()
+    out, k = [], 0
+    for n in regs.nregs.tolist():
+        out.append(rows[k: k + n])
+        k += n
+    return out
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("name", CASES)
+def test_cuda_ksw_kernel_matches_host_ksw(name):
+    """P1, the wave kernel, which keeps the scalar DP of csrc/extend.cuh:
+    every result of every job of each case equal to the host C++
+    ksw_extend2 (max error 0)."""
+    from bwamem_tpu_torch.engine import native_ksw
+
+    case = make_case(name)
+    got = ext.ksw_extend(*[torch.from_numpy(case[k]).cuda() for k in ARRAYS],
+                         **case["statics"])
+    js, h0s, ws, bons = jobs(case)
+    st = case["statics"]
+    host = native_ksw.extend_batch(js, case["mat"].ravel().tolist(), st["o_del"],
+                                   st["e_del"], st["o_ins"], st["e_ins"],
+                                   st["zdrop"], h0s, ws, bons)
+    for k in ext.KEYS:
+        assert got[k].cpu().tolist() == [h[k] for h in host], k
 
 
 @pytest.mark.cuda

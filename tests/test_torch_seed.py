@@ -285,6 +285,51 @@ def test_seed_sa_m_overflow_matches_jax(data):
     assert ovf.tolist() == expect and 0 < sum(expect) < len(reads) - 1
 
 
+def test_collect_intv_work_counts_like_the_kernel(data):
+    """The plain version fills the kernel's work table: with the JAX
+    package's K the K-overflow read reports cause 1, with M = 4 slots the
+    reads of more than 4 intervals cause 2, the others 0; with neither
+    budget in the way a read's bwt_extend calls are the oracle's rank
+    queries, counted interval by interval.  ``seed_batch`` counts them on
+    the CPU too."""
+    fms, reads, kidx = data
+    fm = fms[32]
+    dfm = DeviceFMIndex.from_host(fm, "cpu")
+    qseq, qlen = so.pad_reads(reads, "cpu")
+    n_intv = [len(collect_intv(OPT, fm, r)) for r in reads]
+    for M, K, expect in ((so.M_SLOTS, so.K_SLOTS,
+                          [int(i == kidx) for i in range(len(reads))]),
+                         (4, so.K_MAX, [2 * (n > 4) for n in n_intv])):
+        work = torch.zeros((len(reads), 5), dtype=torch.int32)
+        iv = so.collect_intv(dfm, qseq, qlen, PARAMS, M, K, work=work)
+        assert work[:, 3].tolist() == expect
+        assert np.array_equal(work[:, 3].numpy() != 0, iv.ovf.numpy())
+    work = torch.zeros((len(reads), 5), dtype=torch.int32)
+    so.collect_intv(dfm, qseq, qlen, PARAMS, so.M_SLOTS, so.K_MAX, work=work)
+    calls = []
+    extend = fm.extend
+    for r in reads:
+        n = [0]
+
+        def counted(x0, *args):
+            n[0] += len(x0)
+            return extend(x0, *args)
+
+        fm.extend = counted
+        try:
+            collect_intv(OPT, fm, r)
+        finally:
+            del fm.extend
+        calls.append(n[0])
+    assert work[:, 2].tolist() == calls
+    assert (work[:, 0] >= 1).all()  # a call at every start, N or not
+    assert (work[:, 4] >= 1).tolist() == [bool((r < 4).any()) for r in reads]
+    SEED_STATS.reset()
+    seed_batch(PORT_OPT, fms["port"], reads, "cpu", K=so.K_SLOTS)
+    assert (SEED_STATS.k_overflows, SEED_STATS.m_overflows) == (1, 0)
+    assert SEED_STATS.smem1a_calls > 0 and SEED_STATS.extend_calls > 0
+
+
 def test_sample_ks_matches_oracle():
     """bwa sample_ks on sizes around max_occ, and rows past nrows or of a
     flagged read left out."""
