@@ -181,11 +181,7 @@ struct PacView {
   }
 };
 
-// The warp's slice of dynamic shared memory for reads of up to Q bases:
-// H and E [Q + 1] int32, then the job's query codes [Q] uint8.
-__host__ __device__ __forceinline__ int slice_words(int Q) {
-  return 2 * (Q + 1) + (Q + 3) / 4;
-}
+using bwamem::slice_words;  // the warp's slice of dynamic shared memory
 
 // One side of a seed: the job at w, then at 2w under the oracle's break rule
 // (`score` enters as the previous score and leaves as the job's).  `qs`

@@ -1,9 +1,11 @@
-// The banded affine-gap extension DP (bwa ksw_extend2) as two __device__
-// functions: `ksw_extend_core`, one job on one thread, for the wave kernel of
-// extend.cu (its sequences in job-major arrays), and `ksw_extend_warp`, one
-// job on the 32 lanes of a warp, for the chain-to-region kernel of
-// chain2aln.cu (its query in the warp's shared memory, its target read from
-// the 2-bit pac).
+// The banded affine-gap extension DP (bwa ksw_extend2) as __device__
+// functions: `ksw_extend_core`, one job on one thread, and
+// `ksw_extend_group`, one job on a group of G lanes (`ksw_extend_warp`: a
+// whole warp).  The wave kernel of extend.cu runs a job on a lane group and
+// the rare job past the group's limits on `ksw_extend_core`, its sequences
+// in job-major arrays; the chain-to-region kernel of chain2aln.cu runs its
+// jobs on `ksw_extend_warp`, its query in the warp's shared memory, its
+// target read from the 2-bit pac.
 //
 // Semantics are exactly [EXT] ksw.c ksw_extend2, as written out in the host
 // oracle engine/extend.py `ksw_extend2` and its C++ twin
@@ -13,12 +15,13 @@
 // maxv/max_off updates on strict >.
 //
 // The query and the target come through accessors (`q(j)`, `t(i)` return a
-// code 0-4), so a caller picks its own layout and direction.  The eh[] row
-// state (eh[j].h = H(i-1, j-1), eh[j].e = E(i, j)) lives in the caller's
-// scratch: `H[j * st]`, `E[j * st]`, int32.  The function initialises cells
-// 0..ninit itself (ninit >= qlen): cells outside the window keep stale values
-// and are read again when the window regrows, so what an earlier job or the
-// allocator left there would change results.
+// code 0-4), so a caller picks its own layout and direction.  For
+// `ksw_extend_core` the eh[] row state (eh[j].h = H(i-1, j-1), eh[j].e =
+// E(i, j)) lives in the caller's scratch: `H[j * st]`, `E[j * st]`, int32.
+// The function initialises cells 0..ninit itself (ninit >= qlen): cells
+// outside the window keep stale values and are read again when the window
+// regrows, so what an earlier job or the allocator left there would change
+// results.
 
 #pragma once
 
@@ -155,37 +158,58 @@ __device__ __forceinline__ KswResult ksw_extend_core(
   return r;
 }
 
-// ksw_extend_warp: the same job, one target row at a time across the lanes.
+// ksw_extend_group: the same job, one target row at a time across the G
+// lanes of a lane group (G = 32, a whole warp, or 16 or 8 lanes, several
+// jobs a warp; `ksw_extend_warp` is G = 32).
 //
 // A row of n = end - beg cells goes over the lanes in C-cell chunks, lane l
-// taking cells [base + l*C, base + (l+1)*C): C = 1, 2 or 3 when n <= 32 C
-// (one pass), else C = 5 and ceil(n / 160) passes.  The smallest C keeps a
-// lane's serial work, and so the row's latency, small.  What makes the row
-// parallel: F depends only on M of the earlier columns, never on H, so with
-// u[k] = max(M[k] - oe_ins, 0), F[beg] = 0 and, for j > beg,
+// taking cells [base + l*C, base + (l+1)*C): C = 1, 2, 3 or 5 when n <= G C
+// (one pass), else C = 160 / G (at least 5) and passes of 160 cells.  The
+// smallest C keeps a lane's serial work, and so the row's latency, small.
+// What makes the row parallel: F depends only on M of the earlier columns,
+// never on H, so with u[k] = max(M[k] - oe_ins, 0), F[beg] = 0 and, for
+// j > beg,
 //   F[j] = max_{beg <= k < j} (u[k] + k e_ins) - (j - 1) e_ins,
 // a max-plus prefix scan (a lane-local scan, then a shuffle scan of the lane
 // totals, carried across passes), exact in int32.  (F[beg] may be taken as
 // anything <= 0: E >= 0, so max(M, E, F) is the same.)  E and M are per
 // cell; H(i, j-1), which the scalar writes to eh[j], comes from the lane
 // below by a shuffle, so each lane reads and writes only its own cells.  The
-// row max is one warp reduction of (h << kColBits | j), which takes the last
-// column that attains it (the scalar's >=); H(i, end-1) and the first and
-// last live cells, for the band shrink, are three more.  Every value that
-// steers the loop is warp-uniform.  `rows` and `cells` count as the scalar
-// counts.
+// row max is one group reduction of (h << kColBits | j), which takes the
+// last column that attains it (the scalar's >=); H(i, end-1) and the first
+// and last live cells, for the band shrink, are three more.  Every value
+// that steers the loop is uniform over the group.  `rows` and `cells` count
+// as the scalar counts.
 //
-// All 32 lanes call it with the same arguments.  `qs` [qlen] holds the
-// job's query codes, H, E [qlen + 1] the row state, both in the warp's shared
-// memory; the function initialises H, E over 0..qlen.  `sprof` [10] holds
-// the scores of target code c against query codes 0-3 as the bytes of
-// sprof[c] and against 4 as byte 0 of sprof[5 + c], int8 each (`pack_scores`).
-// The caller guarantees qlen < 2^kColBits and every H < 2^(31 - kColBits)
-// (H <= h0 + qlen * max score).  `t(r)` is called for rows r < tlen, 32 at a
+// All G lanes of the group call it with the same arguments; the groups of a
+// warp may run different jobs (their shuffles and reductions name only the
+// group's lanes).  `qs` [qlen] holds the job's query codes, H, E [qlen + 1]
+// the row state, both in shared memory; the function initialises H, E over
+// 0..qlen.  `sprof` [10] holds the scores of target code c against query
+// codes 0-3 as the bytes of sprof[c] and against 4 as byte 0 of
+// sprof[5 + c], int8 each (`pack_scores`).  The caller guarantees
+// qlen < 2^kColBits and every H < 2^(31 - kColBits) (H <= max(h0, 0) +
+// qlen * the largest score).  `t(r)` is called for rows r < tlen, G at a
 // time, a row a lane, one batch ahead.
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kNoPrefix = -(1 << 30);
 constexpr int kColBits = 12;  // a column, in the packed (h, j) of the row max
+
+// The words of shared memory that `ksw_extend_group` takes for queries of
+// up to Q bases: H and E [Q + 1] int32, then the query codes [Q] uint8.
+__host__ __device__ __forceinline__ int slice_words(int Q) {
+  return 2 * (Q + 1) + (Q + 3) / 4;
+}
+
+// The lanes of this thread's group of G in its warp.
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  if constexpr (G == 32) {
+    return kFullMask;
+  } else {
+    return ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+  }
+}
 
 // The score of a query code qc (0-4) from a target code's packed scores:
 // byte qc of {hi, lo}, sign-extended (PRMT with the sign-replicate bit).
@@ -209,13 +233,13 @@ __device__ __forceinline__ void pack_scores(const int32_t* mat,
   }
 }
 
-// One pass of a row over cells [base, base + 32 C) of [.., end); `more`:
+// One pass of a row over cells [base, base + G C) of [.., end); `more`:
 // another pass follows.  Carries pc (the prefix max of the earlier passes)
 // and hc (H(i, base - 1)); keeps this lane's packed row max, H(i, end - 1)
 // and live cells.
-template <int C>
+template <int G, int C>
 __device__ __forceinline__ void row_pass(
-    int base, int end, int lane, const uint8_t* __restrict__ qs,
+    int base, int end, int lane, unsigned gmask, const uint8_t* __restrict__ qs,
     int32_t* __restrict__ H, int32_t* __restrict__ E, uint32_t slo,
     uint32_t shi, int oe_del, int oe_ins, int e_del, int e_ins, bool more,
     int& pc, int& hc, int& key, int& hl, int& live_lo, int& live_hi) {
@@ -237,15 +261,15 @@ __device__ __forceinline__ void row_pass(
   }
   // exclusive max scan of the lane totals, after the earlier passes
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int o = __shfl_up_sync(kFullMask, tot, d);
+  for (int d = 1; d < G; d <<= 1) {
+    const int o = __shfl_up_sync(gmask, tot, d, G);
     if (lane >= d) tot = tot > o ? tot : o;
   }
-  int run = __shfl_up_sync(kFullMask, tot, 1);
+  int run = __shfl_up_sync(gmask, tot, 1, G);
   if (lane == 0) run = kNoPrefix;
   run = run > pc ? run : pc;
   if (more) {
-    const int all = __shfl_sync(kFullMask, tot, 31);
+    const int all = __shfl_sync(gmask, tot, G - 1, G);
     pc = pc > all ? pc : all;
   }
 #pragma unroll
@@ -266,7 +290,7 @@ __device__ __forceinline__ void row_pass(
     }
   }
   // eh[j] = {H(i, j-1), E(i+1, j)}: H(i, j-1) from the lane below
-  int hp = __shfl_up_sync(kFullMask, hv[C - 1], 1);
+  int hp = __shfl_up_sync(gmask, hv[C - 1], 1, G);
   if (lane == 0) hp = hc;
 #pragma unroll
   for (int k = 0; k < C; ++k) {
@@ -281,21 +305,23 @@ __device__ __forceinline__ void row_pass(
       hp = hv[k];
     }
   }
-  if (more) hc = __shfl_sync(kFullMask, hv[C - 1], 31);
+  if (more) hc = __shfl_sync(gmask, hv[C - 1], G - 1, G);
 }
 
-template <class TSeq>
-__device__ KswResult ksw_extend_warp(const uint8_t* __restrict__ qs, TSeq t,
-                                     int qlen, int tlen, int h0, int w,
-                                     const uint32_t* __restrict__ sprof,
-                                     int32_t* __restrict__ H,
-                                     int32_t* __restrict__ E, int o_del,
-                                     int e_del, int o_ins, int e_ins,
-                                     int zdrop) {
-  const int lane = threadIdx.x & 31;
+template <int G, class TSeq>
+__device__ KswResult ksw_extend_group(const uint8_t* __restrict__ qs, TSeq t,
+                                      int qlen, int tlen, int h0, int w,
+                                      const uint32_t* __restrict__ sprof,
+                                      int32_t* __restrict__ H,
+                                      int32_t* __restrict__ E, int o_del,
+                                      int e_del, int o_ins, int e_ins,
+                                      int zdrop) {
+  constexpr int kBig = 160 / G > 5 ? 160 / G : 5;  // cells a lane, long rows
+  const unsigned gmask = group_mask<G>();
+  const int lane = threadIdx.x & (G - 1);
   const int oe_del = o_del + e_del, oe_ins = o_ins + e_ins;
-  __syncwarp();
-  for (int j = lane; j <= qlen; j += 32) {
+  __syncwarp(gmask);
+  for (int j = lane; j <= qlen; j += G) {
     const int ramp = h0 - oe_ins - (j - 1) * e_ins;
     H[j] = j == 0 ? h0 : (ramp > 0 ? ramp : 0);
     E[j] = 0;
@@ -307,12 +333,12 @@ __device__ KswResult ksw_extend_warp(const uint8_t* __restrict__ qs, TSeq t,
   int64_t cells = 0;
   int tcur = 0, tnext = lane < tlen ? t(lane) : 0;
   for (; i < tlen; ++i) {
-    __syncwarp();  // the last row's writes are visible to every lane
-    if ((i & 31) == 0) {  // this batch of 32 target rows; fetch the next
+    __syncwarp(gmask);  // the last row's writes are visible to every lane
+    if ((i & (G - 1)) == 0) {  // this batch of G target rows; fetch the next
       tcur = tnext;
-      tnext = i + 32 + lane < tlen ? t(i + 32 + lane) : 0;
+      tnext = i + G + lane < tlen ? t(i + G + lane) : 0;
     }
-    const int tb = __shfl_sync(kFullMask, tcur, i & 31);
+    const int tb = __shfl_sync(gmask, tcur, i & (G - 1), G);
     const uint32_t slo = sprof[tb], shi = sprof[5 + tb];
     if (beg < i - w) beg = i - w;
     if (end > i + w + 1) end = i + w + 1;
@@ -328,28 +354,36 @@ __device__ KswResult ksw_extend_warp(const uint8_t* __restrict__ qs, TSeq t,
       cells += n;
       int pc = kNoPrefix, hc = h1, key = -1, hl = -1;
       int live_lo = 0x7fffffff, live_hi = -1;
-      if (n <= 32) {
-        row_pass<1>(beg, end, lane, qs, H, E, slo, shi, oe_del, oe_ins, e_del,
-                    e_ins, false, pc, hc, key, hl, live_lo, live_hi);
-      } else if (n <= 64) {
-        row_pass<2>(beg, end, lane, qs, H, E, slo, shi, oe_del, oe_ins, e_del,
-                    e_ins, false, pc, hc, key, hl, live_lo, live_hi);
-      } else if (n <= 96) {
-        row_pass<3>(beg, end, lane, qs, H, E, slo, shi, oe_del, oe_ins, e_del,
-                    e_ins, false, pc, hc, key, hl, live_lo, live_hi);
+      if (n <= G) {
+        row_pass<G, 1>(beg, end, lane, gmask, qs, H, E, slo, shi, oe_del,
+                       oe_ins, e_del, e_ins, false, pc, hc, key, hl, live_lo,
+                       live_hi);
+      } else if (n <= 2 * G) {
+        row_pass<G, 2>(beg, end, lane, gmask, qs, H, E, slo, shi, oe_del,
+                       oe_ins, e_del, e_ins, false, pc, hc, key, hl, live_lo,
+                       live_hi);
+      } else if (n <= 3 * G) {
+        row_pass<G, 3>(beg, end, lane, gmask, qs, H, E, slo, shi, oe_del,
+                       oe_ins, e_del, e_ins, false, pc, hc, key, hl, live_lo,
+                       live_hi);
+      } else if (n <= 5 * G) {
+        row_pass<G, 5>(beg, end, lane, gmask, qs, H, E, slo, shi, oe_del,
+                       oe_ins, e_del, e_ins, false, pc, hc, key, hl, live_lo,
+                       live_hi);
       } else {
-        for (int base = beg; base < end; base += 32 * 5)
-          row_pass<5>(base, end, lane, qs, H, E, slo, shi, oe_del, oe_ins,
-                      e_del, e_ins, base + 32 * 5 < end, pc, hc, key, hl,
-                      live_lo, live_hi);
+        for (int base = beg; base < end; base += G * kBig)
+          row_pass<G, kBig>(base, end, lane, gmask, qs, H, E, slo, shi,
+                            oe_del, oe_ins, e_del, e_ins,
+                            base + G * kBig < end, pc, hc, key, hl, live_lo,
+                            live_hi);
       }
-      key = __reduce_max_sync(kFullMask, key);
+      key = __reduce_max_sync(gmask, key);
       m = key >> kColBits;
       mj = key & ((1 << kColBits) - 1);
-      h_last = __reduce_max_sync(kFullMask, hl);
-      const int lo = __reduce_min_sync(kFullMask, live_lo);
+      h_last = __reduce_max_sync(gmask, hl);
+      const int lo = __reduce_min_sync(gmask, live_lo);
       first = lo < end ? lo : end;
-      last = __reduce_max_sync(kFullMask, live_hi);
+      last = __reduce_max_sync(gmask, live_hi);
     }
     if (lane == 0) {
       H[end] = h_last;
@@ -380,7 +414,7 @@ __device__ KswResult ksw_extend_warp(const uint8_t* __restrict__ qs, TSeq t,
     const int j = h_last != 0 ? end : (last >= 0 ? last : beg - 1);
     end = j + 2 < qlen ? j + 2 : qlen;
   }
-  __syncwarp();
+  __syncwarp(gmask);
   KswResult r;
   r.score = maxv;
   r.qle = max_j + 1;
@@ -391,6 +425,16 @@ __device__ KswResult ksw_extend_warp(const uint8_t* __restrict__ qs, TSeq t,
   r.rows = i < tlen ? i + 1 : tlen;
   r.cells = cells;
   return r;
+}
+
+template <class TSeq>
+__device__ __forceinline__ KswResult ksw_extend_warp(
+    const uint8_t* __restrict__ qs, TSeq t, int qlen, int tlen, int h0, int w,
+    const uint32_t* __restrict__ sprof, int32_t* __restrict__ H,
+    int32_t* __restrict__ E, int o_del, int e_del, int o_ins, int e_ins,
+    int zdrop) {
+  return ksw_extend_group<32>(qs, t, qlen, tlen, h0, w, sprof, H, E, o_del,
+                              e_del, o_ins, e_ins, zdrop);
 }
 
 }  // namespace bwamem

@@ -18,6 +18,7 @@ from typing import List
 import numpy as np
 
 from ..api.options import MemOptions
+from ..ops import extend as ext
 from ..ops.extend import ksw_extend_batch_np
 from . import exec_ctx, native_ksw
 from .chain import Chain
@@ -27,7 +28,8 @@ from .state import device_scoring
 
 
 class WaveStats:
-    """Counts of extension jobs and waves by where they ran, the host-clock
+    """Counts of extension jobs and waves by where they ran (and of the
+    device jobs, those that the kernel ran on its scalar path), the host-clock
     seconds spent in each kind of wave (a device wave's include packing, the
     copies and the kernel), and, only under ``exec_ctx.KEEP_LARGEST``, the
     largest device wave's inputs (so a benchmark can time the kernel on
@@ -38,6 +40,7 @@ class WaveStats:
 
     def reset(self):
         self.device_extend_jobs = 0
+        self.device_scalar_jobs = 0
         self.host_extend_jobs = 0
         self.device_extend_waves = 0
         self.host_extend_waves = 0
@@ -200,9 +203,11 @@ def _run_kernel(opt, jobs, bonuses, ws, h0s, exec_cfg: ExecConfig, scoring):
         STATS.host_extend_jobs += n
         STATS.host_wave_seconds += time.perf_counter() - t0
         return out
+    scalar = ext.SCALAR_JOBS
     out = ksw_extend_batch_np(
         [q for q, _ in jobs], [t for _, t in jobs], scoring, h0s, ws, bonuses,
     )
+    STATS.device_scalar_jobs += ext.SCALAR_JOBS - scalar
     STATS.device_extend_waves += 1
     STATS.device_extend_jobs += n
     STATS.device_wave_seconds += time.perf_counter() - t0

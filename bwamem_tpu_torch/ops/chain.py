@@ -7,8 +7,8 @@ The counterpart of bwamem_tpu/ops/chain_tpu.py:
   slots, as ``chain_kernel`` writes it), then the filter runs one sorted
   chain per step.  It runs wherever its tensors lie.
 * ``chain_cuda`` launches the hand-written Hopper kernels of
-  ``csrc/chain.cu`` (one thread per read; a count pass and an emit pass
-  around two scans).
+  ``csrc/chain.cu`` (a count pass, a warp per read taken heaviest first,
+  and an emit pass, a thread per read, around two scans).
 * ``chain`` dispatches on the device of its inputs: CPU tensors go to the
   plain version, CUDA tensors to the kernels.
 * ``chains_device_batch`` is the batch entry: the arrays the host C++
@@ -394,12 +394,14 @@ def _bind(lib):
     table = [p] * 8 + [i64, i32]  # the seed table, seed_off, n_rbegs, B
     ctg = [p, p, i32, i64]  # ctg_end, ctg_alt, n_ctg, l_pac
     for name, rest in (
-        ("bwamem_chain_launch", [i64] * 6 + [f64, f64, i32] + [p] * 10),
+        ("bwamem_chain_launch", [i64] * 6 + [f64, f64, i32] + [p] * 12),
         ("bwamem_chain_emit_launch", [p] * 10),
     ):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = table + ctg + rest
+    lib.bwamem_chain_warps_per_sm.restype = ctypes.c_int
+    lib.bwamem_chain_warps_per_sm.argtypes = []
 
 
 def _lib():
@@ -431,18 +433,35 @@ def _table_args(ctg: DeviceContigs, tab: SeedTable, seed_off):
 # scratch and the int32 [1] flag word allocated by the caller) and leave the
 # flags for the caller to read.
 
-def chain_launch(ctg, tab, seed_off, params: ChainParams, C, assign, slot_dst,
-                 crec, n_chain, n_seed, frac, ovf, nslots, err):
-    """The count pass: per read ``n_chain``, ``n_seed`` int64, ``frac``
-    float64, ``ovf``, ``nslots`` int32 [B]; scratch ``assign``, ``slot_dst``
-    int32 [T] and ``crec`` int32 [T, 5] for the emit pass."""
+def read_order(seed_cnt: torch.Tensor) -> torch.Tensor:
+    """The order in which ``chain_kernel``'s warps take the reads: the most
+    seeds first, ties in read order; int32 [B].  Scheduling only: a read
+    writes only its own rows, so no result depends on it."""
+    return torch.sort(seed_cnt, descending=True,
+                      stable=True).indices.to(torch.int32)
+
+
+def chain_launch(ctg, tab, seed_off, params: ChainParams, C, order, assign,
+                 slot_dst, crec, n_chain, n_seed, frac, ovf, nslots, err):
+    """The count pass, its warps taking the reads in ``order``
+    (``read_order``): per read ``n_chain``, ``n_seed`` int64, ``frac``
+    float64, ``ovf``, ``nslots`` int32 [B]; scratch ``assign``,
+    ``slot_dst`` int32 [T] and ``crec`` int32 [T, 5] for the emit pass."""
+    nxt = torch.empty(1, dtype=torch.int32, device=ctg.device)
     _launched("chain", _lib().bwamem_chain_launch(
         *_table_args(ctg, tab, seed_off), params.w, params.max_chain_gap,
         params.min_chain_weight, params.min_seed_len, params.max_chain_extend,
         params.max_occ, params.mask_level, params.drop_ratio, C,
-        assign.data_ptr(), slot_dst.data_ptr(), crec.data_ptr(),
-        n_chain.data_ptr(), n_seed.data_ptr(), frac.data_ptr(), ovf.data_ptr(),
-        nslots.data_ptr(), err.data_ptr(), _stream(ctg.device)))
+        order.data_ptr(), nxt.data_ptr(), assign.data_ptr(),
+        slot_dst.data_ptr(), crec.data_ptr(), n_chain.data_ptr(),
+        n_seed.data_ptr(), frac.data_ptr(), ovf.data_ptr(), nslots.data_ptr(),
+        err.data_ptr(), _stream(ctg.device)))
+
+
+def warps_per_sm() -> int:
+    """Warps of ``chain_kernel`` resident on one SM (the CUDA occupancy
+    calculator's figure); -1 on error."""
+    return int(_lib().bwamem_chain_warps_per_sm())
 
 
 def chain_emit_launch(ctg, tab, seed_off, assign, slot_dst, crec, n_chain,
@@ -474,8 +493,8 @@ def prepare(ctg: DeviceContigs, tab: SeedTable):
 
 def chain_cuda(ctg: DeviceContigs, tab: SeedTable, params: ChainParams,
                C: int = C_MAX) -> Chains:
-    """The chain kernels, one thread per read; same contract as
-    ``chain_torch``."""
+    """The chain kernels (the count pass a warp per read, heaviest first;
+    the emit pass a thread per read); same contract as ``chain_torch``."""
     _check_budget(C)
     tab, seed_cnt, seed_off = prepare(ctg, tab)
     dev = ctg.device
@@ -492,8 +511,8 @@ def chain_cuda(ctg: DeviceContigs, tab: SeedTable, params: ChainParams,
     crec = torch.empty((T, 5), dtype=i32, device=dev)
     frac = torch.empty(B, dtype=torch.float64, device=dev)
     err = torch.zeros(1, dtype=i32, device=dev)
-    chain_launch(ctg, tab, seed_off, params, C, assign, slot_dst, crec, n_chain,
-                 n_seed, frac, ovf, nslots, err)
+    chain_launch(ctg, tab, seed_off, params, C, read_order(seed_cnt), assign,
+                 slot_dst, crec, n_chain, n_seed, frac, ovf, nslots, err)
     chain_off, seed_dst = _excl_scan(n_chain), _excl_scan(n_seed)
     nc, nsd, flags = torch.stack(
         [n_chain.sum(), n_seed.sum(), err[0].long()]).tolist()

@@ -21,7 +21,7 @@ int32 matrix, and return six ``[B]`` int32 results keyed like
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -31,6 +31,8 @@ from ..engine.state import DeviceScoring
 KEYS = ("score", "qle", "tle", "gtle", "gscore", "max_off")
 # launches of the CUDA kernel; bumped only where it is launched
 LAUNCHES = 0
+# jobs that the kernel ran on its scalar path (``warp_jobs`` false)
+SCALAR_JOBS = 0
 
 
 def band_width(qlen, w, end_bonus, max_sc: int, o_del: int, e_del: int,
@@ -171,51 +173,150 @@ def ksw_extend_torch(qseq, tseq, qlen, tlen, h0, w, end_bonus, mat,
 
 # ------------------------------------------------------------------ kernel
 
+# the group DP's limits (csrc/extend.cuh): a column in 12 bits of the packed
+# row max, every H below 2^19, scores in int8
+WARP_MAX_QLEN = (1 << 12) - 1
+WARP_MAX_H = 1 << 19
+
+
+class WavePlan(NamedTuple):
+    """How the kernel runs a wave: ``order`` [B] int32, the jobs heaviest
+    first; ``slot`` [B] int32, -1 for a job of the group DP, else its place
+    in the scalar jobs' scratch; their count, the longest query on each
+    path (``Qw``, ``Qs``) and the scratch, [n_scalar, 2, Qs + 1] int32."""
+
+    order: torch.Tensor
+    slot: torch.Tensor
+    n_scalar: int
+    Qw: int
+    Qs: int
+    scratch: torch.Tensor
+
+
+def job_order(qlen, tlen, w_adj) -> torch.Tensor:
+    """The order in which the kernel's lane groups take a wave's jobs:
+    heaviest first by ``tlen x min(qlen, 2 w_adj + 1)`` (target rows x the
+    most band cells a row), ties in job order; int32 [B].  Scheduling only:
+    results go back in job order."""
+    est = tlen.long() * torch.minimum(qlen.long(), 2 * w_adj.long() + 1)
+    return torch.sort(est, descending=True, stable=True).indices.to(torch.int32)
+
+
+def warp_jobs(qlen, h0, mat, max_qlen: int = WARP_MAX_QLEN) -> torch.Tensor:
+    """The jobs that the group DP takes, bool [B]: a query of at most
+    ``max_qlen`` bases (``WARP_MAX_QLEN``, or less where the card's shared
+    memory a block says so), every H below ``WARP_MAX_H`` (H <= max(h0, 0)
+    + qlen x the largest score), and scores in int8.  The kernel runs the
+    rest on its scalar path."""
+    hi = mat.max().clamp(min=0).long()
+    in_i8 = (mat.min() >= -128) & (mat.max() <= 127)
+    h_top = h0.long().clamp(min=0) + qlen.long() * hi
+    return (qlen.long() <= max_qlen) & (h_top < WARP_MAX_H) & in_i8
+
+
+def scalar_slots(on_warp: torch.Tensor) -> torch.Tensor:
+    """-1 for a job of the group DP, else the job's place among the scalar
+    jobs in job order; int32 [B]."""
+    off = on_warp.logical_not().to(torch.int32)
+    return torch.where(on_warp, -1, torch.cumsum(off, 0, dtype=torch.int32) - 1)
+
+
 def _bind(lib):
     fn = lib.bwamem_ksw_extend_launch
     fn.restype = ctypes.c_int
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    fn.argtypes = [p, i64, p, i64, p, i64, p, p, p,
-                   i32, i32, i32, i32, i32, i32, i32, p]
+    fn.argtypes = [p, i64, p, i64, p, i64, p, p, p, p, p, i32, i32, p,
+                   i32, i32, i32, i32, i32, i32, p]
+    lib.bwamem_ksw_extend_max_qlen.restype = ctypes.c_int
+    lib.bwamem_ksw_extend_max_qlen.argtypes = []
+    lib.bwamem_ksw_extend_warps_per_sm.restype = ctypes.c_int
+    lib.bwamem_ksw_extend_warps_per_sm.argtypes = [i32]
+
+
+def _lib():
+    from ..utils import cudabuild
+
+    return cudabuild.load("extend", _bind)
+
+
+def kernel_max_qlen(device) -> int:
+    """The longest query the group DP takes on ``device``: ``WARP_MAX_QLEN``,
+    or less where the card's shared memory a block says so."""
+    with torch.cuda.device(torch.device(device)):
+        q = int(_lib().bwamem_ksw_extend_max_qlen())
+    if q < 0:
+        raise RuntimeError("ksw_extend: could not read the card's shared "
+                           "memory a block")
+    return q
+
+
+def warps_per_sm(Qw: int) -> int:
+    """Warps of the kernel resident on one SM for queries of up to ``Qw``
+    bases (the CUDA occupancy calculator's figure); -1 when refused."""
+    return int(_lib().bwamem_ksw_extend_warps_per_sm(Qw))
+
+
+def plan_wave(scal: torch.Tensor, mat: torch.Tensor) -> WavePlan:
+    """The ``WavePlan`` of a wave from its ``scal`` [B, >=4] (qlen, tlen, h0,
+    w_adj) and matrix, on their card.  One copy to the host (the scalar
+    jobs' count and the two longest queries)."""
+    dev = scal.device
+    qlen, tlen, h0, w_adj = scal[:, 0], scal[:, 1], scal[:, 2], scal[:, 3]
+    on_warp = warp_jobs(qlen, h0, mat, kernel_max_qlen(dev))
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    n_s, Qw, Qs = torch.stack([
+        (~on_warp).sum().to(torch.int32),
+        torch.cat([torch.where(on_warp, qlen, zero), zero]).max(),
+        torch.cat([torch.where(on_warp, zero, qlen), zero]).max(),
+    ]).tolist()
+    scratch = torch.empty(max(n_s, 1) * 2 * (Qs + 1), dtype=torch.int32,
+                          device=dev)
+    return WavePlan(job_order(qlen, tlen, w_adj), scalar_slots(on_warp), n_s,
+                    Qw, Qs, scratch)
 
 
 def ksw_extend_launch(q: torch.Tensor, t: torch.Tensor, scal: torch.Tensor,
                       mat: torch.Tensor, Q: int, o_del: int, e_del: int,
-                      o_ins: int, e_ins: int, zdrop: int) -> torch.Tensor:
+                      o_ins: int, e_ins: int, zdrop: int,
+                      plan: Optional[WavePlan] = None) -> torch.Tensor:
     """One launch of the kernel on prepared operands, the step that
     ``ksw_extend_cuda`` and ``ksw_extend_batch_np`` share.  ``q`` [B, >=Q]
     and ``t`` [B, >=T] uint8 codes with unit column stride; ``scal``
     [B, >=4] int32 = qlen, tlen, h0, w_adj (``band_width``); ``mat`` [5, 5]
-    int32.  Returns [6, B] int32 in ``KEYS`` order."""
-    global LAUNCHES
-    from ..utils import cudabuild
-
+    int32; ``plan`` from ``plan_wave`` (made here when not given).  Returns
+    [6, B] int32 in ``KEYS`` order; adds the wave's scalar jobs to
+    ``SCALAR_JOBS``."""
+    global LAUNCHES, SCALAR_JOBS
     dev = q.device
     for x, dt in ((q, torch.uint8), (t, torch.uint8), (scal, torch.int32),
                   (mat, torch.int32)):
         if x.device != dev or x.dtype != dt:
             raise ValueError(f"expected {dt} on {dev}, got {x.dtype} on {x.device}")
-        if x.dim() != 2 or x.stride(1) != 1:
+        if x.dim() != 2 or (x.numel() and x.stride(1) != 1):
             raise ValueError("kernel operands must be 2-D with unit column stride")
     B = q.shape[0]
     if t.shape[0] != B or scal.shape[0] != B or scal.shape[1] < 4:
         raise ValueError("q, t and scal must share the job dimension")
     if q.shape[1] < Q or not mat.is_contiguous() or mat.numel() != 25:
         raise ValueError("bad query width or scoring matrix")
-    lib = cudabuild.load("extend", _bind)
-    eh = torch.empty((2, Q + 1, B), dtype=torch.int32, device=dev)
     out = torch.empty((6, B), dtype=torch.int32, device=dev)
     if B == 0:
         return out
+    lib = _lib()
+    if plan is None:
+        plan = plan_wave(scal, mat)
+    nxt = torch.empty(1, dtype=torch.int32, device=dev)
     rc = lib.bwamem_ksw_extend_launch(
         q.data_ptr(), q.stride(0), t.data_ptr(), t.stride(0),
-        scal.data_ptr(), scal.stride(0), mat.data_ptr(), eh.data_ptr(),
-        out.data_ptr(), B, Q, o_del, e_del, o_ins, e_ins, zdrop,
-        torch.cuda.current_stream(dev).cuda_stream,
+        scal.data_ptr(), scal.stride(0), mat.data_ptr(),
+        plan.order.data_ptr(), plan.slot.data_ptr(), nxt.data_ptr(),
+        plan.scratch.data_ptr(), plan.Qs, plan.Qw, out.data_ptr(), B, o_del,
+        e_del, o_ins, e_ins, zdrop, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"ksw_extend kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
+    SCALAR_JOBS += plan.n_scalar
     return out
 
 
@@ -264,8 +365,9 @@ def ksw_extend_batch_np(qseqs, tseqs, scoring: DeviceScoring, h0s, ws,
     job, on ``scoring``'s device.
 
     The wave moves as one packed ``[B, Q+T]`` uint8 host-to-device copy, one
-    ``[B, 5]`` int32 copy (qlen, tlen, h0, w_adj, end_bonus), one launch and
-    one ``[6, B]`` device-to-host copy.  Q and T are the wave's longest
+    ``[B, 5]`` int32 copy (qlen, tlen, h0, w_adj, end_bonus), three numbers
+    back (``plan_wave``), one launch and one ``[6, B]`` device-to-host
+    copy.  Q and T are the wave's longest
     query and target: the kernel takes them at run time."""
     sc = scoring
     B = len(qseqs)

@@ -99,3 +99,76 @@ def boundary_table(mask_level: float, drop_ratio: float, min_seed_len: int = 19)
             if min_seed_len <= wb <= la - 2 * min_seed_len:
                 read((0, la), (1, 1 + wb))
     return ivs, rbs, [qlen] * len(ivs), l_pac
+
+
+# three contigs of the warp cases' reference (offset, length, is_alt)
+WARP_CONTIGS = ((0, 300_000, 0), (300_000, 80_000, 0), (380_000, 20_000, 1))
+WARP_L_PAC = 400_000
+
+
+def warp_table(rng, n_random: int = 40):
+    """Reads whose seeds drive ``chain_kernel``'s warp steps to their edges,
+    on the reference ``WARP_CONTIGS`` (no index: seeds are given).  Returns
+    (names, intervals_list, rbegs_list, read_lens) as ``boundary_table``
+    does, one name a read:
+
+    * "equal_keys": 40 chains of one key (past a 32-lane chunk), a seed
+      that joins the last of them (bisect_right), one that opens a chain
+      before them all, one that opens a chain after them;
+    * "key_vs_creation": chains of equal weight created in another order
+      than their keys', and unequal weights among them;
+    * "break_first", "break_last", "large_no_break", "alt_skip": the
+      shadowing walk breaking at its first kept chain, at its last, not
+      breaking with large overlaps on two chains, and skipping an ALT one;
+    * "c128", "c129": 128 chains (the budget), then one more (flagged);
+    * "short", "empty": a read below min_seed_len, a read with no seeds;
+    * "random_*": seeds from both strands and all contigs (some across a
+      contig end), repeats past max_occ, equal starts, 30-400 seeds."""
+    names, ivs, rbs, qlens = [], [], [], []
+
+    def read(name, seeds, qlen):
+        """seeds: (qb, len, [rbeg, ...], s) a seed interval each."""
+        names.append(name)
+        ivs.append([(0, 0, s, qb, qb + ln) for qb, ln, _, s in seeds])
+        rbs.append([np.asarray(r, dtype=np.int64) for _, _, r, _ in seeds])
+        qlens.append(qlen)
+
+    eq = [(200 * k, 25, [1000], 1) for k in range(40)]
+    eq += [(8_050, 25, [1_230], 1), (8_400, 25, [500], 1),
+           (8_800, 25, [1_000], 1), (9_000, 30, [1_000, 2_000], 2)]
+    read("equal_keys", eq, 9_100)
+    read("key_vs_creation",
+         [(0, 30, [30_000], 1), (50, 30, [10_000], 1), (100, 30, [20_000], 1),
+          (150, 45, [5_000], 1), (200, 30, [25_000], 1), (250, 20, [40_000], 1)],
+         400)
+    read("break_first", [(0, 100, [10_000], 1), (0, 40, [50_000], 1)], 150)
+    read("break_last", [(0, 100, [10_000], 1), (200, 100, [50_000], 1),
+                        (210, 40, [90_000], 1)], 320)
+    read("large_no_break", [(0, 120, [10_000], 1), (120, 110, [50_000], 1),
+                            (70, 100, [90_000], 1), (60, 20, [130_000], 1)], 250)
+    read("alt_skip", [(0, 100, [385_000], 1), (10, 40, [10_000], 1),
+                      (20, 30, [50_000], 1)], 150)
+    for n in (128, 129):
+        read(f"c{n}", [(200 * k, 30, [1_000 * (k + 1)], 1) for k in range(n)],
+             200 * n + 100)
+    read("short", [(0, 15, [1_000], 1)], 18)
+    read("empty", [], 150)
+    l_pac = WARP_L_PAC
+    for r in range(n_random):
+        n_intv = int(rng.integers(10, 60))
+        qlen = int(rng.integers(150, 400))
+        anchors = rng.integers(0, 2 * l_pac, int(rng.integers(1, 6)))
+        seeds = []
+        for qb in np.sort(rng.integers(0, qlen - 20, n_intv)):
+            ln = int(rng.integers(19, min(60, qlen - qb) + 1))
+            s = int(rng.choice([1, 2, 3, 8, 600]))
+            k = min(s, int(rng.integers(1, 12)))
+            base = anchors[rng.integers(0, len(anchors), k)] + qb
+            jitter = rng.integers(-150, 150, k) * (rng.random(k) < 0.5)
+            rb = np.clip(base + jitter, 0, 2 * l_pac - ln)
+            if rng.random() < 0.1:  # across the end of a contig
+                end = WARP_CONTIGS[int(rng.integers(0, 3))]
+                rb[0] = end[0] + end[1] - ln // 2
+            seeds.append((int(qb), ln, rb.tolist(), s))
+        read(f"random_{r}", seeds, qlen)
+    return names, ivs, rbs, qlens

@@ -22,9 +22,12 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    that every stage runs in the port's host C++; the CPU tests hold that path
    record-equal to bwamem_tpu's aligner), the kernel must have run, and at least half of the extension jobs must
    have gone to the card; then the PE batch runs once more under
-   torch.profiler for the card's busy and idle share;
-5. timing: the kernel and the plain version on the largest wave of phase 4,
-   with CUDA events after a warm-up;
+   torch.profiler for the card's busy and idle share and each kernel's
+   device time and launches summed over the batch;
+5. timing: the kernel (also from a cold L2) and the plain version on the
+   largest wave of phase 4, with CUDA events after a warm-up, the wave's
+   heaviest job alone, the jobs on the kernel's scalar path and its warps
+   resident a SM;
 6. FM kernels against their references on the 4.6 Mbp index, exactly:
    occ4, bwt_extend and the SA walk against the plain versions on the card
    and the host FMIndex, on seeded rows with the sentinel rows and on
@@ -38,8 +41,10 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    2,000 pairs with the seeding, the SA walks, the chaining and the
    extension on the card, record-equal to the host oracle, with the seed
    checks of phase 11 and the chain checks of phase 13;
-   the SA kernel, the plain version
-   and the host C++ walk timed on that batch's rows; then seeding-shaped
+   the chain kernels against their plain version and the host C++
+   chain_batch on that batch's own seeds, exactly; the SA kernel, the
+   plain version and the host C++ walk timed on that batch's rows; then
+   seeding-shaped
    work for occ4 and
    bwt_extend, which no aligner stage launches yet: an exact-match backward
    search of every read (occ4 of both interval ends per base) and a forward
@@ -81,7 +86,8 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    against the host oracle (engine/chain.py chain_flt(mem_chain), with w,
    kept and first) on a sample plus the reads with the most seeds; the
    kernels timed with CUDA events (the count pass also from a cold L2, by
-   batch size and on the heaviest read alone), the plain version once;
+   batch size and on the heaviest read alone, with its warps resident a
+   SM), the plain version once;
 13. the device chain stage: phase 4's batches with device_stages=("seed",
    "sa_lookup", "chain") (PE and SE), then the PE batch with ("chain",):
    records equal to the host oracle's, both chain kernels launched, at least
@@ -108,7 +114,8 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    mem_flt_chained_seeds to act, on the staged path and counted by cause), no
    extension wave when no read left the path; the device_pipeline, dedup and
    pairing seconds beside phase 13's stages; the PE batch once more under
-   torch.profiler for the card's idle share.
+   torch.profiler for the card's idle share and each kernel's device time
+   and launches summed over the batch.
 
 The launch counts in the ``kernels`` line come from the runs that drive
 each kernel: phase 4's PE batch (ksw_extend), phase 7's PE batch
@@ -119,10 +126,15 @@ chain_emit), phase 15's PE batch (chain2aln_prep, chain2aln) and phase 8's
 one-launch search (backward_search, which no aligner stage calls); each
 count is set to 0 just before and read just after.  Every entry also carries ``bound_ms``, the least time the card could
 take (this run's bytes at 3.35 TB/s or its integer operations at the int32
-rate, whichever is larger, named in ``bound_by``), and ``library_ms``, null
-throughout: no single PyTorch call computes any of these functions.  The
-two kernels redesigned as a warp per read (collect_intv, chain2aln) also
-carry ``slowest_read_ms``, their slowest read alone in this run.  smem1a and
+rate, whichever is larger, named in ``bound_by``), ``library_ms``, null
+throughout: no single PyTorch call computes any of these functions, and
+``batch_ms`` and ``batch_launches``: the kernel's device time summed over
+the profiled PE batches of phases 4 (the default route: the extension
+waves) and 15 (the fused route: every other kernel of the aligner), and
+its launches there (0 for a kernel neither route launches).  The four
+kernels redesigned as a warp per read or job (collect_intv, chain2aln,
+chain, ksw_extend) also carry ``slowest_read_ms`` (``slowest_job_ms`` for
+ksw_extend), their slowest read or job alone in this run.  smem1a and
 strategy1 run on the main path as __device__ functions
 inside collect_intv_kernel; their own per-lane kernels (smem1a_kernel,
 strategy1_kernel) exist to hold each function against its plain version
@@ -307,10 +319,36 @@ def _synthetic_index(length: int):
     return codes, img, seconds
 
 
+# each entry of the kernels line: the __global__ function it times (the op
+# probe's nine kernels run on no aligner route)
+KERNEL_FN = {
+    "ksw_extend": "ksw_extend_kernel", "occ4": "occ4_kernel",
+    "bwt_extend": "extend_kernel", "sa_lookup": "sa_lookup_kernel",
+    "backward_search": "backward_search_kernel",
+    "smem1a": "smem1a_kernel", "strategy1": "strategy1_kernel",
+    "collect_intv": "collect_intv_kernel", "sample_ks": "sample_ks_kernel",
+    "chain": "chain_kernel", "chain_emit": "chain_emit_kernel",
+    "chain2aln_prep": "chain2aln_prep_kernel", "chain2aln": "chain2aln_kernel",
+}
+
+
+def _kernel_of(event_name: str):
+    """The entry of the kernels line whose __global__ function a profiler
+    event names (demangled, or mangled with its length prefix), or None."""
+    import re
+
+    for entry, fn in KERNEL_FN.items():
+        if (f"{len(fn)}{fn}" in event_name or re.search(
+                rf"(?<![A-Za-z0-9_]){fn}(?![A-Za-z0-9_])", event_name)):
+            return entry
+    return None
+
+
 def _device_busy(aligner, reads, dev):
     """Seconds the card was busy (union of its kernels and copies in a
-    torch.profiler trace) while ``aligner`` aligned ``reads``, and the
-    wall seconds of that call."""
+    torch.profiler trace) while ``aligner`` aligned ``reads``, the wall
+    seconds of that call, and per entry of the kernels line its kernel's
+    device ms summed over the trace and its launches there."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -320,8 +358,9 @@ def _device_busy(aligner, reads, dev):
         aligner.align_seqs(reads)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
     if not spans:
         raise AssertionError("the profiler saw no work on the card")
     busy_us, (lo, hi) = 0.0, spans[0]
@@ -331,7 +370,14 @@ def _device_busy(aligner, reads, dev):
             lo, hi = s, e
         else:
             hi = max(hi, e)
-    return (busy_us + hi - lo) / 1e6, wall
+    per = {}
+    for e in dev_events:
+        entry = _kernel_of(e.name)
+        if entry is not None:
+            ms, n = per.get(entry, (0.0, 0))
+            per[entry] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                          n + 1)
+    return (busy_us + hi - lo) / 1e6, wall, per
 
 
 def _timed(aligner, reads, dev):
@@ -479,10 +525,27 @@ def phase_main_path(dev, index, codes):
                           launches=res["launches"], stages=res["stages"],
                           wave=STATS.largest_wave)
         if mode == "pe":
-            busy, wall = _device_busy(port, batch, dev)
+            busy, wall, per = _device_busy(port, batch, dev)
+            _check_traced("pe", per, {"ksw_extend": res["launches"]})
+            runs["pe"]["batch_kernels"] = per
             print(f"  pe: again under torch.profiler: card busy {busy:.4f} s of "
-                  f"{wall:.2f} s, idle share {1 - busy / wall:.4f}")
+                  f"{wall:.2f} s, idle share {1 - busy / wall:.4f}; kernels "
+                  "summed over the batch: " + _per_kernel(per))
     return runs
+
+
+def _check_traced(tag, per, launches):
+    """The profiled rerun of a batch must show each kernel as often as the
+    counted run launched it, or its summed time would miss launches."""
+    seen = {k: per.get(k, (0.0, 0))[1] for k in launches}
+    if seen != launches:
+        raise AssertionError(f"{tag}: the profiler saw launches {seen}, the "
+                             f"run made {launches}")
+
+
+def _per_kernel(per) -> str:
+    return ", ".join(f"{k} {ms:.4f} ms in {n} launches"
+                     for k, (ms, n) in sorted(per.items()))
 
 
 def _event_ms(fn, reps, dev):
@@ -543,20 +606,39 @@ def phase_timing(dev, wave):
     scal = torch.stack([qlen, tlen, h0, w_adj], dim=1)
     q8, t8 = q.to(torch.uint8), t.to(torch.uint8)
     B, Q = q.shape
-    ms = _event_ms(lambda: ext.ksw_extend_launch(
-        q8, t8, scal, sc.mat, Q, sc.o_del, sc.e_del, sc.o_ins, sc.e_ins,
-        sc.zdrop), 20, dev)
+    plan = ext.plan_wave(scal, sc.mat)
+
+    def launch(rows=slice(None), p=plan):
+        return ext.ksw_extend_launch(q8[rows], t8[rows], scal[rows], sc.mat, Q,
+                                     sc.o_del, sc.e_del, sc.o_ins, sc.e_ins,
+                                     sc.zdrop, p)
+
+    ms = _event_ms(launch, 20, dev)
+    cold_ms = _cold_ms(launch, 5, dev)
+    # the heaviest job (first in the kernel's order) alone
+    top = int(plan.order[0])
+    one = slice(top, top + 1)
+    plan1 = ext.plan_wave(scal[one], sc.mat)
+    top_ms = _event_ms(lambda: launch(one, plan1), 20, dev)
     wrapper_ms = _event_ms(lambda: ext.ksw_extend_cuda(*args), 20, dev)
     plain_ms = _event_ms(lambda: ext.ksw_extend_torch(*args), 3, dev)
     # the DP cells inside each job's band, ~10 integer operations a cell
-    cells = int((torch.minimum(qlen, 2 * w_adj + 1).long() * tlen.long()).sum())
+    band = torch.minimum(qlen, 2 * w_adj + 1).long() * tlen.long()
+    cells = int(band.sum())
     bound = _bound(q8.numel() + t8.numel() + 4 * (scal.numel() + sc.mat.numel())
                    + 24 * B, 10 * cells)
-    print(f"  largest wave B={B} Q={Q} T={t.shape[1]}: kernel {ms:.4f} ms, "
-          f"ksw_extend_cuda (checks, conversions, kernel) {wrapper_ms:.4f} ms, "
-          f"plain PyTorch {plain_ms:.4f} ms; {cells} cells in band, bound "
+    print(f"  largest wave B={B} Q={Q} T={t.shape[1]}: kernel {ms:.4f} ms "
+          f"({cold_ms:.4f} ms from a cold L2), ksw_extend_cuda (checks, "
+          f"conversions, plan, kernel) {wrapper_ms:.4f} ms, plain PyTorch "
+          f"{plain_ms:.4f} ms; {cells} cells in band, bound "
           f"{bound['bound_ms']:.5f} ms by {bound['bound_by']}")
-    return ms, plain_ms, err, bound
+    print(f"  the heaviest job alone (job {top}: qlen {int(qlen[top])}, tlen "
+          f"{int(tlen[top])}, {int(band[top])} cells in band): {top_ms:.4f} ms; "
+          f"jobs on the scalar path {plan.n_scalar}; the group DP takes "
+          f"queries of up to {ext.kernel_max_qlen(dev)} bases here; warps "
+          f"resident a SM at Q={plan.Qw}: {ext.warps_per_sm(plan.Qw)}")
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound=bound,
+                slowest_ms=top_ms)
 
 
 def phase_fm_kernels(dev, fm):
@@ -893,6 +975,13 @@ def phase_chr20(dev):
         raise AssertionError("chr20: SA walks did not all run on the card")
     _check_seeded("chr20", res, reads)
     _check_chained("chr20", res, reads)
+    x = _chain_exact(dev, index, reads)
+    print(f"  chr20 chain kernels on the batch's own seeds: max|kernel-plain| "
+          f"{x['e_plain']}; reads whose chains differ from the host C++ "
+          f"chain_batch {x['e_host']} (of {len(reads) - int(x['ovf'].sum())} "
+          f"not flagged by C = 128)")
+    if x["e_plain"] or x["e_host"]:
+        raise AssertionError("chr20: a chain kernel disagrees with its references")
     sa_ms, sa_plain_ms, sa_bound = _time_sa("64 Mbp, PE batch", dev, fm,
                                             SA_STATS.largest_rows)
     launches, err, mid = _rank_drive(dev, fm, reads)
@@ -933,9 +1022,9 @@ def phase_probe(dev):
                 bound=_bound(nbytes, ops))
 
 
-# the kernels redesigned as a warp per read, whose entries carry their
-# slowest read's time alone
-REDESIGNED = ("collect_intv", "chain2aln")
+# the kernels redesigned as a warp per read (or a lane group per job),
+# whose entries carry their slowest read's (job's) time alone
+REDESIGNED = ("collect_intv", "chain2aln", "ksw_extend", "chain")
 SEED_REPLACES = {
     "smem1a": "bwamem_tpu/ops/smem_tpu.py:39",
     "strategy1": "bwamem_tpu/ops/seed_tpu.py:80",
@@ -1271,17 +1360,17 @@ def _chain_key(c, full: bool):
     return key + ((c.w, c.kept, c.first) if full else ())
 
 
-def phase_chain_kernels(dev, index, batch):
-    """Phase 12: the chain kernels = plain (card) = host C++ = host oracle on
-    the PE batch's real seeds, then their times."""
+def _chain_exact(dev, index, batch):
+    """The chain kernels on a batch's real seeds (seeded and walked on the
+    card, as the aligner's chain stage gets them) against the plain version
+    on the card, every output, and chain for chain against the host C++
+    chain_batch on every read the C budget does not flag.  Returns the
+    operands and results the timing needs, with the two differences."""
     import numpy as np
-    import torch
 
     from bwamem_tpu_torch.api.options import MemOptions
     from bwamem_tpu_torch.engine import native_chain, pipeline
-    from bwamem_tpu_torch.engine.chain import chain_flt, mem_chain
     from bwamem_tpu_torch.engine.exec_ctx import ExecConfig
-    from bwamem_tpu_torch.engine.seed import SmemIntv
     from bwamem_tpu_torch.engine.state import device_contigs
     from bwamem_tpu_torch.ops import chain as co
     from bwamem_tpu_torch.utils.encoding import seq_to_codes_batch
@@ -1291,8 +1380,6 @@ def phase_chain_kernels(dev, index, batch):
     bns = eng.idx.bns
     reads = seq_to_codes_batch(batch)
     qlens = np.asarray([len(r) for r in reads], dtype=np.int32)
-    # the table as the aligner's chain stage gets it: seeded and walked on
-    # the card, never on the host
     tab, _, _, _ = pipeline._device_table(opt, eng, reads, qlens, ExecConfig(
         device=dev, device_seed=True, device_sa_lookup=True, device_chain=True))
     ctg = device_contigs(bns, dev)
@@ -1300,8 +1387,6 @@ def phase_chain_kernels(dev, index, batch):
     got = co.chain_cuda(ctg, tab, params)
     plain, plain_ms = _once_ms(lambda: co.chain_torch(ctg, tab, params), dev)
     e_plain = max(_diff(g, p) for g, p in zip(got, plain))
-    # chain for chain against the host C++ on every read, and against the
-    # oracle (which also sets w, kept and first) on a sample
     lists, (ovf, seed_cnt, nslots) = co.chains_device_batch(ctg, tab, params)
     rows, intv_off, n_intv, rbegs, rbeg_off, cnt = (
         t.cpu().numpy() for t in tab[1:])
@@ -1312,6 +1397,31 @@ def phase_chain_kernels(dev, index, batch):
     e_host = sum(1 for i, (a, b) in enumerate(zip(lists, host)) if not ovf[i]
                  and [_chain_key(c, False) for c in a]
                  != [_chain_key(c, False) for c in b])
+    return dict(opt=opt, eng=eng, bns=bns, reads=reads, qlens=qlens, tab=tab,
+                ctg=ctg, params=params, got=got, plain_ms=plain_ms,
+                e_plain=e_plain, e_host=e_host, lists=lists, ovf=ovf,
+                seed_cnt=seed_cnt, nslots=nslots,
+                flat=(rows, intv_off, n_intv, rbegs, rbeg_off, cnt))
+
+
+def phase_chain_kernels(dev, index, batch):
+    """Phase 12: the chain kernels = plain (card) = host C++ = host oracle on
+    the PE batch's real seeds, then their times."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch.engine.chain import chain_flt, mem_chain
+    from bwamem_tpu_torch.engine.seed import SmemIntv
+    from bwamem_tpu_torch.ops import chain as co
+
+    x = _chain_exact(dev, index, batch)
+    opt, eng, bns, reads, qlens = (x[k] for k in ("opt", "eng", "bns", "reads",
+                                                 "qlens"))
+    tab, ctg, params, got = x["tab"], x["ctg"], x["params"], x["got"]
+    plain_ms, e_plain, e_host = x["plain_ms"], x["e_plain"], x["e_host"]
+    lists, ovf, seed_cnt, nslots = (x[k] for k in ("lists", "ovf", "seed_cnt",
+                                                  "nslots"))
+    rows, intv_off, n_intv, rbegs, rbeg_off, cnt = x["flat"]
     rng = np.random.default_rng(SEED + 7)
     pick = sorted(rng.choice(len(reads), SEED_SAMPLE, replace=False).tolist())
     pick = sorted(set(pick) | set(np.argsort(seed_cnt)[-8:].tolist()))
@@ -1338,21 +1448,25 @@ def phase_chain_kernels(dev, index, batch):
     frac = torch.empty(B, dtype=torch.float64, device=dev)
     flags = torch.zeros(1, dtype=i32, device=dev)
 
-    def count(sub=tabp, off=seed_off):
-        co.chain_launch(ctg, sub, off, params, co.C_MAX, assign, slot_dst, crec,
-                        n_chain, n_seed, frac, o32, s32, flags)
+    order = co.read_order(seed_cnt_t)
+
+    def count(sub=tabp, off=seed_off, order=order):
+        co.chain_launch(ctg, sub, off, params, co.C_MAX, order, assign,
+                        slot_dst, crec, n_chain, n_seed, frac, o32, s32, flags)
 
     sizes = {}
     for nb in sorted({n for n in (1000, 3000, B // 2) if n < B}):
-        sub, _, off = co.prepare(ctg, tabp._replace(
+        sub, cnt_nb, off = co.prepare(ctg, tabp._replace(
             qlen=tabp.qlen[:nb], intv_off=tabp.intv_off[:nb],
             n_intv=tabp.n_intv[:nb]))
-        sizes[nb] = _event_ms(lambda: count(sub, off), 10, dev)
+        ord_nb = co.read_order(cnt_nb)
+        sizes[nb] = _event_ms(lambda: count(sub, off, ord_nb), 10, dev)
     top = int(np.argmax(seed_cnt))
-    one, _, off1 = co.prepare(ctg, tabp._replace(
+    one, cnt1, off1 = co.prepare(ctg, tabp._replace(
         qlen=tabp.qlen[top: top + 1], intv_off=tabp.intv_off[top: top + 1],
         n_intv=tabp.n_intv[top: top + 1]))
-    top_ms = _event_ms(lambda: count(one, off1), 10, dev)
+    ord1 = co.read_order(cnt1)
+    top_ms = _event_ms(lambda: count(one, off1, ord1), 10, dev)
     c_ms = _event_ms(count, 10, dev)
     cold_ms = _cold_ms(count, 5, dev)
     nc, ns = int(n_chain.sum()), int(n_seed.sum())
@@ -1386,7 +1500,8 @@ def phase_chain_kernels(dev, index, batch):
         f"B={nb} {ms:.4f} ms" for nb, ms in sizes.items())
         + f", B={B} {c_ms:.4f} ms; the read with the most seeds alone "
         f"({int(seed_cnt[top])} seeds, {int(nslots[top])} slots): {top_ms:.4f} ms, "
-        f"{top_ms * 1e3 / max(int(seed_cnt[top]), 1):.3f} us per seed")
+        f"{top_ms * 1e3 / max(int(seed_cnt[top]), 1):.3f} us per seed; "
+        f"chain_kernel warps resident a SM: {co.warps_per_sm()}")
     print(f"  max|kernel-plain| {e_plain}; reads whose chains differ from the "
           f"host C++ chain_batch {e_host} (of {B}), from the oracle "
           f"chain_flt(mem_chain) with w, kept and first {e_oracle} (of "
@@ -1395,7 +1510,7 @@ def phase_chain_kernels(dev, index, batch):
         raise AssertionError("a chain kernel disagrees with its references")
     io = 8 * T + 56 * N + 28 * B
     return {
-        "chain": dict(err=0, ms=c_ms, plain_ms=plain_ms,
+        "chain": dict(err=0, ms=c_ms, plain_ms=plain_ms, slowest_ms=top_ms,
                       bound=_bound(io + 32 * B, 60 * T)),
         "chain_emit": dict(err=0, ms=both_ms - c_ms, plain_ms=plain_ms,
                            bound=_bound(io + 4 * T + 16 * B + 56 * nc + 32 * ns,
@@ -1702,18 +1817,35 @@ def phase_fused(dev, index, runs, chain_run, big):
             ref_st = chain_run["runs"]["pe+seed+sa+chain"]["stages"]
             print(f"  {tag}: phase 13's staged run of the same batch: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in ref_st.items()) + " s")
-            busy, wall = _device_busy(port, r["batch"], dev)
+            busy, wall, per = _device_busy(port, r["batch"], dev)
+            _check_traced(tag, per, {**res["seed_launches"],
+                                     **res["chain_launches"], **la,
+                                     "sa_lookup": res["sa_launches"]})
+            res["batch_kernels"] = per
             print(f"  {tag}: again under torch.profiler: card busy {busy:.4f} s "
-                  f"of {wall:.2f} s, idle share {1 - busy / wall:.4f}")
+                  f"of {wall:.2f} s, idle share {1 - busy / wall:.4f}; kernels "
+                  "summed over the batch: " + _per_kernel(per))
         out[tag] = res
-    return dict(runs=out, launches=out["pe+fused"]["fused_launches"])
+    return dict(runs=out, launches=out["pe+fused"]["fused_launches"],
+                batch_kernels=out["pe+fused"]["batch_kernels"])
 
 
 def _redesign(name: str, res: dict) -> dict:
-    """A redesigned kernel's slowest read alone, as this run timed it."""
+    """A redesigned kernel's slowest job (the wave kernel) or read alone, as
+    this run timed it."""
     if name not in REDESIGNED:
         return {}
-    return {"slowest_read_ms": res["slowest_ms"]}
+    unit = "job" if name == "ksw_extend" else "read"
+    return {f"slowest_{unit}_ms": res["slowest_ms"]}
+
+
+def _batch(name: str, traces) -> dict:
+    """An entry's kernel time summed over the profiled batches of phases 4
+    and 15, and its launches there (0 and 0 for a kernel no route of those
+    batches launches)."""
+    ms = sum(t.get(name, (0.0, 0))[0] for t in traces)
+    n = sum(t.get(name, (0.0, 0))[1] for t in traces)
+    return {"batch_ms": ms, "batch_launches": n}
 
 
 def main() -> int:
@@ -1748,7 +1880,7 @@ def main() -> int:
     runs = phase_main_path(dev, index, codes)
 
     print("[5] kernel timing on the largest PE wave")
-    ms, plain_ms, err5, ksw_bound = phase_timing(dev, runs["pe"]["wave"])
+    ksw = phase_timing(dev, runs["pe"]["wave"])
 
     print("[6] FM kernels vs plain PyTorch (card) vs host FMIndex, tolerance 0 "
           "(integers, exact)")
@@ -1795,12 +1927,15 @@ def main() -> int:
     index.close()
 
     fm_src = "bwamem_tpu_torch/csrc/fmindex.cu"
-    print(json.dumps({"kernels": [
+    traces = (runs["pe"]["batch_kernels"], fused_run["batch_kernels"])
+    kernels = [
         {"name": "ksw_extend", "route": "cuda",
          "source": "bwamem_tpu_torch/csrc/extend.cu",
          "replaces": "bwamem_tpu/ops/extend_pallas.py:83",
-         "launches": runs["pe"]["launches"], "max_abs_err": max(err3, err5),
-         "ms": ms, "plain_ms": plain_ms, **ksw_bound},
+         "launches": runs["pe"]["launches"],
+         "max_abs_err": max(err3, ksw["err"]), "ms": ksw["ms"],
+         "plain_ms": ksw["plain_ms"], **ksw["bound"],
+         **_redesign("ksw_extend", ksw)},
         {"name": "occ4", "route": "cuda", "source": fm_src,
          "replaces": "bwamem_tpu/ops/fmindex_tpu.py:249",
          "launches": big["launches"]["occ4"],
@@ -1855,7 +1990,8 @@ def main() -> int:
          "replaces": "bwamem_tpu/ops/chain_tpu.py:41",
          "launches": chain_run["launches"][name],
          "max_abs_err": chain_k[name]["err"], "ms": chain_k[name]["ms"],
-         "plain_ms": chain_k[name]["plain_ms"], **chain_k[name]["bound"]}
+         "plain_ms": chain_k[name]["plain_ms"], **chain_k[name]["bound"],
+         **_redesign(name, chain_k[name])}
         for name in ("chain", "chain_emit")
     ] + [
         {"name": name, "route": "cuda",
@@ -1866,7 +2002,10 @@ def main() -> int:
          "plain_ms": fused_k[name]["plain_ms"], **fused_k[name]["bound"],
          **_redesign(name, fused_k[name])}
         for name in ("chain2aln_prep", "chain2aln")
-    ]}))
+    ]
+    for k in kernels:
+        k.update(_batch(k["name"], traces))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -716,9 +716,9 @@ def _regions_per_read(regs):
 @needs_card
 @pytest.mark.parametrize("name", CASES)
 def test_cuda_ksw_kernel_matches_host_ksw(name):
-    """P1, the wave kernel, which keeps the scalar DP of csrc/extend.cuh:
-    every result of every job of each case equal to the host C++
-    ksw_extend2 (max error 0)."""
+    """P1, the wave kernel (a job on a lane group, csrc/extend.cuh
+    `ksw_extend_group`): every result of every job of each case equal to the
+    host C++ ksw_extend2 (max error 0)."""
     from bwamem_tpu_torch.engine import native_ksw
 
     case = make_case(name)
@@ -731,6 +731,145 @@ def test_cuda_ksw_kernel_matches_host_ksw(name):
                                    st["zdrop"], h0s, ws, bons)
     for k in ext.KEYS:
         assert got[k].cpu().tolist() == [h[k] for h in host], k
+
+
+def _ksw_wave(rng, qlens, tlens, h0s):
+    """Jobs whose targets share most of their query (so the band holds
+    real scores) at the given lengths and h0, as (qseq, tseq) arrays."""
+    out = []
+    for ql, tl in zip(qlens, tlens):
+        q = rng.integers(0, 5 if rng.random() < 0.2 else 4, ql).astype(np.uint8)
+        t = np.resize(q, tl).copy()
+        for p in rng.integers(0, max(tl, 1), tl // 12):
+            t[p] = (t[p] + 1) % 4
+        if tl > 40 and rng.random() < 0.3:
+            t = np.insert(t, tl // 2, rng.integers(0, 4, 3).astype(np.uint8))[:tl]
+        out.append((q, t))
+    return out
+
+
+def _ksw_wave_tensors(js, h0s, w, bonus):
+    B = len(js)
+    Q = max([len(q) for q, _ in js] + [1])
+    T = max([len(t) for _, t in js] + [1])
+    qa, ta = np.zeros((B, Q), np.uint8), np.zeros((B, T), np.uint8)
+    for b, (q, t) in enumerate(js):
+        qa[b, :len(q)], ta[b, :len(t)] = q, t
+    per = [[len(q) for q, _ in js], [len(t) for _, t in js], h0s, [w] * B,
+           [bonus] * B]
+    return [torch.from_numpy(qa).cuda(), torch.from_numpy(ta).cuda()] + [
+        torch.tensor(v, dtype=torch.int32).cuda() for v in per]
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("shape", ("ragged", "one", "empty"))
+def test_cuda_ksw_wave_scalar_path_and_edges(shape):
+    """P1 on a ragged wave whose jobs include queries of 4,095 bases (the
+    group DP's limit), 4,096-4,200 bases and an h0 that could take H to
+    2^19 (those take the kernel's scalar path, counted), on a wave of one
+    job and on a wave of none: every result of every job equal to the
+    plain version and the host C++ ksw_extend2 (difference 0)."""
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine import native_ksw
+    from bwamem_tpu_torch.engine.state import device_scoring
+
+    rng = np.random.default_rng(23)
+    opt = MemOptions()
+    if shape == "ragged":
+        ql = rng.integers(1, 300, 60).tolist() + [4095, 4096, 4150, 4200, 50, 120]
+        tl = rng.integers(1, 400, 60).tolist() + [260, 300, 200, 150, 80, 130]
+        h0 = rng.integers(0, 80, 60).tolist() + [30, 30, 30, 30,
+                                                 (1 << 19) - 40, (1 << 19) - 600]
+        n_scalar = 4  # 4,096-4,200 bases, and 2^19 - 40 + 50 x 1
+    else:
+        n = 1 if shape == "one" else 0
+        ql, tl, h0, n_scalar = [140] * n, [260] * n, [35] * n, 0
+    js = _ksw_wave(rng, ql, tl, h0)
+    args = _ksw_wave_tensors(js, h0, opt.w, opt.pen_clip3)
+    sc = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.zdrop, opt.a)
+    mat = torch.tensor(opt.mat, dtype=torch.int32).reshape(5, 5).cuda()
+    before, scalar = ext.LAUNCHES, ext.SCALAR_JOBS
+    got = ext.ksw_extend(*args, mat, *sc)
+    assert ext.LAUNCHES == before + (len(js) > 0)  # no launch for no job
+    assert ext.SCALAR_JOBS - scalar == n_scalar
+    plain = ext.ksw_extend_torch(*args, mat, *sc)
+    host = native_ksw.extend_batch(js, opt.mat, *sc[:5], h0,
+                                   [opt.w] * len(js), [opt.pen_clip3] * len(js))
+    for k in ext.KEYS:
+        assert torch.equal(got[k], plain[k]), k
+        assert got[k].cpu().tolist() == [h[k] for h in host], k
+    # the wave entry on the same jobs
+    assert ext.ksw_extend_batch_np(
+        [q for q, _ in js], [t for _, t in js], device_scoring(opt, "cuda"), h0,
+        [opt.w] * len(js), [opt.pen_clip3] * len(js)) == host
+
+
+@pytest.mark.cuda
+@needs_card
+def test_cuda_ksw_wave_scores_past_int8_take_the_scalar_path():
+    """A matrix with a score past int8: every job of the wave runs on the
+    kernel's scalar path and equals the plain version."""
+    rng = np.random.default_rng(29)
+    js = _ksw_wave(rng, rng.integers(1, 200, 40).tolist(),
+                   rng.integers(1, 250, 40).tolist(), [0] * 40)
+    h0 = rng.integers(0, 300, 40).tolist()
+    args = _ksw_wave_tensors(js, h0, 60, 5)
+    mat = torch.full((5, 5), -90, dtype=torch.int32)
+    mat.fill_diagonal_(200)
+    mat[4], mat[:, 4] = -1, -1
+    scalar = ext.SCALAR_JOBS
+    got = ext.ksw_extend(*args, mat.cuda(), 300, 10, 300, 10, 500, 200)
+    assert ext.SCALAR_JOBS - scalar == 40
+    plain = ext.ksw_extend_torch(*args, mat.cuda(), 300, 10, 300, 10, 500, 200)
+    for k in ext.KEYS:
+        assert torch.equal(got[k], plain[k]), k
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("opts", ({}, {"min_chain_weight": 30,
+                                       "max_chain_extend": 3}),
+                         ids=("default", "weight30_extend3"))
+def test_cuda_chain_warp_cases(opts):
+    """chain_kernel on the reads that drive its warp steps to their edges
+    (``chain_cases.warp_table``: equal keys past a 32-lane chunk, equal
+    weights in key against creation order, the shadowing breaks, 128 and
+    129 chains): every column of ``Chains`` (the chain rows' rid, is_alt,
+    n_seeds, frac_rep bits, w, kept, first; the seed rows; the counts and
+    flags) equal to the plain version, and the chains equal to the host
+    oracle's and, in what the host C++ chain_batch sets (frac_rep, ALT
+    flag, seeds, in output order), to its chains."""
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine import native_chain
+    from bwamem_tpu_torch.engine.chain import chain_flt, mem_chain
+    from bwamem_tpu_torch.engine.seed import SmemIntv
+    from bwamem_tpu_torch.index.build import BntAnn, Bntseq
+
+    opt = MemOptions(**opts)
+    names, ivs, rbs, qlens = chain_cases.warp_table(np.random.default_rng(5))
+    bns = Bntseq(l_pac=chain_cases.WARP_L_PAC, anns=[
+        BntAnn(offset=o, name=f"c{i}", length=n, is_alt=a)
+        for i, (o, n, a) in enumerate(chain_cases.WARP_CONTIGS)])
+    flat = chain_cases.seed_table(ivs, rbs, qlens)
+    tab = co.SeedTable.from_numpy("cuda", *flat)
+    ctg = co.DeviceContigs.from_host(bns, "cuda")
+    params = co.ChainParams.from_opt(opt)
+    got = co.chain(ctg, tab, params)
+    for g, p in zip(got, co.chain_torch(ctg, tab, params)):
+        assert torch.equal(g, p)
+    lists, (ovf, _, nslots) = co.chain_lists(got)
+    assert [names[i] for i in np.flatnonzero(ovf)] == ["c129"]
+    assert nslots[names.index("c128")] == 128
+    host = native_chain.chain_batch(opt, bns, *flat)
+    for i, name in enumerate(names):
+        if ovf[i]:
+            continue
+        exp = chain_flt(opt, mem_chain(opt, None, bns, qlens[i],
+                                       [SmemIntv(*p) for p in ivs[i]], rbs[i]))
+        assert [_chain_key(c) for c in lists[i]] == [_chain_key(c) for c in exp], name
+        assert [_chain_key(c)[4:] for c in lists[i]] == [
+            _chain_key(c)[4:] for c in host[i]], name
 
 
 @pytest.mark.cuda

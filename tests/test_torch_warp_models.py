@@ -98,19 +98,25 @@ def scalar_extend(q, t, h0, w, mat, o_del, e_del, o_ins, e_ins, zdrop,
                 gscore=gscore, max_off=max_off, rows=min(i + 1, tlen), cells=cells)
 
 
-def chunk_for(n):
-    """ksw_extend_warp's cells a lane for a row of ``n`` cells: the least of
-    1, 2, 3 that covers the row in one pass, else 5 (and passes)."""
-    return np.where(n <= 32, 1, np.where(n <= 64, 2, np.where(n <= 96, 3, 5)))
+def chunk_for(n, lanes=LANES):
+    """ksw_extend_group's cells a lane for a row of ``n`` cells on a group of
+    ``lanes``: the least of 1, 2, 3, 5 that covers the row in one pass, else
+    160 / lanes (at least 5) and passes."""
+    big = max(CHUNK, PASS // lanes)
+    return np.where(n <= lanes, 1, np.where(n <= 2 * lanes, 2, np.where(
+        n <= 3 * lanes, 3, np.where(n <= 5 * lanes, 5, big))))
 
 
 def warp_extend(qs, ts, qlens, tlens, h0, w, mat, o_del, e_del, o_ins, e_ins,
-                zdrop):
-    """``ksw_extend_warp`` on J jobs at once: per row and pass, each job's
-    cells [base, base + 32 C) as [J, LANES, CHUNK] (lane l's C cells, the
-    rest masked), C by ``chunk_for``; every step a lane takes is a step
-    here along the lane axes.  ``qs`` [J, Q], ``ts`` [J, T] codes, ``w``
-    after ``band_width``; int64 throughout."""
+                zdrop, lanes=LANES):
+    """``ksw_extend_group`` (a group of ``lanes``; ``ksw_extend_warp``: 32)
+    on J jobs at once: per row and pass, each job's cells [base, base +
+    lanes C) as [J, lanes, C] (lane l's C cells, the rest masked), C by
+    ``chunk_for``; every step a lane takes is a step here along the lane
+    axes.  ``qs`` [J, Q], ``ts`` [J, T] codes, ``w`` after ``band_width``;
+    int64 throughout."""
+    LANES = lanes
+    CHUNK = max(5, PASS // lanes)
     J, Q = qs.shape
     oe_del, oe_ins = o_del + e_del, o_ins + e_ins
     jj = np.arange(Q + 2)
@@ -136,7 +142,7 @@ def warp_extend(qs, ts, qlens, tlens, h0, w, mat, o_del, e_del, o_ins, e_ins,
         h1 = np.where(b == 0, np.maximum(h0[a] - (o_del + e_del * (i + 1)), 0), 0)
         n = e - b
         cells[a] += np.maximum(n, 0)
-        C = chunk_for(n)[:, None, None]
+        C = chunk_for(n, LANES)[:, None, None]
         hc, pc = h1.copy(), np.full(A, NO_PREFIX)
         key, hl = np.full((A, LANES), -1), np.full((A, LANES), -1)
         lo, hi = np.full((A, LANES), BIG), np.full((A, LANES), -1)
