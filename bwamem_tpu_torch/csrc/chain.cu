@@ -58,15 +58,22 @@
 // chains as seeds); `chain_emit_kernel` writes chain_rows [Nc, 7] (rid,
 // is_alt, n_seeds, frac_rep bits, w, kept, first) and seed_rows [Ns, 4]
 // (rbeg, qbeg, len, score) at the scanned offsets, chains in output order
-// and each chain's seeds in enumeration order.
+// and each chain's seeds in enumeration order.  It too runs a warp per
+// read, in the same order: a lane a chain row (16-byte stores, the ALT flag
+// loaded once a chain), then the seeds 32 at a time, a lane a seed found
+// by the same window search; a seed's place is its slot's first place,
+// plus the slot's seeds placed by earlier batches (a count per slot in the
+// warp's shared memory, advanced once a batch by the slot's highest lane),
+// plus its rank among the batch's lanes of that slot (__match_any_sync).
+// It writes no scratch, so it can be launched (and timed) alone.
 //
-// What bounds it: the heaviest read's chain of dependent steps (a seed is
+// What bounds them: the heaviest read's chain of dependent steps (a seed is
 // a few shuffles, one to four ballots and a few shared-memory loads; the
 // filter's shadowing walk a few ballots a chain), and on a batch of
 // thousands of reads the warps resident a SM (registers and the chain
 // table's shared memory); not bytes (a few tens of MB, microseconds at the
-// card's memory rate) or operations.  `chain_emit_kernel` stays a thread per
-// read: it moves each read's rows once.
+// card's memory rate) or operations.  The emit pass is a few dependent
+// loads a batch of 32 seeds: its heaviest read is ~6 such batches.
 //
 // Budget: C chain slots per read (run-time, at most kMaxC).  A read that
 // needs more sets its flag and stops; its caller chains it on the host.
@@ -79,8 +86,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // chain_emit_kernel: a read a thread
-constexpr int kWarps = 4;      // chain_kernel: a read a warp
+constexpr int kWarps = 4;  // both kernels: a read a warp, 4 warps a block
 constexpr int kMaxC = 128;
 constexpr int kChunks = kMaxC / 32;
 constexpr unsigned kFull = 0xffffffffu;
@@ -164,6 +170,53 @@ __device__ __forceinline__ unsigned lanes_below(int lane) {
   return (1u << lane) - 1u;
 }
 
+// 32 intervals of a read, an interval a lane (intervals w0 + lane of the
+// read's ni from row io): its query start and length, where its seeds
+// start in rbegs and how many it has, the window's exclusive scan of those
+// counts and their total; `bad` when the interval's seeds lie outside
+// rbegs or its count is negative.
+struct Window {
+  int32_t qb, slen;
+  int64_t off, n, excl, total;
+  bool bad;
+};
+
+__device__ __forceinline__ Window load_window(const Table& tb, int64_t io,
+                                              int64_t ni, int64_t w0,
+                                              int lane) {
+  Window w{0, 0, 0, 0, 0, 0, false};
+  const int64_t pi = w0 + lane;
+  if (pi < ni) {
+    const int64_t* p = tb.rows + (io + pi) * 5;
+    w.qb = static_cast<int32_t>(p[3]);
+    w.slen = static_cast<int32_t>(p[4] - p[3]);
+    w.off = tb.rbeg_off[io + pi];
+    w.n = tb.cnt[io + pi];
+    w.bad = w.n < 0 || w.off < 0 || w.off + w.n > tb.n_rbegs;
+  }
+  int64_t inc = w.n;  // inclusive scan of the window's seed counts
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int64_t v = __shfl_up_sync(kFull, inc, d);
+    if (lane >= d) inc += v;
+  }
+  w.excl = inc - w.n;
+  w.total = __shfl_sync(kFull, inc, 31);
+  return w;
+}
+
+// The lane of the window's interval that holds its seed rel: the last k
+// with excl[k] <= rel, by a 5-step search over the lanes.
+__device__ __forceinline__ int seed_interval(const Window& w, int64_t rel) {
+  int k = 0;
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1) {
+    const int64_t ek = __shfl_sync(kFull, w.excl, k + step);
+    if (ek <= rel) k += step;
+  }
+  return k;
+}
+
 // One read on the 32 lanes of a warp (all lanes call it with the same i).
 __device__ void chain_read(const int i, const int lane, Slots& S,
                            const Table& tb, const Ctg& ctg, const Opts& o,
@@ -232,44 +285,20 @@ __device__ void chain_read(const int i, const int lane, Slots& S,
   int64_t tw = 0;  // the window's first seed, in enumeration order
   for (int64_t w0 = 0; w0 < ni; w0 += 32) {
     // 32 intervals a window, an interval a lane
-    const int64_t pi = w0 + lane;
-    int64_t off = 0, n = 0;
-    int32_t qb = 0, slen = 0;
-    bool bad = false;
-    if (pi < ni) {
-      const int64_t* p = tb.rows + (io + pi) * 5;
-      qb = static_cast<int32_t>(p[3]);
-      slen = static_cast<int32_t>(p[4] - p[3]);
-      off = tb.rbeg_off[io + pi];
-      n = tb.cnt[io + pi];
-      bad = n < 0 || off < 0 || off + n > tb.n_rbegs;
-    }
-    if (__any_sync(kFull, bad)) {
+    const Window win = load_window(tb, io, ni, w0, lane);
+    if (__any_sync(kFull, win.bad)) {
       if (lane == 0) atomicOr(err, kErrRange);
       return;
     }
-    int64_t inc = n;  // inclusive scan of the window's seed counts
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int64_t v = __shfl_up_sync(kFull, inc, d);
-      if (lane >= d) inc += v;
-    }
-    const int64_t excl = inc - n;
-    const int64_t wtot = __shfl_sync(kFull, inc, 31);
+    const int64_t wtot = win.total;
     for (int64_t s0 = 0; s0 < wtot; s0 += 32) {
-      // seed s0 + lane of the window: its interval k is the last with
-      // excl[k] <= rel; its contig before the serial walk
+      // seed s0 + lane of the window, and its contig before the serial walk
       const int64_t rel = s0 + lane;
-      int k = 0;
-#pragma unroll
-      for (int step = 16; step > 0; step >>= 1) {
-        const int64_t ek = __shfl_sync(kFull, excl, k + step);
-        if (ek <= rel) k += step;
-      }
-      const int32_t sq = __shfl_sync(kFull, qb, k);
-      const int32_t sl = __shfl_sync(kFull, slen, k);
-      const int64_t so = __shfl_sync(kFull, off, k);
-      const int64_t se = __shfl_sync(kFull, excl, k);
+      const int k = seed_interval(win, rel);
+      const int32_t sq = __shfl_sync(kFull, win.qb, k);
+      const int32_t sl = __shfl_sync(kFull, win.slen, k);
+      const int64_t so = __shfl_sync(kFull, win.off, k);
+      const int64_t se = __shfl_sync(kFull, win.excl, k);
       int64_t rbeg = 0;
       int rid = -1;
       if (rel < wtot) {
@@ -564,56 +593,132 @@ __global__ void __launch_bounds__(32 * kWarps) chain_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) chain_emit_kernel(
-    Table tb, Ctg ctg, const int32_t* __restrict__ assign,
-    int32_t* __restrict__ slot_dst, const int32_t* __restrict__ crec,
+// A chain row's 7 int64 at a (8-byte aligned) in 16-byte stores: three
+// pairs and a single, the single first when a is not 16-byte aligned.
+__device__ __forceinline__ void store_row7(int64_t* a, const int64_t (&v)[7]) {
+  if ((reinterpret_cast<uintptr_t>(a) & 15u) == 0) {
+    longlong2* p = reinterpret_cast<longlong2*>(a);
+    p[0] = make_longlong2(v[0], v[1]);
+    p[1] = make_longlong2(v[2], v[3]);
+    p[2] = make_longlong2(v[4], v[5]);
+    a[6] = v[6];
+  } else {
+    a[0] = v[0];
+    longlong2* p = reinterpret_cast<longlong2*>(a + 1);
+    p[0] = make_longlong2(v[1], v[2]);
+    p[1] = make_longlong2(v[3], v[4]);
+    p[2] = make_longlong2(v[5], v[6]);
+  }
+}
+
+// One read's rows on the 32 lanes of a warp (all lanes call it with the
+// same i).  `placed` is the warp's per-slot count of seeds written.
+__device__ void emit_read(const int i, const int lane,
+                          int32_t* __restrict__ placed, const Table& tb,
+                          const Ctg& ctg, const int32_t* __restrict__ assign,
+                          const int32_t* __restrict__ slot_dst,
+                          const int32_t* __restrict__ crec,
+                          const int64_t* __restrict__ n_chain,
+                          const double* __restrict__ frac,
+                          const int64_t* __restrict__ chain_off,
+                          const int64_t* __restrict__ seed_dst,
+                          int64_t* __restrict__ chain_rows,
+                          int64_t* __restrict__ seed_rows) {
+  const int64_t nout = n_chain[i];
+  if (nout == 0) return;
+  const int64_t base = tb.seed_off[i];
+  const int64_t frac_bits = __double_as_longlong(frac[i]);
+  // chain rows, a lane a chain
+  const int64_t c0 = chain_off[i];
+  for (int64_t j = lane; j < nout; j += 32) {
+    const int32_t* r = crec + (base + j) * 5;
+    const int32_t rid = r[0];
+    const int64_t row[7] = {rid, ctg.alt[rid], r[1], frac_bits, r[2], r[3],
+                            r[4]};
+    store_row7(chain_rows + (c0 + j) * 7, row);
+  }
+  for (int s = lane; s < kMaxC; s += 32) placed[s] = 0;
+  __syncwarp();
+  // the seeds in enumeration order, 32 a batch, a lane a seed: its place is
+  // its slot's first place, plus the slot's seeds placed by earlier
+  // batches, plus its rank among this batch's lanes of the same slot
+  const int64_t io = tb.intv_off[i], ni = tb.n_intv[i];
+  int64_t* out = seed_rows + seed_dst[i] * 4;
+  int64_t tw = 0;  // the window's first seed, in enumeration order
+  for (int64_t w0 = 0; w0 < ni; w0 += 32) {
+    const Window win = load_window(tb, io, ni, w0, lane);
+    for (int64_t s0 = 0; s0 < win.total; s0 += 32) {
+      const int64_t rel = s0 + lane;
+      const int k = seed_interval(win, rel);
+      const int32_t sq = __shfl_sync(kFull, win.qb, k);
+      const int32_t sl = __shfl_sync(kFull, win.slen, k);
+      const int64_t so = __shfl_sync(kFull, win.off, k);
+      const int64_t se = __shfl_sync(kFull, win.excl, k);
+      int32_t s = -1, d = -1;
+      int64_t rbeg = 0;
+      if (rel < win.total) {
+        rbeg = tb.rbegs[so + rel - se];
+        s = assign[base + tw + rel];
+        if (s >= 0) d = slot_dst[base + s];  // -1: the chain was dropped
+      }
+      const bool live = s >= 0 && d >= 0;
+      const unsigned same = __match_any_sync(kFull, live ? s : -1);
+      const int32_t before = live ? placed[s] : 0;
+      __syncwarp();
+      if (live) {
+        // the slot's highest lane advances its count, once a batch
+        if (lane == 31 - __clz(same)) placed[s] = before + __popc(same);
+        const int64_t at = d + before + __popc(same & lanes_below(lane));
+        longlong2* sr = reinterpret_cast<longlong2*>(out + at * 4);
+        sr[0] = make_longlong2(rbeg, sq);
+        sr[1] = make_longlong2(sl, sl);
+      }
+      __syncwarp();
+    }
+    tw += win.total;
+  }
+}
+
+// The emit pass: chain_rows [Nc, 7] and seed_rows [Ns, 4] at the scanned
+// offsets, a warp per read on a persistent grid, warps taking reads in
+// `order` from a global counter as chain_kernel does.  It reads
+// chain_kernel's scratch and writes only its outputs, so two launches on
+// the same operands give the same rows.
+__global__ void __launch_bounds__(32 * kWarps) chain_emit_kernel(
+    Table tb, Ctg ctg, const int32_t* __restrict__ order,
+    int32_t* __restrict__ next, const int32_t* __restrict__ assign,
+    const int32_t* __restrict__ slot_dst, const int32_t* __restrict__ crec,
     const int64_t* __restrict__ n_chain, const double* __restrict__ frac,
     const int64_t* __restrict__ chain_off,  // [B] exclusive scan of n_chain
     const int64_t* __restrict__ seed_dst,   // [B] exclusive scan of n_seed
     int64_t* __restrict__ chain_rows,       // [Nc, 7]
     int64_t* __restrict__ seed_rows) {      // [Ns, 4]
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= tb.B) return;
-  const int64_t nout = n_chain[i];
-  if (nout == 0) return;
-  const int64_t base = tb.seed_off[i];
-  const int64_t frac_bits = __double_as_longlong(frac[i]);
-  for (int64_t j = 0; j < nout; ++j) {
-    const int32_t* r = crec + (base + j) * 5;
-    int64_t* c = chain_rows + (chain_off[i] + j) * 7;
-    c[0] = r[0];
-    c[1] = ctg.alt[r[0]];
-    c[2] = r[1];
-    c[3] = frac_bits;
-    c[4] = r[2];
-    c[5] = r[3];
-    c[6] = r[4];
-  }
-  // the seeds again in enumeration order, each to its chain's next place
-  const int64_t io = tb.intv_off[i], ni = tb.n_intv[i];
-  int64_t* out = seed_rows + seed_dst[i] * 4;
-  int64_t t = 0;
-  for (int64_t pi = 0; pi < ni; ++pi) {
-    const int64_t* p = tb.rows + (io + pi) * 5;
-    const int64_t qb = p[3], slen = p[4] - p[3];
-    const int64_t off = tb.rbeg_off[io + pi], n = tb.cnt[io + pi];
-    for (int64_t ri = 0; ri < n; ++ri, ++t) {
-      const int32_t s = assign[base + t];
-      if (s < 0) continue;
-      const int32_t d = slot_dst[base + s];
-      if (d < 0) continue;
-      slot_dst[base + s] = d + 1;
-      int64_t* sr = out + static_cast<int64_t>(d) * 4;
-      sr[0] = tb.rbegs[off + ri];
-      sr[1] = qb;
-      sr[2] = slen;
-      sr[3] = slen;
-    }
+  __shared__ int32_t placed[kWarps][kMaxC];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  for (;;) {
+    int r = 0;
+    if (lane == 0) r = atomicAdd(next, 1);
+    r = __shfl_sync(kFull, r, 0);
+    if (r >= tb.B) break;
+    emit_read(order[r], lane, placed[wid], tb, ctg, assign, slot_dst, crec,
+              n_chain, frac, chain_off, seed_dst, chain_rows, seed_rows);
+    __syncwarp();
   }
 }
 
-unsigned blocks(int n) {
-  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+// A persistent grid of `kernel`: as many 4-warp blocks as fit on the card
+// at once, or as the B reads need.
+template <class K>
+unsigned persistent_blocks(K kernel, int B) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * kWarps,
+                                                0);
+  const int64_t need = (static_cast<int64_t>(B) + kWarps - 1) / kWarps;
+  const int64_t fit = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
+  return static_cast<unsigned>(need < fit ? need : fit);
 }
 
 }  // namespace
@@ -638,19 +743,11 @@ extern "C" int bwamem_chain_launch(
   const Ctg ctg{ctg_end, ctg_alt, n_ctg, l_pac};
   const Opts o{w, max_chain_gap, min_chain_weight, min_seed_len,
                max_chain_extend, max_occ, mask_level, drop_ratio};
-  // a persistent grid: as many blocks as fit on the card at once
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_kernel,
-                                                32 * kWarps, 0);
-  const int64_t need = (static_cast<int64_t>(B) + kWarps - 1) / kWarps;
-  const int64_t fit = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
   const cudaError_t rc = cudaMemsetAsync(next, 0, sizeof(int32_t), stream);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  chain_kernel<<<static_cast<unsigned>(need < fit ? need : fit), 32 * kWarps,
-                 0, stream>>>(tb, ctg, o, C, order, next, assign, slot_dst,
-                              crec, n_chain, n_seed, frac, ovf, nslots, err);
+  chain_kernel<<<persistent_blocks(chain_kernel, B), 32 * kWarps, 0,
+                 stream>>>(tb, ctg, o, C, order, next, assign, slot_dst, crec,
+                           n_chain, n_seed, frac, ovf, nslots, err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -672,15 +769,19 @@ extern "C" int bwamem_chain_emit_launch(
     const int64_t* n_intv, const int64_t* rbegs, const int64_t* rbeg_off,
     const int64_t* cnt, const int64_t* seed_off, int64_t n_rbegs, int B,
     const int64_t* ctg_end, const int32_t* ctg_alt, int n_ctg, int64_t l_pac,
-    const int32_t* assign, int32_t* slot_dst, const int32_t* crec,
-    const int64_t* n_chain, const double* frac, const int64_t* chain_off,
-    const int64_t* seed_dst, int64_t* chain_rows, int64_t* seed_rows,
-    cudaStream_t stream) {
+    const int32_t* order, int32_t* next, const int32_t* assign,
+    const int32_t* slot_dst, const int32_t* crec, const int64_t* n_chain,
+    const double* frac, const int64_t* chain_off, const int64_t* seed_dst,
+    int64_t* chain_rows, int64_t* seed_rows, cudaStream_t stream) {
+  if (B <= 0) return 0;
   const Table tb{qlen, rows, intv_off, n_intv, rbegs, rbeg_off, cnt, seed_off,
                  n_rbegs, B};
   const Ctg ctg{ctg_end, ctg_alt, n_ctg, l_pac};
-  chain_emit_kernel<<<blocks(B), kThreads, 0, stream>>>(
-      tb, ctg, assign, slot_dst, crec, n_chain, frac, chain_off, seed_dst,
-      chain_rows, seed_rows);
+  const cudaError_t rc = cudaMemsetAsync(next, 0, sizeof(int32_t), stream);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  chain_emit_kernel<<<persistent_blocks(chain_emit_kernel, B), 32 * kWarps, 0,
+                      stream>>>(tb, ctg, order, next, assign, slot_dst, crec,
+                                n_chain, frac, chain_off, seed_dst, chain_rows,
+                                seed_rows);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,24 +11,28 @@
 // seed.cu), are in fmindex.cuh.
 //
 // Design: one thread per query.  `occ4` reads one line per row;
-// `bwt_extend` one line for each of its two rank queries; `sa_lookup` walks
-// k <- LF(k), one line per step, until k is a multiple of sa_intv, then
-// returns sa[k / sa_intv] + steps; `backward_search` narrows [k, l] by one
-// base of its read per step, from the read's last column leftwards, two
-// rank queries a step, until the interval empties, a base is ambiguous or
-// qlen bases are matched.  The JAX walk's compaction ladder and
-// argsort un-permute are TPU workarounds for lockstep lanes; here each
-// thread stops when its own walk ends, and a warp runs as long as its
-// longest walk.
+// `bwt_extend` one line for each of its two rank queries; `backward_search`
+// narrows [k, l] by one base of its read per step, from the read's last
+// column leftwards, two rank queries a step, until the interval empties, a
+// base is ambiguous or qlen bases are matched.  `sa_lookup` walks
+// k <- LF(k) until k is a multiple of sa_intv, then returns
+// sa[k / sa_intv] + steps.  The JAX walk's compaction ladder and argsort
+// un-permute are TPU workarounds for lockstep lanes; here each thread stops
+// when its own walk ends.
 //
-// What bounds them: latency of dependent random reads.  Every step of a
-// walk is a read of a 48-byte line at a random place in the table (48 MB of
-// lines and 128 MB of sampled SA for a 64 Mbp genome, well past the 50 MB
-// L2), and the next step's address depends on it.  Throughput comes only
-// from the number of walks in flight: a batch holds hundreds of thousands
-// of rows, so the card is filled with warps whose loads overlap.  Vector
-// 16-byte line loads, a warp per line and explicit latency hiding are
-// later work.
+// What bounds them: latency of dependent random reads, not bytes.  Every
+// step of a walk reads a 48-byte line at a random place in the table (48 MB
+// of lines and 128 MB of sampled SA for a 64 Mbp genome, past the 50 MB
+// L2), and the next step's address depends on it.  A batch of 10^5 rows
+// fills the card at once, so `sa_lookup` lasts as long as its longest walk
+// (80-90 steps at sa_intv 8) times the latency of one step.  So a step is
+// made one memory round trip (fmindex.cuh `lf_line`): the whole line in NV
+// 16-byte loads issued together, the char, its count and the popcounts
+// decoded from registers by selects, L2[0..3] in kernel arguments, and
+// when sa_intv is a power of two (the aligner's 8, bwa's 32) the sampled
+// test a mask and the sample index a shift, not a 64-bit division.
+// `line_chase_kernel` measures the floor this leaves: one thread's chain of
+// dependent line fetches, with no decode.
 //
 // Errors: a row outside [-1, seq_len] (occ4, bwt_extend) or [0, seq_len]
 // (sa_lookup) sets bit 1 of *err and yields zeros; a walk that has taken
@@ -83,9 +87,14 @@ __global__ void __launch_bounds__(kThreads) extend_kernel(
   reinterpret_cast<int4*>(sz)[i] = make_int4(d[0], d[1], d[2], d[3]);
 }
 
+// The sampled-SA walk, a thread a row, on lines of NV vectors.  kPow2: the
+// interval is 1 << shift, so a row is sampled when (k & mask) == 0 and its
+// sample is sa[k >> shift]; otherwise the test is k % sa_intv (a 64-bit
+// division a step), which only an index built with another interval takes.
+template <int NV, bool kPow2>
 __global__ void __launch_bounds__(kThreads) sa_lookup_kernel(
-    Fm fm, const int64_t* __restrict__ sa, int64_t sa_intv,
-    const int64_t* __restrict__ ks, int64_t n,
+    Fm fm, bwamem_fm::L2Regs l2, const int64_t* __restrict__ sa,
+    int64_t sa_intv, int shift, const int64_t* __restrict__ ks, int64_t n,
     int64_t* __restrict__ out, int32_t* __restrict__ err) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
@@ -95,18 +104,39 @@ __global__ void __launch_bounds__(kThreads) sa_lookup_kernel(
     out[i] = 0;
     return;
   }
+  const int64_t mask = sa_intv - 1;
   int64_t steps = 0;
-  while (k % sa_intv != 0) {
+  while (kPow2 ? (k & mask) != 0 : k % sa_intv != 0) {
     if (steps == fm.seq_len) {  // the cycle of LF steps has length seq_len+1
       atomicOr(err, kErrWalkLength);
       break;
     }
-    k = bwamem_fm::lf(fm, k);
+    k = bwamem_fm::lf_line<NV>(fm, l2, k);
     ++steps;
   }
   // sa[0] == -1: a walk through the primary row wraps to row 0, and
   // steps - 1 is then the position (bwa bwt_sa's trick)
-  out[i] = sa[k / sa_intv] + steps;
+  out[i] = sa[kPow2 ? k >> shift : k / sa_intv] + steps;
+}
+
+// Latency of one dependent line fetch: one thread fetches `steps` lines,
+// each chosen by a hash of every word of the one before (the SA walk's
+// dependence, without its decode), and leaves the last line's index.
+template <int NV>
+__global__ void line_chase_kernel(const uint32_t* __restrict__ lines,
+                                  int64_t nb, int64_t li, int steps,
+                                  int64_t* __restrict__ out) {
+  for (int s = 0; s < steps; ++s) {
+    uint4 v[NV];
+    bwamem_fm::fetch_line<NV>(lines, li, v);
+    uint32_t h = static_cast<uint32_t>(s);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) h ^= v[j].x ^ v[j].y ^ v[j].z ^ v[j].w;
+    h *= 0x9E3779B1u;
+    li = static_cast<int64_t>((static_cast<uint64_t>(h) *
+                               static_cast<uint64_t>(nb)) >> 32);
+  }
+  *out = li;
 }
 
 __global__ void __launch_bounds__(kThreads) backward_search_kernel(
@@ -178,13 +208,52 @@ extern "C" int bwamem_fm_extend_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+template <int NV>
+void sa_launch(const Fm& fm, const bwamem_fm::L2Regs& l2, const int64_t* sa,
+               int64_t sa_intv, int shift, const int64_t* ks, int64_t n,
+               int64_t* out, int32_t* err, cudaStream_t stream) {
+  if (shift >= 0)
+    sa_lookup_kernel<NV, true><<<blocks(n), kThreads, 0, stream>>>(
+        fm, l2, sa, sa_intv, shift, ks, n, out, err);
+  else
+    sa_lookup_kernel<NV, false><<<blocks(n), kThreads, 0, stream>>>(
+        fm, l2, sa, sa_intv, shift, ks, n, out, err);
+}
+
+}  // namespace
+
+// The SA walk on lines of W = 4 NV u32 (span 128, 256 or 512; another W is
+// refused).  L2_0..3 are L2[0..3], passed by value; shift >= 0 when
+// sa_intv == 1 << shift, -1 for the division path.
 extern "C" int bwamem_fm_sa_lookup_launch(
     const uint32_t* lines, int W, int lg, const int64_t* L2, int64_t primary,
-    int64_t seq_len, const int64_t* sa, int64_t sa_intv, const int64_t* ks,
+    int64_t seq_len, int64_t L2_0, int64_t L2_1, int64_t L2_2, int64_t L2_3,
+    const int64_t* sa, int64_t sa_intv, int shift, const int64_t* ks,
     int64_t n, int64_t* out, int32_t* err, cudaStream_t stream) {
-  sa_lookup_kernel<<<blocks(n), kThreads, 0, stream>>>(
-      make_fm(lines, W, lg, L2, primary, seq_len), sa, sa_intv, ks, n, out,
-      err);
+  const Fm fm = make_fm(lines, W, lg, L2, primary, seq_len);
+  const bwamem_fm::L2Regs l2{L2_0, L2_1, L2_2, L2_3};
+  switch (W) {
+    case 12: sa_launch<3>(fm, l2, sa, sa_intv, shift, ks, n, out, err, stream); break;
+    case 20: sa_launch<5>(fm, l2, sa, sa_intv, shift, ks, n, out, err, stream); break;
+    case 36: sa_launch<9>(fm, l2, sa, sa_intv, shift, ks, n, out, err, stream); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One thread's chain of `steps` dependent fetches of lines of W u32 (nb
+// lines) from line li; out [1] gets the last line's index.
+extern "C" int bwamem_fm_line_chase_launch(const uint32_t* lines, int W,
+                                           int64_t nb, int64_t li, int steps,
+                                           int64_t* out, cudaStream_t stream) {
+  switch (W) {
+    case 12: line_chase_kernel<3><<<1, 1, 0, stream>>>(lines, nb, li, steps, out); break;
+    case 20: line_chase_kernel<5><<<1, 1, 0, stream>>>(lines, nb, li, steps, out); break;
+    case 36: line_chase_kernel<9><<<1, 1, 0, stream>>>(lines, nb, li, steps, out); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

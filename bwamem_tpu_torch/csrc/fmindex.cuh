@@ -66,25 +66,6 @@ __device__ __forceinline__ void count4(const uint32_t* words, int nchars,
   }
 }
 
-// Count of symbol c among the first nchars chars of a line's words.
-__device__ __forceinline__ int count1(const uint32_t* words, int nchars,
-                                      int c) {
-  const uint32_t fh = (c & 2) ? 0u : kM55, fl = (c & 1) ? 0u : kM55;
-  int n = 0;
-  const int nw = (nchars + 15) >> 4;
-  for (int w = 0; w < nw; ++w) {
-    const uint32_t x = words[w];
-    const uint32_t hi = ((x >> 1) & kM55) ^ fh, lo = (x & kM55) ^ fl;
-    n += __popc(hi & lo & keep_mask(nchars, w));
-  }
-  return n;
-}
-
-// The BWT char at offset pos of a line's words.
-__device__ __forceinline__ int bwt_char(const uint32_t* words, int pos) {
-  return (words[pos >> 4] >> (30 - 2 * (pos & 15))) & 3;
-}
-
 // bwa bwt_occ4: counts of each symbol among conceptual chars [0..k];
 // k == -1 -> 0, k == seq_len -> the full counts.
 __device__ __forceinline__ void occ4(const Fm& fm, int64_t k, int cnt[4]) {
@@ -103,13 +84,85 @@ __device__ __forceinline__ void occ4(const Fm& fm, int64_t k, int cnt[4]) {
   for (int c = 0; c < 4; ++c) cnt[c] += static_cast<int>(line[c]);
 }
 
-// One LF step (bwa bwt_invPsi).
-__device__ __forceinline__ int64_t lf(const Fm& fm, int64_t k) {
-  if (k == fm.primary) return 0;
-  int within;
-  const uint32_t* line = fm_line(fm, k, &within);
-  const int c = bwt_char(line + 4, within - 1);
-  return fm.L2[c] + static_cast<int>(line[c]) + count1(line + 4, within, c);
+// ---- the SA walk's LF step: one fetch of the whole line a step.
+//
+// A line of span 64 (NV - 1) chars is NV 16-byte vectors: the four counts,
+// then (NV - 1) * 4 char words.  The lines are 16-byte aligned (W = 4 NV
+// u32, the table's base checked by the wrapper), so a step issues NV
+// read-only vector loads together and decodes the char, its count and the
+// popcounts from registers, with selects and masks: no second dependent
+// load, no loop whose bound depends on the data.
+
+__host__ __device__ constexpr int ilog2(int x) {
+  return x > 1 ? 1 + ilog2(x / 2) : 0;
+}
+
+// The four cumulative counts L2[0..3] in registers (kernel arguments).
+struct L2Regs {
+  int64_t c0, c1, c2, c3;
+};
+
+template <class T>
+__device__ __forceinline__ T pick4(T a0, T a1, T a2, T a3, int c) {
+  T x = a0;
+  x = c == 1 ? a1 : x;
+  x = c == 2 ? a2 : x;
+  x = c == 3 ? a3 : x;
+  return x;
+}
+
+// The NV vectors of line li, loaded together (ld.global.nc.v4).
+template <int NV>
+__device__ __forceinline__ void fetch_line(const uint32_t* __restrict__ lines,
+                                           int64_t li, uint4 (&v)[NV]) {
+  const uint4* p = reinterpret_cast<const uint4*>(lines) + li * NV;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) v[j] = __ldg(p + j);
+}
+
+// One LF step (bwa bwt_invPsi) on lines of NV vectors.  Row k lies in
+// [0, seq_len]; the primary row steps to row 0.  The within-line offsets
+// are 32-bit; k and the line index stay 64-bit (genomes pass 2^31 rows).
+template <int NV>
+__device__ __forceinline__ int64_t lf_line(const Fm& fm, const L2Regs& l2,
+                                           int64_t k) {
+  constexpr int kWords = 4 * (NV - 1);
+  constexpr int kSpan = 16 * kWords;
+  constexpr int kLg = ilog2(kSpan);
+  static_assert((1 << kLg) == kSpan, "a line spans a power of two of chars");
+  int64_t kk = k - (k >= fm.primary);
+  kk = kk < 0 ? 0 : kk;
+  uint4 v[NV];
+  fetch_line<NV>(fm.lines, kk >> kLg, v);
+  const int pos = static_cast<int>(kk) & (kSpan - 1);  // the char's offset
+  uint32_t w[kWords];
+#pragma unroll
+  for (int j = 0; j < NV - 1; ++j) {
+    w[4 * j] = v[j + 1].x;
+    w[4 * j + 1] = v[j + 1].y;
+    w[4 * j + 2] = v[j + 1].z;
+    w[4 * j + 3] = v[j + 1].w;
+  }
+  // the char at pos: its word by selects, then its two bits
+  const int wi = pos >> 4;
+  uint32_t x = w[0];
+#pragma unroll
+  for (int j = 1; j < kWords; ++j) x = j == wi ? w[j] : x;
+  const int c = (x >> (30 - 2 * (pos & 15))) & 3;
+  // the count of c among chars [0, pos]: whole words before wi, the first
+  // pos % 16 + 1 chars of word wi (a shift of 0..30), none after
+  const uint32_t fh = (c & 2) ? 0u : kM55, fl = (c & 1) ? 0u : kM55;
+  const uint32_t last = (0xFFFFFFFFu << (30 - 2 * (pos & 15))) & kM55;
+  int n = 0;
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    const uint32_t keep = j < wi ? kM55 : (j == wi ? last : 0u);
+    const uint32_t hi = ((w[j] >> 1) & kM55) ^ fh, lo = (w[j] & kM55) ^ fl;
+    n += __popc(hi & lo & keep);
+  }
+  const int base = static_cast<int>(pick4(v[0].x, v[0].y, v[0].z, v[0].w, c));
+  const int64_t nk = pick4(l2.c0, l2.c1, l2.c2, l2.c3, c) + (base + n);
+  return k == fm.primary ? 0 : nk;
 }
 
 // bwa bwt_extend of the bi-interval (x0, x1, s), backward (is_back) or

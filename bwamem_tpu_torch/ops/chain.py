@@ -7,8 +7,8 @@ The counterpart of bwamem_tpu/ops/chain_tpu.py:
   slots, as ``chain_kernel`` writes it), then the filter runs one sorted
   chain per step.  It runs wherever its tensors lie.
 * ``chain_cuda`` launches the hand-written Hopper kernels of
-  ``csrc/chain.cu`` (a count pass, a warp per read taken heaviest first,
-  and an emit pass, a thread per read, around two scans).
+  ``csrc/chain.cu`` (a count pass and an emit pass around two scans, each
+  a warp per read, the reads taken heaviest first in one ``read_order``).
 * ``chain`` dispatches on the device of its inputs: CPU tensors go to the
   plain version, CUDA tensors to the kernels.
 * ``chains_device_batch`` is the batch entry: the arrays the host C++
@@ -395,7 +395,7 @@ def _bind(lib):
     ctg = [p, p, i32, i64]  # ctg_end, ctg_alt, n_ctg, l_pac
     for name, rest in (
         ("bwamem_chain_launch", [i64] * 6 + [f64, f64, i32] + [p] * 12),
-        ("bwamem_chain_emit_launch", [p] * 10),
+        ("bwamem_chain_emit_launch", [p] * 12),
     ):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -434,9 +434,9 @@ def _table_args(ctg: DeviceContigs, tab: SeedTable, seed_off):
 # flags for the caller to read.
 
 def read_order(seed_cnt: torch.Tensor) -> torch.Tensor:
-    """The order in which ``chain_kernel``'s warps take the reads: the most
-    seeds first, ties in read order; int32 [B].  Scheduling only: a read
-    writes only its own rows, so no result depends on it."""
+    """The order in which both chain kernels' warps take the reads: the
+    most seeds first, ties in read order; int32 [B].  Scheduling only: a
+    read writes only its own rows, so no result depends on it."""
     return torch.sort(seed_cnt, descending=True,
                       stable=True).indices.to(torch.int32)
 
@@ -464,16 +464,25 @@ def warps_per_sm() -> int:
     return int(_lib().bwamem_chain_warps_per_sm())
 
 
-def chain_emit_launch(ctg, tab, seed_off, assign, slot_dst, crec, n_chain,
-                      frac, chain_off, seed_dst, chain_rows, seed_rows):
-    """The emit pass: ``chain_rows`` [Nc, 7] and ``seed_rows`` [Ns, 4] at
+def chain_emit_launch(ctg, tab, seed_off, order, assign, slot_dst, crec,
+                      n_chain, frac, chain_off, seed_dst, chain_rows,
+                      seed_rows):
+    """The emit pass, its warps taking the reads in ``order``
+    (``read_order``): ``chain_rows`` [Nc, 7] and ``seed_rows`` [Ns, 4] at
     the exclusive scans ``chain_off``/``seed_dst`` of the count pass's
-    counts.  ``slot_dst`` is advanced in place."""
+    counts.  It reads the count pass's scratch and writes only the two
+    outputs (16-byte aligned), so it may be launched again on the same
+    operands."""
+    for t in (chain_rows, seed_rows):
+        if t.data_ptr() % 16:
+            raise ValueError("the emit pass's outputs must be 16-byte aligned")
+    nxt = torch.empty(1, dtype=torch.int32, device=ctg.device)
     _launched("chain_emit", _lib().bwamem_chain_emit_launch(
-        *_table_args(ctg, tab, seed_off), assign.data_ptr(),
-        slot_dst.data_ptr(), crec.data_ptr(), n_chain.data_ptr(),
-        frac.data_ptr(), chain_off.data_ptr(), seed_dst.data_ptr(),
-        chain_rows.data_ptr(), seed_rows.data_ptr(), _stream(ctg.device)))
+        *_table_args(ctg, tab, seed_off), order.data_ptr(), nxt.data_ptr(),
+        assign.data_ptr(), slot_dst.data_ptr(), crec.data_ptr(),
+        n_chain.data_ptr(), frac.data_ptr(), chain_off.data_ptr(),
+        seed_dst.data_ptr(), chain_rows.data_ptr(), seed_rows.data_ptr(),
+        _stream(ctg.device)))
 
 
 def prepare(ctg: DeviceContigs, tab: SeedTable):
@@ -493,8 +502,8 @@ def prepare(ctg: DeviceContigs, tab: SeedTable):
 
 def chain_cuda(ctg: DeviceContigs, tab: SeedTable, params: ChainParams,
                C: int = C_MAX) -> Chains:
-    """The chain kernels (the count pass a warp per read, heaviest first;
-    the emit pass a thread per read); same contract as ``chain_torch``."""
+    """The chain kernels (the count pass and the emit pass, each a warp
+    per read, heaviest first); same contract as ``chain_torch``."""
     _check_budget(C)
     tab, seed_cnt, seed_off = prepare(ctg, tab)
     dev = ctg.device
@@ -511,8 +520,9 @@ def chain_cuda(ctg: DeviceContigs, tab: SeedTable, params: ChainParams,
     crec = torch.empty((T, 5), dtype=i32, device=dev)
     frac = torch.empty(B, dtype=torch.float64, device=dev)
     err = torch.zeros(1, dtype=i32, device=dev)
-    chain_launch(ctg, tab, seed_off, params, C, read_order(seed_cnt), assign,
-                 slot_dst, crec, n_chain, n_seed, frac, ovf, nslots, err)
+    order = read_order(seed_cnt)
+    chain_launch(ctg, tab, seed_off, params, C, order, assign, slot_dst, crec,
+                 n_chain, n_seed, frac, ovf, nslots, err)
     chain_off, seed_dst = _excl_scan(n_chain), _excl_scan(n_seed)
     nc, nsd, flags = torch.stack(
         [n_chain.sum(), n_seed.sum(), err[0].long()]).tolist()
@@ -521,8 +531,9 @@ def chain_cuda(ctg: DeviceContigs, tab: SeedTable, params: ChainParams,
     chain_rows = torch.empty((nc, 7), dtype=i64, device=dev)
     seed_rows = torch.empty((nsd, 4), dtype=i64, device=dev)
     if nc:
-        chain_emit_launch(ctg, tab, seed_off, assign, slot_dst, crec, n_chain,
-                          frac, chain_off, seed_dst, chain_rows, seed_rows)
+        chain_emit_launch(ctg, tab, seed_off, order, assign, slot_dst, crec,
+                          n_chain, frac, chain_off, seed_dst, chain_rows,
+                          seed_rows)
     return Chains(chain_rows, seed_rows, n_chain, n_seed, seed_cnt, ovf.bool(),
                   nslots)
 

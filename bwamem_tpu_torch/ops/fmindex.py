@@ -15,7 +15,10 @@ The counterpart of bwamem_tpu/ops/fmindex_tpu.py:
   compaction ladder is a TPU workaround and is not carried over.
 * ``occ4_cuda``, ``extend_cuda``, ``sa_lookup_cuda`` and
   ``backward_search_cuda`` launch the hand-written Hopper kernels of
-  ``csrc/fmindex.cu``.
+  ``csrc/fmindex.cu``.  The SA walk takes lines of span 128, 256 or 512 and
+  picks its sampled test from ``sa_intv``: a mask and a shift for a power
+  of two, a division otherwise.  ``line_chase_launch`` measures the latency
+  of one dependent line fetch, the floor of a walk's step.
 * ``occ4``, ``extend``, ``sa_lookup`` and ``backward_search`` dispatch on the device of their
   inputs: CPU tensors go to the plain version, CUDA tensors to the kernel.
 
@@ -29,13 +32,17 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Tuple
 
 import numpy as np
 import torch
 
 # launches of each CUDA kernel; bumped only where it is launched
-LAUNCHES = {"occ4": 0, "bwt_extend": 0, "sa_lookup": 0, "backward_search": 0}
+LAUNCHES = {"occ4": 0, "bwt_extend": 0, "sa_lookup": 0, "backward_search": 0,
+            "line_chase": 0}
+# u32 per line the SA-walk and line-chase kernels take (span 128, 256, 512)
+WALK_LINE_WORDS = (12, 20, 36)
 # error flags the kernels raise (OR-ed into one int32 on the device)
 ERR_ROW_RANGE = 1
 ERR_WALK_LENGTH = 2
@@ -61,6 +68,19 @@ class DeviceFMIndex:
     @property
     def device(self) -> torch.device:
         return self.lines.device
+
+    @cached_property
+    def L2_values(self) -> Tuple[int, ...]:
+        """``L2`` as host ints (one copy back, on first use): the SA walk
+        takes L2[0..3] as kernel arguments."""
+        return tuple(int(v) for v in self.L2.tolist())
+
+    @property
+    def sa_shift(self) -> int:
+        """log2(sa_intv) when sa_intv is a power of two, else -1 (the SA
+        walk's division path)."""
+        v = self.sa_intv
+        return v.bit_length() - 1 if v > 0 and v & (v - 1) == 0 else -1
 
     @classmethod
     def from_host(cls, fm, device, span: int = 128) -> "DeviceFMIndex":
@@ -250,12 +270,15 @@ def _bind(lib):
     for name, rest in (
         ("bwamem_fm_occ4_launch", [p, i64, p, p, p]),
         ("bwamem_fm_extend_launch", [p, p, p, i64, i32, p, p, p, p, p]),
-        ("bwamem_fm_sa_lookup_launch", [p, i64, p, i64, p, p, p]),
+        ("bwamem_fm_sa_lookup_launch",
+         [i64] * 4 + [p, i64, i32, p, i64, p, p, p]),
         ("bwamem_fm_backward_search_launch", [p, i32, p, i32, p, p, p, p]),
     ):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = fm + rest
+    lib.bwamem_fm_line_chase_launch.restype = ctypes.c_int
+    lib.bwamem_fm_line_chase_launch.argtypes = [p, i32, i64, i64, i32, p, p]
 
 
 def _lib():
@@ -270,6 +293,17 @@ def _fm_args(dfm: DeviceFMIndex):
     return (dfm.lines.data_ptr(), dfm.lines.shape[1],
             dfm.span.bit_length() - 1, dfm.L2.data_ptr(), dfm.primary,
             dfm.seq_len)
+
+
+def _walk_lines(dfm: DeviceFMIndex):
+    """The line table as the SA-walk and line-chase kernels take it: lines
+    of span 128, 256 or 512, 16-byte aligned."""
+    W = dfm.lines.shape[1]
+    if W not in WALK_LINE_WORDS:
+        raise ValueError(f"the SA-walk kernel takes spans 128, 256 and 512, "
+                         f"not {dfm.span}")
+    if dfm.lines.data_ptr() % 16:
+        raise ValueError("the line table must be 16-byte aligned")
 
 
 def _as_rows(dfm: DeviceFMIndex, *xs: torch.Tensor):
@@ -327,10 +361,25 @@ def extend_launch(dfm: DeviceFMIndex, x0, x1, s, is_back: bool, ox0, ox1, sz,
 
 
 def sa_lookup_launch(dfm: DeviceFMIndex, k, out, err):
-    """``out`` [N] int64 <- the text positions of the rows ``k`` [N]."""
+    """``out`` [N] int64 <- the text positions of the rows ``k`` [N]; a
+    power-of-two ``sa_intv`` takes the mask-and-shift kernel, any other the
+    division one."""
+    _walk_lines(dfm)
     _launched("sa_lookup", _lib().bwamem_fm_sa_lookup_launch(
-        *_fm_args(dfm), dfm.sa.data_ptr(), dfm.sa_intv, k.data_ptr(),
-        k.shape[0], out.data_ptr(), err.data_ptr(), _stream(dfm)))
+        *_fm_args(dfm), *dfm.L2_values[:4], dfm.sa.data_ptr(), dfm.sa_intv,
+        dfm.sa_shift, k.data_ptr(), k.shape[0], out.data_ptr(),
+        err.data_ptr(), _stream(dfm)))
+
+
+def line_chase_launch(dfm: DeviceFMIndex, start: int, steps: int, out):
+    """One thread's chain of ``steps`` dependent line fetches from line
+    ``start``, each line chosen by a hash of the one before; ``out`` int64
+    [1] <- the last line's index.  Its time over ``steps`` is the latency
+    of one dependent line fetch: a measurement, on no aligner path."""
+    _walk_lines(dfm)
+    _launched("line_chase", _lib().bwamem_fm_line_chase_launch(
+        dfm.lines.data_ptr(), dfm.lines.shape[1], dfm.lines.shape[0], start,
+        steps, out.data_ptr(), _stream(dfm)))
 
 
 def backward_search_launch(dfm: DeviceFMIndex, qseq, qlen, k, l, matched):
@@ -375,8 +424,8 @@ def extend_cuda(dfm: DeviceFMIndex, x0, x1, s, is_back: bool):
 
 
 def sa_lookup_cuda(dfm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
-    """The SA-walk kernel, one thread per row; same contract as
-    ``sa_lookup_torch``."""
+    """The SA-walk kernel, one thread per row, one line fetch a step; same
+    contract as ``sa_lookup_torch``."""
     (k,) = _as_rows(dfm, k)
     out = torch.empty_like(k)
     if k.shape[0]:

@@ -35,7 +35,9 @@ Phases, each of which stops the run with a non-zero exit if it fails:
 7. the device SA stage: the batches of phase 4 again with
    device_stages=("sa_lookup",): records equal to the host aligner's, the
    SA kernel launched, no SA row walked on the host; the SA kernel and the
-   plain version timed on the largest SA batch;
+   plain version timed on the largest SA batch, with its longest walk alone
+   (profiled device time), the latency of one dependent line fetch (the
+   line-chase kernel) and the latency floor it sets beside bound_ms;
 8. at chr20 scale: bench.py's 64 Mbp "chr20" genome (seed 1234, sa_intv 8;
    48 MB of lines and 128 MB of sampled SA, past the card's 50 MB L2):
    2,000 pairs with the seeding, the SA walks, the chaining and the
@@ -43,7 +45,8 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    checks of phase 11 and the chain checks of phase 13;
    the chain kernels against their plain version and the host C++
    chain_batch on that batch's own seeds, exactly; the SA kernel, the
-   plain version and the host C++ walk timed on that batch's rows; then
+   plain version and the host C++ walk timed on that batch's rows, as in
+   phase 7; then
    seeding-shaped
    work for occ4 and
    bwt_extend, which no aligner stage launches yet: an exact-match backward
@@ -87,7 +90,8 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    kept and first) on a sample plus the reads with the most seeds; the
    kernels timed with CUDA events (the count pass also from a cold L2, by
    batch size and on the heaviest read alone, with its warps resident a
-   SM), the plain version once;
+   SM; the emit pass alone, also from a cold L2, and on the heaviest read
+   alone as profiled device time), the plain version once;
 13. the device chain stage: phase 4's batches with device_stages=("seed",
    "sa_lookup", "chain") (PE and SE), then the PE batch with ("chain",):
    records equal to the host oracle's, both chain kernels launched, at least
@@ -131,10 +135,13 @@ throughout: no single PyTorch call computes any of these functions, and
 ``batch_ms`` and ``batch_launches``: the kernel's device time summed over
 the profiled PE batches of phases 4 (the default route: the extension
 waves) and 15 (the fused route: every other kernel of the aligner), and
-its launches there (0 for a kernel neither route launches).  The four
-kernels redesigned as a warp per read or job (collect_intv, chain2aln,
-chain, ksw_extend) also carry ``slowest_read_ms`` (``slowest_job_ms`` for
-ksw_extend), their slowest read or job alone in this run.  smem1a and
+its launches there (0 for a kernel neither route launches).  The
+redesigned kernels (collect_intv, chain2aln, chain, chain_emit,
+ksw_extend, sa_lookup) also carry their slowest unit alone in this run:
+``slowest_read_ms``, ``slowest_job_ms`` for ksw_extend and
+``slowest_row_ms`` (the longest walk, from a cold L2) for sa_lookup, whose
+entry also gives ``latency_floor_ms``, that walk's steps times the measured
+latency of one dependent line fetch from a cold L2.  smem1a and
 strategy1 run on the main path as __device__ functions
 inside collect_intv_kernel; their own per-lane kernels (smem1a_kernel,
 strategy1_kernel) exist to hold each function against its plain version
@@ -332,14 +339,20 @@ KERNEL_FN = {
 }
 
 
-def _kernel_of(event_name: str):
-    """The entry of the kernels line whose __global__ function a profiler
-    event names (demangled, or mangled with its length prefix), or None."""
+def _names(event_name: str, fn: str) -> bool:
+    """Whether a profiler event names the __global__ function ``fn``
+    (demangled, or mangled with its length prefix)."""
     import re
 
+    return (f"{len(fn)}{fn}" in event_name or re.search(
+        rf"(?<![A-Za-z0-9_]){fn}(?![A-Za-z0-9_])", event_name) is not None)
+
+
+def _kernel_of(event_name: str):
+    """The entry of the kernels line whose __global__ function a profiler
+    event names, or None."""
     for entry, fn in KERNEL_FN.items():
-        if (f"{len(fn)}{fn}" in event_name or re.search(
-                rf"(?<![A-Za-z0-9_]){fn}(?![A-Za-z0-9_])", event_name)):
+        if _names(event_name, fn):
             return entry
     return None
 
@@ -584,6 +597,39 @@ def _cold_ms(fn, reps, dev):
     return sorted(times)[reps // 2]
 
 
+def _device_ms(fn, reps, dev, kernel, cold=False):
+    """Mean device ms of the __global__ function ``kernel`` over ``reps``
+    calls of ``fn`` under torch.profiler: the card's own time, where CUDA
+    events around a small launch time the host's call.  ``cold``: 256 MB
+    are written on the card before each call, so that it starts with
+    nothing of its tables in the 50 MB L2.  A trace can miss launches: the
+    mean is over the launches it holds, at least half of ``reps``, and a
+    trace that holds fewer is taken again (three tries)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(1 << 26, dtype=torch.int32, device=dev) if cold else None
+    fn()  # warm-up
+    torch.cuda.synchronize(dev)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            for r in range(reps):
+                if cold:
+                    flush.fill_(r)
+                fn()
+            torch.cuda.synchronize(dev)
+        times = [(e.time_range.end - e.time_range.start) / 1e3
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and _names(e.name, kernel)]
+        if reps // 2 <= len(times) <= reps:
+            break
+    else:
+        raise AssertionError(f"the profiler saw {len(times)} {kernel} launches "
+                             f"of {reps}, three times")
+    return sum(times) / len(times)
+
+
 def phase_timing(dev, wave):
     """Phase 5: kernel and plain version on the largest main-path wave."""
     import torch
@@ -690,25 +736,44 @@ def phase_fm_kernels(dev, fm):
     return err
 
 
-def _walk_steps(dfm, k):
-    """Mean and longest walk of the rows ``k`` (the plain walk's count)."""
+def _walk_lengths(dfm, k):
+    """Each row's walk length: the plain walk's count of LF steps."""
     from bwamem_tpu_torch.ops import fmindex as fmops
 
-    n = k.numel()
-    total, steps = 0, 0
+    import torch
+
+    steps = torch.zeros_like(k)
+    idx = torch.arange(k.numel(), device=k.device)
     while True:
-        k = k[k % dfm.sa_intv != 0]
-        if k.numel() == 0:
-            return total / max(n, 1), steps
-        total += k.numel()
-        steps += 1
+        live = k % dfm.sa_intv != 0
+        idx, k = idx[live], k[live]
+        if idx.numel() == 0:
+            return steps
+        steps[idx] += 1
         k = fmops._lf(dfm, k)
+
+
+def _chase_us(dfm, dev, cold: bool) -> float:
+    """Device µs of one dependent line fetch: the slope of the line-chase
+    kernel's time (profiled) from 64 to 576 fetches, its table in the L2
+    after a first call or (``cold``) flushed out of it before each."""
+    import torch
+
+    from bwamem_tpu_torch.ops import fmindex as fmops
+
+    out = torch.zeros(1, dtype=torch.int64, device=dev)
+    start = 12345 % dfm.lines.shape[0]
+    t = {n: _device_ms(lambda n=n: fmops.line_chase_launch(dfm, start, n, out),
+                       5, dev, "line_chase_kernel", cold) for n in (64, 576)}
+    return (t[576] - t[64]) * 1e3 / 512
 
 
 def _time_sa(tag, dev, fm, rows):
     """The SA kernel alone (repeated launches, and single launches from a
-    cold L2), the plain version and the host C++ walk on ``rows``;
-    returns (cold kernel ms, plain ms)."""
+    cold L2), its longest walk alone (profiled device time, warm and cold),
+    the plain version and the host C++ walk on ``rows``; the latency of one
+    dependent line fetch (warm and cold) and the latency floor it sets, the
+    longest walk times that latency.  Returns a dict of the times."""
     import numpy as np
     import torch
 
@@ -737,8 +802,22 @@ def _time_sa(tag, dev, fm, rows):
         host = native_fm.sa_batch(fm, rows)
         host_s = min(host_s, time.perf_counter() - t0)
     err = max(err, _diff(out, host))
-    mean, longest = _walk_steps(dfm, k)
+    steps = _walk_lengths(dfm, k)
     n = len(rows)
+    mean, longest = float(steps.sum()) / max(n, 1), int(steps.max())
+    top = int(torch.argmax(steps))
+    k1, out1 = k[top: top + 1].clone(), torch.empty(1, dtype=torch.int64,
+                                                     device=dev)
+    def one():
+        fmops.sa_lookup_launch(dfm, k1, out1, flags)
+
+    row_ms = _device_ms(one, 10, dev, "sa_lookup_kernel")
+    row_cold_ms = _device_ms(one, 10, dev, "sa_lookup_kernel", cold=True)
+    err = max(err, _diff(out1, out[top: top + 1]))
+    lat = {c: _chase_us(dfm, dev, c) for c in (False, True)}
+    floor = {c: longest * lat[c] / 1e3 for c in lat}
+    bound = _line_bound(dfm, 16 * n + 8 * min(n, dfm.sa.numel()), mean * n,
+                        10 * mean * n)
     print(f"  {tag}: {n} SA rows, {mean:.3f} LF steps per walk (longest "
           f"{longest}); kernel {ms:.4f} ms repeated ({n / ms * 1e3:.4g} "
           f"rows/s), {cold_ms:.4f} ms from a cold L2 ({n / cold_ms * 1e3:.4g} "
@@ -746,11 +825,18 @@ def _time_sa(tag, dev, fm, rows):
           f"PyTorch {plain_ms:.4f} ms ({n / plain_ms * 1e3:.4g} rows/s), host "
           f"C++ sa_batch {host_s * 1e3:.4f} ms ({n / host_s:.4g} rows/s); "
           f"max|kernel-plain|,|kernel-host| {err}")
+    print(f"  {tag}: the longest walk alone (profiled device time) "
+          f"{row_ms:.4f} ms, {row_cold_ms:.4f} ms from a cold L2 "
+          f"({row_ms * 1e3 / max(longest, 1):.3f}, "
+          f"{row_cold_ms * 1e3 / max(longest, 1):.3f} us a step); one dependent "
+          f"line fetch {lat[False]:.4f} us ({lat[True]:.4f} us from a cold L2); "
+          f"bound_ms {bound['bound_ms']:.5f} ({bound['bound_by']}), latency "
+          f"floor (longest walk x one fetch) {floor[False]:.5f} ms "
+          f"({floor[True]:.5f} ms cold)")
     if err:
         raise AssertionError(f"{tag}: the SA kernel disagrees")
-    bound = _line_bound(dfm, 16 * n + 8 * min(n, dfm.sa.numel()), mean * n,
-                        10 * mean * n)
-    return cold_ms, plain_ms, bound
+    return dict(cold_ms=cold_ms, plain_ms=plain_ms, bound=bound,
+                slowest_ms=row_cold_ms, floor_ms=floor[True])
 
 
 def phase_device_sa(dev, index, fm, runs):
@@ -982,11 +1068,10 @@ def phase_chr20(dev):
           f"not flagged by C = 128)")
     if x["e_plain"] or x["e_host"]:
         raise AssertionError("chr20: a chain kernel disagrees with its references")
-    sa_ms, sa_plain_ms, sa_bound = _time_sa("64 Mbp, PE batch", dev, fm,
-                                            SA_STATS.largest_rows)
+    sa = _time_sa("64 Mbp, PE batch", dev, fm, SA_STATS.largest_rows)
     launches, err, mid = _rank_drive(dev, fm, reads)
     rank = _time_rank(dev, fm, mid)
-    return dict(sa_ms=sa_ms, sa_plain_ms=sa_plain_ms, sa_bound=sa_bound,
+    return dict(sa=sa,
                 launches=launches, rank=rank, index=index,
                 run=dict(batch=reads, ref=ref, t_host=t_host, warm=warm,
                          stages=res["stages"]))
@@ -1022,9 +1107,11 @@ def phase_probe(dev):
                 bound=_bound(nbytes, ops))
 
 
-# the kernels redesigned as a warp per read (or a lane group per job),
-# whose entries carry their slowest read's (job's) time alone
-REDESIGNED = ("collect_intv", "chain2aln", "ksw_extend", "chain")
+# the redesigned kernels, whose entries carry their slowest unit's time
+# alone: a read's (a warp per read), a job's (the wave kernel) or a row's
+# (the SA walk)
+REDESIGNED = ("collect_intv", "chain2aln", "ksw_extend", "chain", "sa_lookup",
+              "chain_emit")
 SEED_REPLACES = {
     "smem1a": "bwamem_tpu/ops/smem_tpu.py:39",
     "strategy1": "bwamem_tpu/ops/seed_tpu.py:80",
@@ -1475,16 +1562,35 @@ def phase_chain_kernels(dev, index, batch):
     chain_rows = torch.empty((nc, 7), dtype=i64, device=dev)
     seed_rows = torch.empty((ns, 4), dtype=i64, device=dev)
 
-    def both():  # the emit pass advances slot_dst, so the count pass precedes it
-        count()
-        co.chain_emit_launch(ctg, tabp, seed_off, assign, slot_dst, crec, n_chain,
-                             frac, chain_off, seed_dst, chain_rows, seed_rows)
+    def emit():  # reads the count pass's scratch, writes only its outputs
+        co.chain_emit_launch(ctg, tabp, seed_off, order, assign, slot_dst, crec,
+                             n_chain, frac, chain_off, seed_dst, chain_rows,
+                             seed_rows)
 
-    both_ms = _event_ms(both, 10, dev)
+    e_ms = _event_ms(emit, 10, dev)
+    e_cold_ms = _cold_ms(emit, 5, dev)
+    # the emit pass of the read with the most seeds alone, on its own scratch
+    T1 = int(cnt1.sum())
+    s1 = [torch.empty(T1, dtype=i32, device=dev) for _ in range(2)]
+    s1.append(torch.empty((T1, 5), dtype=i32, device=dev))
+    c1 = [torch.zeros(1, dtype=i64, device=dev) for _ in range(2)]
+    f1 = torch.empty(1, dtype=torch.float64, device=dev)
+    co.chain_launch(ctg, one, off1, params, co.C_MAX, ord1, *s1, *c1, f1,
+                    o32[:1].clone(), s32[:1].clone(), flags)
+    z1 = torch.zeros(1, dtype=i64, device=dev)
+    rows1 = (torch.empty((int(c1[0].item()), 7), dtype=i64, device=dev),
+             torch.empty((int(c1[1].item()), 4), dtype=i64, device=dev))
+    e_top_ms = _device_ms(lambda: co.chain_emit_launch(
+        ctg, one, off1, ord1, *s1, c1[0], f1, z1, z1, *rows1), 10, dev,
+        "chain_emit_kernel")
     if int(flags.item()):
         raise AssertionError(f"chain kernels raised flags {int(flags.item())}")
     e_plain = max(e_plain, _diff(chain_rows, got.chain_rows),
                   _diff(seed_rows, got.seed_rows))
+    first, first_s = int(chain_off[top]), int(seed_dst[top])
+    e_plain = max(e_plain,
+                  _diff(rows1[0], chain_rows[first: first + rows1[0].shape[0]]),
+                  _diff(rows1[1], seed_rows[first_s: first_s + rows1[1].shape[0]]))
     N = int(n_intv.sum())
     print(f"  chain on {B} reads ({N} intervals, {T} seeds; per read mean "
           f"{seed_cnt.mean():.1f}, p50/p90/p99 "
@@ -1493,14 +1599,15 @@ def phase_chain_kernels(dev, index, batch):
           f"{int(nslots.max())}, more than 32 in {int((nslots > 32).sum())} reads, "
           f"flagged at C = {co.C_MAX}: {int(ovf.sum())}; {nc} chains and {ns} "
           f"seeds out): chain_kernel {c_ms:.4f} ms repeated, {cold_ms:.4f} ms "
-          f"from a cold L2; chain_kernel + chain_emit_kernel {both_ms:.4f} ms, so "
-          f"chain_emit_kernel {both_ms - c_ms:.4f} ms; plain PyTorch "
+          f"from a cold L2; chain_emit_kernel alone {e_ms:.4f} ms repeated, "
+          f"{e_cold_ms:.4f} ms from a cold L2; plain PyTorch "
           f"{plain_ms:.2f} ms (once)")
     print("  chain_kernel by batch size: " + ", ".join(
         f"B={nb} {ms:.4f} ms" for nb, ms in sizes.items())
         + f", B={B} {c_ms:.4f} ms; the read with the most seeds alone "
         f"({int(seed_cnt[top])} seeds, {int(nslots[top])} slots): {top_ms:.4f} ms, "
         f"{top_ms * 1e3 / max(int(seed_cnt[top]), 1):.3f} us per seed; "
+        f"its emit pass alone (profiled device time) {e_top_ms:.4f} ms; "
         f"chain_kernel warps resident a SM: {co.warps_per_sm()}")
     print(f"  max|kernel-plain| {e_plain}; reads whose chains differ from the "
           f"host C++ chain_batch {e_host} (of {B}), from the oracle "
@@ -1512,7 +1619,8 @@ def phase_chain_kernels(dev, index, batch):
     return {
         "chain": dict(err=0, ms=c_ms, plain_ms=plain_ms, slowest_ms=top_ms,
                       bound=_bound(io + 32 * B, 60 * T)),
-        "chain_emit": dict(err=0, ms=both_ms - c_ms, plain_ms=plain_ms,
+        "chain_emit": dict(err=0, ms=e_ms, plain_ms=plain_ms,
+                           slowest_ms=e_top_ms,
                            bound=_bound(io + 4 * T + 16 * B + 56 * nc + 32 * ns,
                                         8 * T)),
     }
@@ -1831,11 +1939,11 @@ def phase_fused(dev, index, runs, chain_run, big):
 
 
 def _redesign(name: str, res: dict) -> dict:
-    """A redesigned kernel's slowest job (the wave kernel) or read alone, as
-    this run timed it."""
+    """A redesigned kernel's slowest job (the wave kernel), row (the SA
+    walk) or read alone, as this run timed it."""
     if name not in REDESIGNED:
         return {}
-    unit = "job" if name == "ksw_extend" else "read"
+    unit = {"ksw_extend": "job", "sa_lookup": "row"}.get(name, "read")
     return {f"slowest_{unit}_ms": res["slowest_ms"]}
 
 
@@ -1953,7 +2061,9 @@ def main() -> int:
          "replaces": "bwamem_tpu/ops/fmindex_tpu.py:382",
          "launches": sa["pe"]["launches"],
          "max_abs_err": max(fm_err["sa_lookup"], seed_k["walks_err"]),
-         "ms": big["sa_ms"], "plain_ms": big["sa_plain_ms"], **big["sa_bound"]},
+         "ms": big["sa"]["cold_ms"], "plain_ms": big["sa"]["plain_ms"],
+         **big["sa"]["bound"], "latency_floor_ms": big["sa"]["floor_ms"],
+         **_redesign("sa_lookup", big["sa"])},
         {"name": "backward_search", "route": "cuda", "source": fm_src,
          "replaces": "bwamem_tpu/ops/seed_tpu.py:27",
          "launches": big["launches"]["backward_search"],

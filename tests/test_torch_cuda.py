@@ -131,7 +131,8 @@ def test_cuda_fm_kernels_match_plain_and_host(host_fm, span):
     for g, p_ in zip(got, fmops.backward_search_torch(dfm, qseq, qlen)):
         assert torch.equal(g, p_)
     assert {k: fmops.LAUNCHES[k] - before[k] for k in before} == {
-        "occ4": 1, "bwt_extend": 4, "sa_lookup": 1, "backward_search": 1}
+        "occ4": 1, "bwt_extend": 4, "sa_lookup": 1, "backward_search": 1,
+        "line_chase": 0}
 
 
 @pytest.mark.cuda
@@ -153,6 +154,104 @@ def test_cuda_fm_kernels_raise_on_bad_rows(host_fm):
                                  primary=fm.seq_len + 1)
     with pytest.raises(RuntimeError):
         fmops.sa_lookup_cuda(broken, torch.tensor([5], device="cuda"))
+
+
+@pytest.fixture(scope="module", params=(5, 8, 32),
+                ids=("intv5", "intv8", "intv32"))
+def walk_fm(request):
+    """A 20 kbp genome's index with sampled interval 5 (the SA kernel's
+    division path; build_bwt takes any interval), 8 or 32."""
+    import dataclasses
+
+    from bwamem_tpu_torch.engine.fmindex import FMIndex
+    from bwamem_tpu_torch.index.build import build_bwt, build_index
+    from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
+
+    rng = np.random.default_rng(45)
+    codes = rng.integers(0, 4, 20000).astype(np.uint8)
+    codes[5000:5300] = codes[100:400]
+    idx = build_index(Fasta([FastaContig("c", "", codes)]), sa_intv=8)
+    if request.param != 8:
+        idx = dataclasses.replace(idx, bwt=build_bwt(codes, request.param))
+    return FMIndex(idx)
+
+
+def _walk_lengths(dfm, k):
+    """Each row's walk length, by the plain walk's steps."""
+    steps = torch.zeros_like(k)
+    idx = torch.arange(k.numel(), device=k.device)
+    while True:
+        live = k % dfm.sa_intv != 0
+        idx, k = idx[live], k[live]
+        if not idx.numel():
+            return steps
+        steps[idx] += 1
+        k = fmops._lf(dfm, k)
+
+
+@pytest.mark.cuda
+@needs_card
+def test_cuda_sa_lookup_edges_at_any_interval(walk_fm):
+    """The SA kernel (mask and shift at 8 and 32, division at 5) on row 0,
+    the primary row, seq_len, sampled rows (no step), the longest walk of
+    the index, an empty batch, and its two flags: against the plain
+    version and the host FMIndex; a span past 512 is refused."""
+    import dataclasses
+
+    fm = walk_fm
+    dfm = fmops.DeviceFMIndex.from_host(fm, "cuda")
+    assert dfm.sa_shift == {5: -1, 8: 3, 32: 5}[fm.sa_intv]
+    every = torch.arange(fm.seq_len + 1, device="cuda")
+    steps = _walk_lengths(dfm, every)
+    longest = int(torch.argmax(steps))
+    sampled = np.arange(0, fm.seq_len + 1, fm.sa_intv)[1:60]
+    rows = np.concatenate([[0, fm.primary, fm.seq_len, longest], sampled])
+    rt = torch.from_numpy(rows).cuda()
+    before = fmops.LAUNCHES["sa_lookup"]
+    got = fmops.sa_lookup(dfm, rt)
+    assert fmops.LAUNCHES["sa_lookup"] == before + 1
+    assert torch.equal(got, fmops.sa_lookup_torch(dfm, rt))
+    assert np.array_equal(got.cpu().numpy(), fm.sa_lookup(rows))
+    # every row of the index, one launch
+    assert torch.equal(fmops.sa_lookup(dfm, every),
+                       fmops.sa_lookup_torch(dfm, every))
+    empty = fmops.sa_lookup_cuda(dfm, torch.zeros(0, dtype=torch.int64,
+                                                  device="cuda"))
+    assert empty.shape == (0,) and fmops.LAUNCHES["sa_lookup"] == before + 2
+    for bad in (-1, fm.seq_len + 1):
+        with pytest.raises(ValueError):
+            fmops.sa_lookup_cuda(dfm, torch.tensor([bad], device="cuda"))
+    with pytest.raises(ValueError):  # the kernel takes spans up to 512
+        fmops.sa_lookup_cuda(fmops.DeviceFMIndex.from_host(fm, "cuda", span=1024),
+                             rt)
+    # an all-A BWT with L2[0] = -1 maps row 6 to itself, never sampled
+    L2 = dfm.L2.clone()
+    L2[0] = -1
+    broken = dataclasses.replace(dfm, lines=torch.zeros_like(dfm.lines), L2=L2,
+                                 primary=fm.seq_len + 1)
+    with pytest.raises(RuntimeError):
+        fmops.sa_lookup_cuda(broken, torch.tensor([6], device="cuda"))
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("span", (128, 256, 512))
+def test_cuda_line_chase_follows_its_hash(host_fm, span):
+    """The line-chase kernel visits the lines a host model of its hash
+    visits."""
+    dfm = fmops.DeviceFMIndex.from_host(host_fm, "cuda", span=span)
+    lines = dfm.lines.cpu().numpy().view(np.uint32)
+    nb = lines.shape[0]
+    li = 3 % nb
+    for s in range(50):
+        h = s
+        for x in lines[li]:
+            h ^= int(x)
+        h = (h * 0x9E3779B1) & 0xFFFFFFFF
+        li = (h * nb) >> 32
+    out = torch.zeros(1, dtype=torch.int64, device="cuda")
+    fmops.line_chase_launch(dfm, 3 % nb, 50, out)
+    assert int(out.item()) == li
 
 
 @pytest.mark.cuda
@@ -870,6 +969,70 @@ def test_cuda_chain_warp_cases(opts):
         assert [_chain_key(c) for c in lists[i]] == [_chain_key(c) for c in exp], name
         assert [_chain_key(c)[4:] for c in lists[i]] == [
             _chain_key(c)[4:] for c in host[i]], name
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("opts", ({}, {"min_chain_weight": 30,
+                                       "max_chain_extend": 3}),
+                         ids=("default", "weight30_extend3"))
+def test_cuda_chain_emit_is_idempotent_and_order_free(opts):
+    """On every ``warp_table`` read: the emit pass launched twice on the
+    same operands writes the same rows (it writes no scratch), equal to the
+    plain version's; and both kernels taking the reads in another order
+    than ``read_order`` give the same outputs."""
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.index.build import BntAnn, Bntseq
+
+    opt = MemOptions(**opts)
+    names, ivs, rbs, qlens = chain_cases.warp_table(np.random.default_rng(5))
+    bns = Bntseq(l_pac=chain_cases.WARP_L_PAC, anns=[
+        BntAnn(offset=o, name=f"c{i}", length=n, is_alt=a)
+        for i, (o, n, a) in enumerate(chain_cases.WARP_CONTIGS)])
+    ctg = co.DeviceContigs.from_host(bns, "cuda")
+    tab, cnt, off = co.prepare(ctg, co.SeedTable.from_numpy(
+        "cuda", *chain_cases.seed_table(ivs, rbs, qlens)))
+    params = co.ChainParams.from_opt(opt)
+    plain = co.chain_torch(ctg, tab, params)
+    B, T = len(names), int(cnt.sum())
+    i32, i64 = torch.int32, torch.int64
+    orders = {"read_order": co.read_order(cnt),
+              "reversed": co.read_order(cnt).flip(0).contiguous(),
+              "shuffled": torch.from_numpy(np.random.default_rng(1).permutation(
+                  B).astype(np.int32)).cuda()}
+    for how, order in orders.items():
+        assign, slot_dst = (torch.full((T,), -9, dtype=i32, device="cuda")
+                            for _ in range(2))
+        crec = torch.full((T, 5), -9, dtype=i32, device="cuda")
+        n_chain, n_seed = (torch.zeros(B, dtype=i64, device="cuda")
+                           for _ in range(2))
+        ovf, nslots = (torch.zeros(B, dtype=i32, device="cuda") for _ in range(2))
+        frac = torch.empty(B, dtype=torch.float64, device="cuda")
+        err = torch.zeros(1, dtype=i32, device="cuda")
+        co.chain_launch(ctg, tab, off, params, co.C_MAX, order, assign,
+                        slot_dst, crec, n_chain, n_seed, frac, ovf, nslots, err)
+        assert int(err.item()) == 0
+        assert torch.equal(n_chain, plain.n_chain), how
+        assert torch.equal(ovf.bool(), plain.ovf), how
+        chain_off = torch.cumsum(n_chain, 0) - n_chain
+        seed_dst = torch.cumsum(n_seed, 0) - n_seed
+        scratch = [t.clone() for t in (assign, slot_dst, crec)]
+        outs = []
+        for _ in range(2):
+            rows = (torch.full((int(n_chain.sum()), 7), -5, dtype=i64,
+                               device="cuda"),
+                    torch.full((int(n_seed.sum()), 4), -5, dtype=i64,
+                               device="cuda"))
+            before = co.LAUNCHES["chain_emit"]
+            co.chain_emit_launch(ctg, tab, off, order, assign, slot_dst, crec,
+                                 n_chain, frac, chain_off, seed_dst, *rows)
+            assert co.LAUNCHES["chain_emit"] == before + 1
+            outs.append(rows)
+        for t, t0 in zip((assign, slot_dst, crec), scratch):
+            assert torch.equal(t, t0), how  # the emit pass wrote no scratch
+        for rows in outs:
+            assert torch.equal(rows[0], plain.chain_rows), how
+            assert torch.equal(rows[1], plain.seed_rows), how
 
 
 @pytest.mark.cuda

@@ -188,10 +188,15 @@ def chain_model(opt, ends, alts, l_pac, qlen, intervals, rbegs, C=co.C_MAX,
     C budget flags it, else its chains as (rid, is_alt, frac_rep, w, kept,
     first, seeds) in output order.  ``events`` (a dict) records the
     predecessor searches (lo per seed) and, per shadowed chain a, the break
-    position, the kept chains before it and the j whose ``first`` it set."""
+    position, the kept chains before it and the j whose ``first`` it set;
+    and the scratch the emit pass reads: per seed in enumeration order its
+    slot (``assign``, -1 dropped), per slot where its seeds start in the
+    read's output (``slot_dst``, -1 for a chain not emitted)."""
     ev = events if events is not None else {}
     ev.setdefault("lo", [])
     ev.setdefault("breaks", [])
+    ev.setdefault("assign", [])
+    ev["slot_dst"] = []
 
     def ctg_of(pos):
         return int(np.searchsorted(ends, pos, side="right"))
@@ -247,6 +252,7 @@ def chain_model(opt, ends, alts, l_pac, qlen, intervals, rbegs, C=co.C_MAX,
                                   p[4] - p[3]))
             for prid, pr, pq, pl in batch:
                 if prid < 0:
+                    ev["assign"].append(-1)
                     continue
                 live = np.arange(len(okey)) < nch
                 lo = _ballot_count(live & (okey <= pr))
@@ -289,6 +295,7 @@ def chain_model(opt, ends, alts, l_pac, qlen, intervals, rbegs, C=co.C_MAX,
                     tab["endr"][s] = max(tab["endr"][s], er)
                     tab["qlast"][s], tab["rl"][s], tab["ll"][s] = pq, pr, pl
                     tab["seeds"][s].append((pr, pq, pl))
+                ev["assign"].append(s)
     # the rank sort over key order
     w = [min(min(tab["wq"][s], tab["wr"][s]), (1 << 30) - 1) for s in range(nch)]
     kw = np.array([w[oslot[m]] if w[oslot[m]] >= opt.min_chain_weight else -1
@@ -299,6 +306,7 @@ def chain_model(opt, ends, alts, l_pac, qlen, intervals, rbegs, C=co.C_MAX,
             rank = int(np.sum((kw > kw[m]) | ((kw == kw[m]) & (np.arange(nch) < m))))
             srt[rank] = int(oslot[m])
     na = len(srt)
+    ev["slot_dst"] = [-1] * nch
     if na == 0:
         return []
     sl = [srt[j] for j in range(na)]
@@ -335,13 +343,15 @@ def chain_model(opt, ends, alts, l_pac, qlen, intervals, rbegs, C=co.C_MAX,
     mark = np.zeros(na, bool)
     mark[first[(kept >= 2) & (first >= 0)]] = True
     kept = np.where((kept == 0) & mark, 1, kept)
-    out, n_ext = [], 0
+    out, n_ext, seedpos = [], 0, 0
     for c in range(0, na, LANES):  # the ballot scans of the output walk
         jj = np.arange(c, min(c + LANES, na))
         ext_n = n_ext + np.cumsum(kept[jj] >= 2)
         emit = (kept[jj] > 0) & ~((kept[jj] >= 2) & (ext_n > opt.max_chain_extend))
         for j in jj[emit]:
             s = sl[j]
+            ev["slot_dst"][s] = seedpos
+            seedpos += len(tab["seeds"][s])
             out.append((tab["crid"][s], int(alts[tab["crid"][s]]), frac, int(jw[j]),
                         int(kept[j]), int(first[j]), tuple(tab["seeds"][s])))
         n_ext = int(ext_n[-1])

@@ -33,30 +33,6 @@ import chip_smoke  # noqa: E402  (the card line and the timing helpers)
 L_PAC = 4_000_000
 
 
-def device_ms(fn, reps, dev, entry):
-    """Mean device ms of the kernel of ``entry`` (a name of chip_smoke.py's
-    kernels line) over ``reps`` calls of ``fn`` under torch.profiler: the
-    card's own time, where CUDA events around a small launch would time the
-    host's call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()  # warm-up
-    torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize(dev)
-    times = [(e.time_range.end - e.time_range.start) / 1e3
-             for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and chip_smoke._kernel_of(e.name) == entry]
-    if len(times) != reps:
-        raise AssertionError(f"the profiler saw {len(times)} {entry} launches, "
-                             f"not {reps}")
-    return sum(times) / reps
-
-
 def seeds(kind: str, n: int):
     """(intervals as (x0, x1, s, qb, qe), reference starts per interval)."""
     if kind == "merge1":
@@ -114,7 +90,7 @@ def main() -> int:
                             nslots, err)
 
         ev = chip_smoke._event_ms(launch, 20, dev)
-        ms = device_ms(launch, 20, dev, "chain")
+        ms = chip_smoke._device_ms(launch, 20, dev, "chain_kernel")
         if int(err.item()) or int(ovf.item()):
             raise AssertionError("the probe's read raised a flag")
         return ms, ev, int(nslots.item()), int(n_chain.item())
