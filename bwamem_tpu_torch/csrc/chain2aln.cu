@@ -23,10 +23,17 @@
 //   the band; choose local or to-the-end by gscore; seedcov over the chain's
 //   seeds; write the region.
 //
-// Design: `chain2aln_prep_kernel`, one thread per chain, and
+// Design: `chain2aln_prep_kernel`, one warp per chain (a lane a seed: the
+// spans in parallel and a warp min/max, the stable seed order as a rank
+// sort over the chain's scores staged in shared memory, so no lane waits on
+// a chain of dependent global loads).  Most chains have 1-5 seeds, so a
+// warp's time is its few dependent loads, and the batch is ~18,500 such
+// warps in rounds of what the card holds at once: registers are capped at
+// 64 a thread (__launch_bounds__ with 4 blocks an SM) so that 32 warps
+// fit an SM.  Then
 // `chain2aln_kernel`, one warp per read, a sequential state machine as the
-// oracle writes it, so regions of a read's earlier chains prune seeds of its
-// later ones.  The JAX program's barrel shifts, 128-base pac-row gathers,
+// oracle writes it, so regions of a read's earlier chains prune seeds of
+// its later ones.  The JAX program's barrel shifts, 128-base pac-row gathers,
 // one-hot region writes and lane-compaction ladder are TPU shapes of a gather,
 // an append and a loop that ends early; none is carried over.  The DP is
 // extend.cuh's `ksw_extend_warp`: a target row's band across the 32 lanes,
@@ -65,7 +72,9 @@
 
 namespace {
 
-constexpr int kPrepThreads = 128;
+constexpr int kPrepWarps = 8;
+constexpr int kPrepThreads = 32 * kPrepWarps;
+constexpr int kPrepTile = 256;  // scores a warp stages at once
 constexpr int kWarps = 8;  // a read a warp
 constexpr int kThreads = 32 * kWarps;
 constexpr int kErrWindow = 1;
@@ -91,47 +100,84 @@ __device__ __forceinline__ int64_t cal_max_gap(const Opts& o, int64_t qlen) {
   return l < (o.w << 1) ? l : (o.w << 1);
 }
 
-__global__ void __launch_bounds__(kPrepThreads) chain2aln_prep_kernel(
-    const int64_t* __restrict__ chain_rows,      // [Nc, 7]
-    const int64_t* __restrict__ seed_rows,       // [Ns, 4] rbeg qbeg len score
-    const int64_t* __restrict__ chain_seed_off,  // [Nc]
-    const int32_t* __restrict__ chain_read,      // [Nc]
-    const int32_t* __restrict__ qlen,            // [B]
-    int64_t n_chains, const int64_t* __restrict__ ctg_end,
-    const int64_t* __restrict__ ctg_off, int n_ctg, int64_t l_pac, Opts o,
-    int64_t* __restrict__ rmax,  // [Nc, 2]
-    int32_t* __restrict__ srt,   // [Ns] seed indices within the chain
-    int32_t* __restrict__ err) {
-  const int64_t ci = static_cast<int64_t>(blockIdx.x) * kPrepThreads + threadIdx.x;
-  if (ci >= n_chains) return;
+// One chain's window [rmax0, rmax1] and seed order, on one warp; `tile` is
+// the warp's kPrepTile words of shared memory.  The warp takes the chain's
+// seeds 32 at a time: each lane computes its seed's span (cal_max_gap in
+// double) and its rank in the stable (score, index) order,
+//   rank(t) = #{u : sc_u < sc_t} + #{u < t : sc_u = sc_t},
+// against the chain's scores staged in `tile`, kPrepTile at a time (once
+// for a chain of up to kPrepTile seeds).  srt[so + rank(t)] = t is the
+// permutation a stable insertion sort gives, ties in index order.  The span
+// is a min and max over the lanes; lane 0 then clamps it, cuts it at the
+// strand boundary and clamps it to the first seed's contig.
+__device__ __forceinline__ void prep_chain(
+    int64_t ci, int lane, int64_t* tile,
+    const int64_t* __restrict__ chain_rows,
+    const int64_t* __restrict__ seed_rows,
+    const int64_t* __restrict__ chain_seed_off,
+    const int32_t* __restrict__ chain_read, const int32_t* __restrict__ qlen,
+    const int64_t* __restrict__ ctg_end, const int64_t* __restrict__ ctg_off,
+    int n_ctg, int64_t l_pac, const Opts& o, int64_t* __restrict__ rmax,
+    int32_t* __restrict__ srt, int32_t* __restrict__ err) {
   const int64_t ns = chain_rows[ci * 7 + 2];
-  const int64_t so = chain_seed_off[ci];
-  const int64_t ql = qlen[chain_read[ci]];
-  int64_t r0 = l_pac << 1, r1 = 0;
-  for (int64_t t = 0; t < ns; ++t) {
-    const int64_t* s = seed_rows + (so + t) * 4;
-    const int64_t rbeg = s[0], qb = s[1], len = s[2], sc = s[3];
-    const int64_t tail = ql - qb - len;
-    const int64_t b = rbeg - (qb + cal_max_gap(o, qb));
-    const int64_t e = rbeg + len + (tail + cal_max_gap(o, tail));
-    if (b < r0) r0 = b;
-    if (e > r1) r1 = e;
-    // stable insertion by score: ties keep index order
-    int64_t k = t;
-    while (k > 0 && seed_rows[(so + srt[so + k - 1]) * 4 + 3] > sc) {
-      srt[so + k] = srt[so + k - 1];
-      --k;
-    }
-    srt[so + k] = static_cast<int32_t>(t);
-  }
   if (ns <= 0) {
-    rmax[ci * 2] = 0;
-    rmax[ci * 2 + 1] = 0;
+    if (lane == 0) {
+      rmax[ci * 2] = 0;
+      rmax[ci * 2 + 1] = 0;
+    }
     return;
   }
+  const int64_t so = chain_seed_off[ci];
+  const int64_t ql = qlen[chain_read[ci]];
+  const int64_t* sr = seed_rows + so * 4;
+  const bool one_tile = ns <= kPrepTile;
+  __syncwarp();  // every lane is done with the tile's last contents
+  if (one_tile) {
+    for (int64_t k = lane; k < ns; k += 32) tile[k] = sr[k * 4 + 3];
+    __syncwarp();
+  }
+  int64_t r0 = l_pac << 1, r1 = 0;
+  for (int64_t t0 = 0; t0 < ns; t0 += 32) {
+    const int64_t t = t0 + lane;
+    const bool live = t < ns;
+    int64_t sc = 0;
+    if (live) {
+      const int64_t rbeg = sr[t * 4], qb = sr[t * 4 + 1], len = sr[t * 4 + 2];
+      sc = sr[t * 4 + 3];
+      const int64_t tail = ql - qb - len;
+      const int64_t b = rbeg - (qb + cal_max_gap(o, qb));
+      const int64_t e = rbeg + len + (tail + cal_max_gap(o, tail));
+      r0 = b < r0 ? b : r0;
+      r1 = e > r1 ? e : r1;
+    }
+    int64_t rank = 0;
+    for (int64_t u0 = 0; u0 < ns; u0 += kPrepTile) {
+      const int n = static_cast<int>(ns - u0 < kPrepTile ? ns - u0 : kPrepTile);
+      if (!one_tile) {
+        __syncwarp();
+        for (int k = lane; k < n; k += 32) tile[k] = sr[(u0 + k) * 4 + 3];
+        __syncwarp();
+      }
+      if (live) {
+        const int64_t tu = t - u0;  // ties count below it
+        for (int k = 0; k < n; ++k) {
+          const int64_t v = tile[k];
+          rank += v < sc || (v == sc && k < tu);
+        }
+      }
+    }
+    if (live) srt[so + rank] = static_cast<int32_t>(t);
+  }
+  for (int d = 16; d > 0; d >>= 1) {
+    const int64_t a = __shfl_xor_sync(bwamem::kFullMask, r0, d);
+    const int64_t c = __shfl_xor_sync(bwamem::kFullMask, r1, d);
+    r0 = a < r0 ? a : r0;
+    r1 = c > r1 ? c : r1;
+  }
+  if (lane != 0) return;
   if (r0 < 0) r0 = 0;
   if (r1 > (l_pac << 1)) r1 = l_pac << 1;
-  const int64_t first = seed_rows[so * 4];
+  const int64_t first = sr[0];
   const bool fwd = first < l_pac;
   if (r0 < l_pac && l_pac < r1) {  // crossing the strand boundary
     if (fwd)
@@ -164,6 +210,27 @@ __global__ void __launch_bounds__(kPrepThreads) chain2aln_prep_kernel(
   }
   rmax[ci * 2] = r0 > far_beg ? r0 : far_beg;
   rmax[ci * 2 + 1] = r1 < far_end ? r1 : far_end;
+}
+
+// A chain a warp, kPrepWarps warps a block; registers for 4 blocks an SM.
+__global__ void __launch_bounds__(kPrepThreads, 4) chain2aln_prep_kernel(
+    const int64_t* __restrict__ chain_rows,      // [Nc, 7]
+    const int64_t* __restrict__ seed_rows,       // [Ns, 4] rbeg qbeg len score
+    const int64_t* __restrict__ chain_seed_off,  // [Nc]
+    const int32_t* __restrict__ chain_read,      // [Nc]
+    const int32_t* __restrict__ qlen,            // [B]
+    int64_t n_chains, const int64_t* __restrict__ ctg_end,
+    const int64_t* __restrict__ ctg_off, int n_ctg, int64_t l_pac, Opts o,
+    int64_t* __restrict__ rmax,  // [Nc, 2]
+    int32_t* __restrict__ srt,   // [Ns] seed indices within the chain
+    int32_t* __restrict__ err) {
+  __shared__ int64_t tiles[kPrepWarps][kPrepTile];
+  const int w = threadIdx.x >> 5;
+  const int64_t ci = static_cast<int64_t>(blockIdx.x) * kPrepWarps + w;
+  if (ci >= n_chains) return;
+  prep_chain(ci, threadIdx.x & 31, tiles[w], chain_rows, seed_rows,
+             chain_seed_off, chain_read, qlen, ctg_end, ctg_off, n_ctg, l_pac,
+             o, rmax, srt, err);
 }
 
 // Reference bases from the 2-bit pac (four bases a byte, the first in the
@@ -483,7 +550,7 @@ extern "C" int bwamem_chain2aln_prep_launch(
   const Opts o{a, o_del, e_del, o_ins, e_ins, zdrop, w, pen_clip5, pen_clip3,
                max_sc};
   const unsigned blocks =
-      static_cast<unsigned>((n_chains + kPrepThreads - 1) / kPrepThreads);
+      static_cast<unsigned>((n_chains + kPrepWarps - 1) / kPrepWarps);
   chain2aln_prep_kernel<<<blocks, kPrepThreads, 0, stream>>>(
       chain_rows, seed_rows, chain_seed_off, chain_read, qlen, n_chains,
       ctg_end, ctg_off, n_ctg, l_pac, o, rmax, srt, err);

@@ -29,9 +29,13 @@
 // lane-compaction ladder, qb<<16|qe packing, the R_cap/F_cap caps) are not
 // carried over.  `smem1a_kernel` and `strategy1_kernel` run one call per
 // warp, with the same device functions, so that each can be held against
-// its plain version and timed on its own.  `sample_ks_kernel` runs one
-// thread per (read, slot), and writes its row of the flat table and its
-// occurrence rows at offsets from exclusive scans the wrapper takes.
+// its plain version and timed on its own.  `sample_ks_kernel` runs one warp
+// per read: the read's rows go to the flat table as one contiguous copy,
+// each row's place among the read's occurrence rows is a warp scan of the
+// counts, and the read's occurrence rows are written as one contiguous run,
+// a word a lane, each lane finding its row by a search over the scan; the
+// reads' offsets are exclusive scans the wrapper takes.  It is bound by the
+// bytes it writes.
 //
 // What bounds it: latency.  Every forward step is one rank query, and the
 // next step's interval depends on it; a 150 bp read takes a few hundred
@@ -66,7 +70,8 @@ constexpr int kErrRowRange = 1;
 constexpr int kSeedWarps = 4;  // a read (or lane) a warp
 constexpr int kSeedThreads = 32 * kSeedWarps;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 256;
+constexpr int kSampleWarps = 8;
+constexpr int kSampleThreads = 32 * kSampleWarps;
 
 struct Intv {  // bwtintv_t: bi-interval and info (the query end)
   int64_t x0, x1;
@@ -499,29 +504,70 @@ __global__ void __launch_bounds__(kSeedThreads) collect_intv_kernel(
   }
 }
 
-// bwa sample_ks for each (read, slot) row kept: the row into the flat table
-// at row_off[b] + j, and its min(s, max_occ) rows x0 + step * t into ks,
-// after those of the read's earlier rows.
-__global__ void __launch_bounds__(kThreads) sample_ks_kernel(
+// bwa sample_ks, a read a warp: the read's nrows[b] rows to the flat table
+// at row_off[b] (one contiguous run of 5 nrows words, a word a lane; the
+// first 64 words and the first round's sizes and starts are loaded before
+// the row count arrives, so a read waits on one round trip to memory, not
+// two), then each row's min(s, max_occ) rows x0 + step * t into ks, after
+// those of the read's earlier rows.  Lanes take rows j = lane, lane + 32,
+// ...; an inclusive warp scan of their counts gives each row's place among
+// the round's SA rows, and the round's SA rows, one contiguous run from the
+// read's offset (ks_off[b], advanced by each round's total), are written a
+// word a lane: a lane takes SA row i = lane, lane + 32, ... of the run,
+// finds its row as the first lane whose inclusive count exceeds i (a
+// 5-step search by shuffles) and takes that row's x0, step and first place
+// from it.  Consecutive lanes store consecutive words.
+__global__ void __launch_bounds__(kSampleThreads) sample_ks_kernel(
     const int64_t* __restrict__ rows, int M, const int32_t* __restrict__ nrows,
     const int64_t* __restrict__ row_off, const int64_t* __restrict__ ks_off,
     int B, int64_t max_occ, int64_t* __restrict__ flat,
     int64_t* __restrict__ ks) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= static_cast<int64_t>(B) * M) return;
-  const int64_t b = t / M;
-  const int j = static_cast<int>(t % M);
-  if (j >= nrows[b]) return;
+  const int lane = threadIdx.x & 31;
+  const int64_t b =
+      static_cast<int64_t>(blockIdx.x) * kSampleWarps + (threadIdx.x >> 5);
+  if (b >= B) return;
   const int64_t* read = rows + b * M * 5;
-  const int64_t* r = read + 5 * j;
-  int64_t* f = flat + (row_off[b] + j) * 5;
-  for (int c = 0; c < 5; ++c) f[c] = r[c];
-  int64_t off = ks_off[b];
-  for (int k = 0; k < j; ++k) off += occ_rows(read[5 * k + 2], max_occ);
-  const int64_t s = r[2];
-  const int64_t cnt = occ_rows(s, max_occ);
-  const int64_t step = (s > max_occ && max_occ > 0) ? s / max_occ : 1;
-  for (int64_t k = 0; k < cnt; ++k) ks[off + k] = r[0] + step * k;
+  // the loads that need no row count go first, with nrows[b]: the read's
+  // first 64 words and row lane's size and start
+  const int words = 5 * M;
+  const int64_t w0 = lane < words ? read[lane] : 0;
+  const int64_t w1 = lane + 32 < words ? read[lane + 32] : 0;
+  const int64_t s_l = lane < M ? read[5 * lane + 2] : 0;
+  const int64_t x_l = lane < M ? read[5 * lane] : 0;
+  const int n = nrows[b];
+  int64_t* f = flat + row_off[b] * 5;
+  if (lane < 5 * n) f[lane] = w0;
+  if (lane + 32 < 5 * n) f[lane + 32] = w1;
+  for (int k = lane + 64; k < 5 * n; k += 32) f[k] = read[k];
+  int64_t* out = ks + ks_off[b];
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    const int j = j0 + lane;
+    int64_t x0 = 0, cnt = 0, step = 1;
+    if (j < n) {
+      const int64_t s = j0 == 0 ? s_l : read[5 * j + 2];
+      x0 = j0 == 0 ? x_l : read[5 * j];
+      cnt = occ_rows(s, max_occ);
+      if (s > max_occ && max_occ > 0) step = s / max_occ;
+    }
+    int64_t incl = cnt;  // inclusive scan of the round's counts
+    for (int d = 1; d < 32; d <<= 1) {
+      const int64_t v = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += v;
+    }
+    const int64_t excl = incl - cnt;
+    const int64_t total = __shfl_sync(kFull, incl, 31);
+    for (int64_t i0 = 0; i0 < total; i0 += 32) {
+      const int64_t i = i0 + lane;
+      int r = 0;  // the lanes whose inclusive count is <= i
+      for (int d = 16; d > 0; d >>= 1)
+        if (__shfl_sync(kFull, incl, r + d - 1) <= i) r += d;
+      const int64_t x = __shfl_sync(kFull, x0, r);
+      const int64_t st = __shfl_sync(kFull, step, r);
+      const int64_t at = __shfl_sync(kFull, excl, r);
+      if (i < total) out[i] = x + st * (i - at);
+    }
+    out += total;
+  }
 }
 
 Fm make_fm(const uint32_t* lines, int W, int lg, const int64_t* L2,
@@ -623,9 +669,10 @@ extern "C" int bwamem_seed_sample_ks_launch(
     const int64_t* rows, int M, const int32_t* nrows, const int64_t* row_off,
     const int64_t* ks_off, int B, int64_t max_occ, int64_t* flat, int64_t* ks,
     cudaStream_t stream) {
-  const int64_t n = static_cast<int64_t>(B) * M;
-  sample_ks_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
-                     kThreads, 0, stream>>>(rows, M, nrows, row_off, ks_off,
-                                            B, max_occ, flat, ks);
+  if (B <= 0) return 0;
+  sample_ks_kernel<<<static_cast<unsigned>((B + kSampleWarps - 1) /
+                                           kSampleWarps),
+                     kSampleThreads, 0, stream>>>(rows, M, nrows, row_off,
+                                                  ks_off, B, max_occ, flat, ks);
   return static_cast<int>(cudaGetLastError());
 }

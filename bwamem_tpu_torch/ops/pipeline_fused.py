@@ -15,7 +15,7 @@ on the device.
   run through ``ops.extend.ksw_extend_torch``.  It runs wherever its tensors
   lie.
 * ``chain2aln_cuda`` launches the hand-written Hopper kernels of
-  ``csrc/chain2aln.cu`` (a prep kernel, one thread per chain, and the loop
+  ``csrc/chain2aln.cu`` (a prep kernel, one warp per chain, and the loop
   kernel, one warp per read, a target row's band across the lanes; warps
   take reads heaviest first, in the order ``read_order`` gives).
 * ``chain2aln`` dispatches on the device of its inputs.

@@ -638,7 +638,7 @@ def _scan_offsets(nrows, nks):
 
 
 def sample_ks_cuda(rows, nrows, nks, max_occ: int):
-    """The sample_ks kernel, one thread per (read, slot); same contract as
+    """The sample_ks kernel, one warp per read; same contract as
     ``sample_ks_torch``."""
     dev = rows.device
     if dev.type != "cuda":

@@ -172,3 +172,62 @@ def warp_table(rng, n_random: int = 40):
             seeds.append((int(qb), ln, rb.tolist(), s))
         read(f"random_{r}", seeds, qlen)
     return names, ivs, rbs, qlens
+
+
+def prep_table(rng, no_contig: bool = False):
+    """Chains, built by hand, that drive the chain-to-region prep kernel's
+    steps to their edges, on the reference ``WARP_CONTIGS`` (no index).
+    Returns (names, chain_rows [Nc, 7], seed_rows [Ns, 4], n_chain [B],
+    n_seed [B], qlen [B]) as numpy int64 arrays (qlen int32), one name a
+    read:
+
+    * "equal_scores": a chain of 40 seeds of one score (ties keep index
+      order, across a 32-lane round);
+    * "n1", "n31", "n32", "n33": chains of 1, 31, 32 and 33 seeds;
+    * "two_tiles": a chain of 600 seeds, past two 256-score tiles of shared
+      memory, scores from a narrow range (many ties);
+    * "strand_fwd", "strand_rev": seeds on both sides of l_pac, the first
+      on the forward and on the reverse strand (the window is cut at l_pac
+      on the first seed's side);
+    * "three_chains": a read of chains of 5, 70 and 2 seeds;
+    * with ``no_contig``, "no_contig" too: a first seed past 2 l_pac, in
+      no contig.
+
+    Chain rows carry (0, 0, n_seeds, 0, 0, 1, 0); the prep kernel reads
+    only the seed count."""
+    l_pac = WARP_L_PAC
+    names, chains, qlens = [], [], []
+
+    def seeds(n, anchor, lo=19, hi=30, qlen=300):
+        qb = np.sort(rng.integers(0, qlen - 20, n))
+        ln = rng.integers(19, 21, n)
+        rb = anchor + qb + rng.integers(-40, 40, n)
+        return np.stack([rb, qb, ln, rng.integers(lo, hi, n)], 1)
+
+    def read(name, cl, qlen=300):
+        names.append(name)
+        chains.append(cl)
+        qlens.append(qlen)
+
+    eq = seeds(40, 10_000)
+    eq[:, 3] = 25
+    read("equal_scores", [eq])
+    for n in (1, 31, 32, 33):
+        read(f"n{n}", [seeds(n, 50_000 + 1_000 * n)])
+    read("two_tiles", [seeds(600, 120_000, 20, 24, qlen=2_000)], 2_000)
+    for name, first in (("strand_fwd", l_pac - 150), ("strand_rev", l_pac + 60)):
+        s = seeds(12, l_pac - 100)
+        s[0, 0] = first
+        read(name, [s])
+    read("three_chains", [seeds(5, 200_000), seeds(70, 250_000),
+                          seeds(2, 2 * l_pac - 5_000)])
+    if no_contig:
+        s = seeds(3, 100_000)
+        s[0, 0] = 2 * l_pac + 10
+        read("no_contig", [s])
+    chain_rows = [(0, 0, len(s), 0, 0, 1, 0) for cl in chains for s in cl]
+    return (names, np.asarray(chain_rows, np.int64).reshape(-1, 7),
+            np.concatenate([s for cl in chains for s in cl]).astype(np.int64),
+            np.asarray([len(cl) for cl in chains], np.int64),
+            np.asarray([sum(len(s) for s in cl) for cl in chains], np.int64),
+            np.asarray(qlens, np.int32))

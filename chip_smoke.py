@@ -72,7 +72,9 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    table against the plain version's, column by column; each kernel timed
    with CUDA events after a warm-up (collect_intv also from a cold L2, by
    batch size and on the read with the most rank queries alone, with its
-   warps resident a SM), each plain version once;
+   warps resident a SM), sample_ks as profiled device time on the whole
+   batch and on the read with the most SA rows alone, each plain version
+   once;
 11. the device seed stage: phase 4's batches with device_stages=("seed",
    "sa_lookup") (PE and SE), then the PE batch with ("seed",): records equal
    to the host aligner's, the seeding kernels launched, at least 95 % of
@@ -106,11 +108,15 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    on a sample of ~1,000 reads plus the reads with the most seeds and the
    most chains, against the host wave runner (host C++ ksw) on that sample
    and against the host oracle (engine/extend.py chain2aln) on part of it;
-   the band preamble of csrc/extend.cuh against ops.extend.band_width; the
-   kernels timed with CUDA events on the whole batch (also from a cold L2,
+   the prep kernel's own outputs (each chain's window and seed order)
+   against the plain version's (chain_windows) on the whole batch, on the
+   chain with the most seeds alone and on the 100 heaviest reads; the band
+   preamble of csrc/extend.cuh against ops.extend.band_width; the loop
+   kernel timed with CUDA events on the whole batch (also from a cold L2,
    by batch size, on the heaviest read alone and on the 100 heaviest reads
-   alone, with the loop kernel's warps resident a SM), the plain version
-   once;
+   alone, with its warps resident a SM), the prep kernel as profiled device
+   time on the whole batch and on the chain with the most seeds alone, the
+   plain versions once;
 15. the fused device path: phase 4's batches (PE and SE) and phase 8's chr20
    batch with device_pipeline=True: records equal to the host oracle's, all
    the path's kernels launched, at least 95 % of the reads on the fused path
@@ -137,11 +143,21 @@ the profiled PE batches of phases 4 (the default route: the extension
 waves) and 15 (the fused route: every other kernel of the aligner), and
 its launches there (0 for a kernel neither route launches).  The
 redesigned kernels (collect_intv, chain2aln, chain, chain_emit,
-ksw_extend, sa_lookup) also carry their slowest unit alone in this run:
-``slowest_read_ms``, ``slowest_job_ms`` for ksw_extend and
+ksw_extend, sa_lookup, chain2aln_prep, sample_ks) also carry their slowest
+unit alone in this run: ``slowest_read_ms``, ``slowest_job_ms`` for
+ksw_extend, ``slowest_chain_ms`` for chain2aln_prep and
 ``slowest_row_ms`` (the longest walk, from a cold L2) for sa_lookup, whose
 entry also gives ``latency_floor_ms``, that walk's steps times the measured
-latency of one dependent line fetch from a cold L2.  smem1a and
+latency of one dependent line fetch from a cold L2.  Each of these times
+(``ms``, ``slowest_*_ms``, ``latency_floor_ms``) has beside it, under the
+same key with ``_by`` added, the method that took it: "events" (CUDA
+events around the calls; for a launch of a few µs they time the host's
+call),
+"profiler" (the kernel's device time under torch.profiler) or "queued
+events" (CUDA events around calls queued behind a busy-wait of the card,
+taken where the profiler's traces held too few of the launches: the
+card's dispatch and run, a few µs above the profiler's time); each
+"profiled device time" of the phases above is taken so.  smem1a and
 strategy1 run on the main path as __device__ functions
 inside collect_intv_kernel; their own per-lane kernels (smem1a_kernel,
 strategy1_kernel) exist to hold each function against its plain version
@@ -538,8 +554,8 @@ def phase_main_path(dev, index, codes):
                           launches=res["launches"], stages=res["stages"],
                           wave=STATS.largest_wave)
         if mode == "pe":
-            busy, wall, per = _device_busy(port, batch, dev)
-            _check_traced("pe", per, {"ksw_extend": res["launches"]})
+            busy, wall, per = _traced_batch("pe", port, batch, dev,
+                                            {"ksw_extend": res["launches"]})
             runs["pe"]["batch_kernels"] = per
             print(f"  pe: again under torch.profiler: card busy {busy:.4f} s of "
                   f"{wall:.2f} s, idle share {1 - busy / wall:.4f}; kernels "
@@ -547,13 +563,18 @@ def phase_main_path(dev, index, codes):
     return runs
 
 
-def _check_traced(tag, per, launches):
-    """The profiled rerun of a batch must show each kernel as often as the
-    counted run launched it, or its summed time would miss launches."""
-    seen = {k: per.get(k, (0.0, 0))[1] for k in launches}
-    if seen != launches:
-        raise AssertionError(f"{tag}: the profiler saw launches {seen}, the "
-                             f"run made {launches}")
+def _traced_batch(tag, aligner, reads, dev, launches):
+    """``_device_busy`` on a rerun of the batch, whose trace must show each
+    kernel as often as the counted run launched it, or its summed time
+    would miss launches.  A trace can drop launches: the rerun is traced
+    again (three tries) before the run fails."""
+    for _ in range(3):
+        busy, wall, per = _device_busy(aligner, reads, dev)
+        seen = {k: per.get(k, (0.0, 0))[1] for k in launches}
+        if seen == launches:
+            return busy, wall, per
+    raise AssertionError(f"{tag}: the profiler saw launches {seen}, the run "
+                         f"made {launches}, three times")
 
 
 def _per_kernel(per) -> str:
@@ -597,37 +618,91 @@ def _cold_ms(fn, reps, dev):
     return sorted(times)[reps // 2]
 
 
+def _queued_ms(fn, reps, dev, cold=False):
+    """Mean device ms of ``fn`` by a pair of CUDA events around each call,
+    every call queued behind a busy-wait of the card (~30 ms) so that the
+    host has made all of them before the card reaches the first: each pair
+    times the card's dispatch and run of the call's kernels, not the
+    host's call.  ``cold`` as for ``_device_ms``."""
+    import torch
+
+    flush = torch.empty(1 << 26, dtype=torch.int32, device=dev) if cold else None
+    fn()  # warm-up
+    torch.cuda.synchronize(dev)
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(50_000_000)
+    for r, (a, b) in enumerate(pairs):
+        if cold:
+            flush.fill_(r)
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize(dev)
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+class ShortTrace(AssertionError):
+    """The profiler's traces held too few of a kernel's launches."""
+
+
 def _device_ms(fn, reps, dev, kernel, cold=False):
     """Mean device ms of the __global__ function ``kernel`` over ``reps``
     calls of ``fn`` under torch.profiler: the card's own time, where CUDA
     events around a small launch time the host's call.  ``cold``: 256 MB
     are written on the card before each call, so that it starts with
-    nothing of its tables in the 50 MB L2.  A trace can miss launches: the
-    mean is over the launches it holds, at least half of ``reps``, and a
-    trace that holds fewer is taken again (three tries)."""
+    nothing of its tables in the 50 MB L2.  A trace can miss launches, or
+    hold no device event at all, for a second or more at a time: the mean
+    is over the launches the traces hold, pooled over up to six traces of
+    ``reps`` calls (pauses of 0.5, 1, 2, 4 and 8 s between them, every
+    other one tracing the host too) until they hold at least half of
+    ``reps``; when they do not, ``ShortTrace`` is raised.  A trace that
+    holds more than ``reps`` launches fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(1 << 26, dtype=torch.int32, device=dev) if cold else None
     fn()  # warm-up
     torch.cuda.synchronize(dev)
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+    times = []
+    for attempt in range(6):
+        if attempt:
+            time.sleep(0.25 * 2 ** attempt)
+        acts = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * (attempt % 2)
+        with profile(activities=acts, acc_events=True) as prof:
+            # a few ms of the card busy first: traces of a few short
+            # launches alone have come back empty where longer ones did not
+            torch.cuda._sleep(10_000_000)
             for r in range(reps):
                 if cold:
                     flush.fill_(r)
                 fn()
             torch.cuda.synchronize(dev)
-        times = [(e.time_range.end - e.time_range.start) / 1e3
-                 for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and _names(e.name, kernel)]
-        if reps // 2 <= len(times) <= reps:
-            break
-    else:
-        raise AssertionError(f"the profiler saw {len(times)} {kernel} launches "
-                             f"of {reps}, three times")
-    return sum(times) / len(times)
+        seen = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        got = [(e.time_range.end - e.time_range.start) / 1e3
+               for e in seen if _names(e.name, kernel)]
+        if len(got) > reps:
+            raise AssertionError(f"a trace of {reps} calls holds {len(got)} "
+                                 f"{kernel} launches")
+        times += got
+        if len(times) >= reps // 2:
+            return sum(times) / len(times)
+    raise ShortTrace(f"six traces of {reps} calls held {len(times)} {kernel} "
+                     f"launches, the last {len(seen)} device events")
+
+
+def _card_ms(fn, reps, dev, kernel, cold=False):
+    """(ms, by): ``_device_ms``'s time and "profiler", or, where its traces
+    hold too few launches, ``_queued_ms``'s and "queued events", with a line
+    that says so.  The kernels line carries ``by`` beside each such time."""
+    try:
+        return _device_ms(fn, reps, dev, kernel, cold), "profiler"
+    except ShortTrace as e:
+        ms = _queued_ms(fn, reps, dev, cold)
+        print(f"  ({e}; timed instead by CUDA events queued behind a "
+              f"busy-wait: {ms:.5f} ms)")
+        return ms, "queued events"
 
 
 def phase_timing(dev, wave):
@@ -684,7 +759,7 @@ def phase_timing(dev, wave):
           f"queries of up to {ext.kernel_max_qlen(dev)} bases here; warps "
           f"resident a SM at Q={plan.Qw}: {ext.warps_per_sm(plan.Qw)}")
     return dict(ms=ms, plain_ms=plain_ms, err=err, bound=bound,
-                slowest_ms=top_ms)
+                slowest_ms=top_ms, slowest_by="events")
 
 
 def phase_fm_kernels(dev, fm):
@@ -753,19 +828,26 @@ def _walk_lengths(dfm, k):
         k = fmops._lf(dfm, k)
 
 
-def _chase_us(dfm, dev, cold: bool) -> float:
-    """Device µs of one dependent line fetch: the slope of the line-chase
-    kernel's time (profiled) from 64 to 576 fetches, its table in the L2
-    after a first call or (``cold``) flushed out of it before each."""
+def _chase_us(dfm, dev, cold: bool) -> tuple:
+    """(µs, by): device µs of one dependent line fetch, the slope of the
+    line-chase kernel's time (``_card_ms``, both by one method, named in
+    ``by``) from 64 to 576 fetches, its table in the L2 after a first call
+    or (``cold``) flushed out of it before each."""
     import torch
 
     from bwamem_tpu_torch.ops import fmindex as fmops
 
     out = torch.zeros(1, dtype=torch.int64, device=dev)
     start = 12345 % dfm.lines.shape[0]
-    t = {n: _device_ms(lambda n=n: fmops.line_chase_launch(dfm, start, n, out),
-                       5, dev, "line_chase_kernel", cold) for n in (64, 576)}
-    return (t[576] - t[64]) * 1e3 / 512
+    fns = {n: lambda n=n: fmops.line_chase_launch(dfm, start, n, out)
+           for n in (64, 576)}
+    t = {n: _card_ms(f, 5, dev, "line_chase_kernel", cold)
+         for n, f in fns.items()}
+    by = {b for _, b in t.values()}
+    if len(by) > 1:  # both times by one method, or the slope mixes them
+        by = {"queued events"}
+        t = {n: (_queued_ms(f, 5, dev, cold), "") for n, f in fns.items()}
+    return (t[576][0] - t[64][0]) * 1e3 / 512, by.pop()
 
 
 def _time_sa(tag, dev, fm, rows):
@@ -811,10 +893,12 @@ def _time_sa(tag, dev, fm, rows):
     def one():
         fmops.sa_lookup_launch(dfm, k1, out1, flags)
 
-    row_ms = _device_ms(one, 10, dev, "sa_lookup_kernel")
-    row_cold_ms = _device_ms(one, 10, dev, "sa_lookup_kernel", cold=True)
+    row_ms, row_by = _card_ms(one, 10, dev, "sa_lookup_kernel")
+    row_cold_ms, row_cold_by = _card_ms(one, 10, dev, "sa_lookup_kernel",
+                                        cold=True)
     err = max(err, _diff(out1, out[top: top + 1]))
-    lat = {c: _chase_us(dfm, dev, c) for c in (False, True)}
+    chase = {c: _chase_us(dfm, dev, c) for c in (False, True)}
+    lat = {c: us for c, (us, _) in chase.items()}
     floor = {c: longest * lat[c] / 1e3 for c in lat}
     bound = _line_bound(dfm, 16 * n + 8 * min(n, dfm.sa.numel()), mean * n,
                         10 * mean * n)
@@ -825,18 +909,19 @@ def _time_sa(tag, dev, fm, rows):
           f"PyTorch {plain_ms:.4f} ms ({n / plain_ms * 1e3:.4g} rows/s), host "
           f"C++ sa_batch {host_s * 1e3:.4f} ms ({n / host_s:.4g} rows/s); "
           f"max|kernel-plain|,|kernel-host| {err}")
-    print(f"  {tag}: the longest walk alone (profiled device time) "
-          f"{row_ms:.4f} ms, {row_cold_ms:.4f} ms from a cold L2 "
+    print(f"  {tag}: the longest walk alone ({row_by}) "
+          f"{row_ms:.4f} ms, {row_cold_ms:.4f} ms from a cold L2 ({row_cold_by}) "
           f"({row_ms * 1e3 / max(longest, 1):.3f}, "
           f"{row_cold_ms * 1e3 / max(longest, 1):.3f} us a step); one dependent "
           f"line fetch {lat[False]:.4f} us ({lat[True]:.4f} us from a cold L2); "
           f"bound_ms {bound['bound_ms']:.5f} ({bound['bound_by']}), latency "
           f"floor (longest walk x one fetch) {floor[False]:.5f} ms "
-          f"({floor[True]:.5f} ms cold)")
+          f"({floor[True]:.5f} ms cold, fetch by {chase[True][1]})")
     if err:
         raise AssertionError(f"{tag}: the SA kernel disagrees")
     return dict(cold_ms=cold_ms, plain_ms=plain_ms, bound=bound,
-                slowest_ms=row_cold_ms, floor_ms=floor[True])
+                slowest_ms=row_cold_ms, slowest_by=row_cold_by,
+                floor_ms=floor[True], floor_by=chase[True][1])
 
 
 def phase_device_sa(dev, index, fm, runs):
@@ -1108,10 +1193,10 @@ def phase_probe(dev):
 
 
 # the redesigned kernels, whose entries carry their slowest unit's time
-# alone: a read's (a warp per read), a job's (the wave kernel) or a row's
-# (the SA walk)
+# alone: a read's (a warp per read), a job's (the wave kernel), a row's (the
+# SA walk) or a chain's (the prep kernel)
 REDESIGNED = ("collect_intv", "chain2aln", "ksw_extend", "chain", "sa_lookup",
-              "chain_emit")
+              "chain_emit", "chain2aln_prep", "sample_ks")
 SEED_REPLACES = {
     "smem1a": "bwamem_tpu/ops/smem_tpu.py:39",
     "strategy1": "bwamem_tpu/ops/seed_tpu.py:80",
@@ -1327,9 +1412,21 @@ def phase_seed_kernels(dev, fm, codes, batch):
     row_o, ks_o, n_tot, ks_tot = so._scan_offsets(nr, nks)
     flat2 = torch.empty((n_tot, 5), dtype=torch.int64, device=dev)
     ks2 = torch.empty(ks_tot, dtype=torch.int64, device=dev)
-    s_ms = _event_ms(lambda: so.sample_ks_launch(rows, nr, row_o, ks_o,
-                                                 params.max_occ, flat2, ks2),
-                     10, dev)
+    s_ms, s_by = _card_ms(lambda: so.sample_ks_launch(
+        rows, nr, row_o, ks_o, params.max_occ, flat2, ks2), 10, dev,
+        "sample_ks_kernel")
+    # the read with the most SA rows, alone
+    s_top = int(torch.argmax(nks))
+    s_ro, s_ko, s_n, s_k = so._scan_offsets(nr[s_top:s_top + 1],
+                                            nks[s_top:s_top + 1])
+    s_flat = torch.empty((s_n, 5), dtype=torch.int64, device=dev)
+    s_ks = torch.empty(s_k, dtype=torch.int64, device=dev)
+    s_top_ms, s_top_by = _card_ms(lambda: so.sample_ks_launch(
+        rows[s_top:s_top + 1], nr[s_top:s_top + 1], s_ro, s_ko, params.max_occ,
+        s_flat, s_ks), 10, dev, "sample_ks_kernel")
+    r0, k0 = int(row_o[s_top]), int(ks_o[s_top])
+    e_s = max(e_s, _diff(s_flat, flat2[r0: r0 + s_n]),
+              _diff(s_ks, ks2[k0: k0 + s_k]))
     e_c = max(e_c, _diff(rows[ok], iv.rows[ok]))
     e_s = max(e_s, _diff(flat2, got.flat), _diff(ks2, got.ks))
     w = work.cpu().numpy().astype(np.int64)
@@ -1353,18 +1450,20 @@ def phase_seed_kernels(dev, fm, codes, batch):
           f"{so.K_SLOTS} in {int((w[:, 4] > so.K_SLOTS).sum())} reads; "
           f"flagged at K = {K} by K {int((w[:, 3] == 1).sum())}, by M "
           f"{int((w[:, 3] == 2).sum())}; {len(flat)} rows, {len(ks)} SA rows")
-    print(f"  sample_ks on those rows: kernel {s_ms:.4f} ms, plain PyTorch "
-          f"{s_plain_ms:.4f} ms (once); max|kernel-plain| {e_s}, "
+    print(f"  sample_ks on those rows: kernel {s_ms:.5f} ms ({s_by}; the read "
+          f"with the most SA rows, {s_k}, alone {s_top_ms:.5f} ms, {s_top_by}), "
+          f"plain "
+          f"PyTorch {s_plain_ms:.4f} ms (once); max|kernel-plain| {e_s}, "
           f"max|kernel-host| {e_sh}; SA walks of its rows max|kernel-plain| "
           f"{e_w}, max|kernel-host| {e_wh}")
     calls = int(w[:, 2].sum())
     res["collect_intv"] = dict(
-        err=max(e_c, e_ch), ms=c_ms, plain_ms=c_plain_ms, slowest_ms=slow_ms,
-        bound=_line_bound(dfm, qseq.numel() + 20 * B + 40 * len(flat),
+        err=max(e_c, e_ch), ms=c_ms, ms_by="events", plain_ms=c_plain_ms,
+        slowest_ms=slow_ms, slowest_by="events", bound=_line_bound(dfm, qseq.numel() + 20 * B + 40 * len(flat),
                           2 * calls, 20 * calls))
     res["sample_ks"] = dict(
-        err=max(e_s, e_sh), ms=s_ms, plain_ms=s_plain_ms,
-        bound=_bound(80 * len(flat) + 8 * len(ks) + 20 * B, 4 * len(ks)))
+        err=max(e_s, e_sh), ms=s_ms, ms_by=s_by, plain_ms=s_plain_ms,
+        slowest_ms=s_top_ms, slowest_by=s_top_by, bound=_bound(80 * len(flat) + 8 * len(ks) + 20 * B, 4 * len(ks)))
     res["walks_err"] = max(e_w, e_wh)
     if any(v["err"] for k, v in res.items() if k != "walks_err") or res["walks_err"]:
         raise AssertionError("a seeding kernel disagrees with its references")
@@ -1580,7 +1679,7 @@ def phase_chain_kernels(dev, index, batch):
     z1 = torch.zeros(1, dtype=i64, device=dev)
     rows1 = (torch.empty((int(c1[0].item()), 7), dtype=i64, device=dev),
              torch.empty((int(c1[1].item()), 4), dtype=i64, device=dev))
-    e_top_ms = _device_ms(lambda: co.chain_emit_launch(
+    e_top_ms, e_top_by = _card_ms(lambda: co.chain_emit_launch(
         ctg, one, off1, ord1, *s1, c1[0], f1, z1, z1, *rows1), 10, dev,
         "chain_emit_kernel")
     if int(flags.item()):
@@ -1607,7 +1706,7 @@ def phase_chain_kernels(dev, index, batch):
         + f", B={B} {c_ms:.4f} ms; the read with the most seeds alone "
         f"({int(seed_cnt[top])} seeds, {int(nslots[top])} slots): {top_ms:.4f} ms, "
         f"{top_ms * 1e3 / max(int(seed_cnt[top]), 1):.3f} us per seed; "
-        f"its emit pass alone (profiled device time) {e_top_ms:.4f} ms; "
+        f"its emit pass alone ({e_top_by}) {e_top_ms:.4f} ms; "
         f"chain_kernel warps resident a SM: {co.warps_per_sm()}")
     print(f"  max|kernel-plain| {e_plain}; reads whose chains differ from the "
           f"host C++ chain_batch {e_host} (of {B}), from the oracle "
@@ -1617,10 +1716,10 @@ def phase_chain_kernels(dev, index, batch):
         raise AssertionError("a chain kernel disagrees with its references")
     io = 8 * T + 56 * N + 28 * B
     return {
-        "chain": dict(err=0, ms=c_ms, plain_ms=plain_ms, slowest_ms=top_ms,
-                      bound=_bound(io + 32 * B, 60 * T)),
-        "chain_emit": dict(err=0, ms=e_ms, plain_ms=plain_ms,
-                           slowest_ms=e_top_ms,
+        "chain": dict(err=0, ms=c_ms, ms_by="events", plain_ms=plain_ms,
+                      slowest_ms=top_ms, slowest_by="events", bound=_bound(io + 32 * B, 60 * T)),
+        "chain_emit": dict(err=0, ms=e_ms, ms_by="events", plain_ms=plain_ms,
+                           slowest_ms=e_top_ms, slowest_by=e_top_by,
                            bound=_bound(io + 4 * T + 16 * B + 56 * nc + 32 * ns,
                                         8 * T)),
     }
@@ -1669,6 +1768,36 @@ def _chains_of(chains, idx):
         seed_rows=chains.seed_rows[expand(seed_off[idx], n_seed)],
         n_chain=n_chain, n_seed=n_seed, seed_cnt=chains.seed_cnt[idx],
         ovf=chains.ovf[idx], nslots=chains.nslots[idx])
+
+
+def _prep_err(ctg, chains, lay, qlen, params, rmax, srt) -> int:
+    """Largest difference of the prep kernel's ``rmax`` [Nc, 2] and ``srt``
+    [Ns] from the plain version's windows and seed order (``chain_windows``:
+    ``perm`` indexes seed rows, so it is mapped to indices within each
+    chain)."""
+    import torch
+
+    from bwamem_tpu_torch.ops import pipeline_fused as fo
+
+    r0, r1, perm, c_of = fo.chain_windows(ctg, chains, lay, qlen, params)
+    within = perm - lay.chain_seed_off[c_of[perm]]
+    return max(_diff(rmax, torch.stack([r0, r1], 1)), _diff(srt, within))
+
+
+def _one_chain(chains, lay, q8, ql, run8, c: int):
+    """Chain ``c`` alone as the prep kernel's operands: a one-read, one-chain
+    ``Chains`` and its read's qseq, qlen and run."""
+    import torch
+
+    so, ns = int(lay.chain_seed_off[c]), int(lay.ns[c])
+    r = int(lay.chain_read[c])
+    one = torch.ones(1, dtype=torch.int64, device=ql.device)
+    sub = chains._replace(
+        chain_rows=chains.chain_rows[c: c + 1],
+        seed_rows=chains.seed_rows[so: so + ns], n_chain=one,
+        n_seed=one * ns, seed_cnt=chains.seed_cnt[r: r + 1],
+        ovf=chains.ovf[r: r + 1], nslots=chains.nslots[r: r + 1])
+    return sub, q8[r: r + 1], ql[r: r + 1], run8[r: r + 1]
 
 
 def _region_rows(regs):
@@ -1788,7 +1917,23 @@ def phase_chain2aln_kernels(dev, index, batch):
             return nregs, wk
         return loop
 
-    prep_ms = _event_ms(prep, 10, dev)
+    # the prep kernel's own outputs against the plain version's, on the
+    # whole batch, and on the chain with the most seeds alone (device time:
+    # CUDA events around a launch this small time the host's call)
+    prep_ms, prep_by = _card_ms(prep, 10, dev, "chain2aln_prep_kernel")
+    e_prep = _prep_err(ctg, chains_p, lay, ql, params, rmax, srt)
+    _, prep_plain_ms = _once_ms(lambda: fo.chain_windows(ctg, chains_p, lay, ql,
+                                                         params), dev)
+    top_c = int(torch.argmax(lay.ns))
+    c_sub, c_q, c_ql, c_run = _one_chain(chains_p, lay, q8, ql, run8, top_c)
+    c_sub, c_lay, _, c_ql, _ = fo.prepare(ctg, ref, c_sub, c_q, c_ql, c_run)
+    c_rmax = torch.empty((1, 2), dtype=i64, device=dev)
+    c_srt = torch.empty(int(lay.ns[top_c]), dtype=i32, device=dev)
+    prep_top_ms, prep_top_by = _card_ms(lambda: fo.chain2aln_prep_launch(
+        ctg, c_sub, c_lay, c_ql, params, c_rmax, c_srt, err), 10, dev,
+        "chain2aln_prep_kernel")
+    e_prep = max(e_prep, _prep_err(ctg, c_sub, c_lay, c_ql, params, c_rmax,
+                                   c_srt))
     sizes = {nb: _event_ms(looper(0, nb), 3, dev)
              for nb in sorted({n for n in (1000, 3000, B // 2) if n < B})}
     top = int(np.argmax(work[:, fo.W_CELLS]))
@@ -1815,12 +1960,14 @@ def phase_chain2aln_kernels(dev, index, batch):
     h_srt = torch.empty(h_chains.seed_rows.shape[0], dtype=i32, device=dev)
     h_alive = torch.empty(h_chains.seed_rows.shape[0], dtype=torch.uint8, device=dev)
     fo.chain2aln_prep_launch(ctg, h_chains, h_lay, h_ql, params, h_rmax, h_srt, err)
+    e_prep = max(e_prep, _prep_err(ctg, h_chains, h_lay, h_ql, params, h_rmax,
+                                   h_srt))
     heavy_ms = _event_ms(lambda: fo.chain2aln_launch(
         ref, h_chains, h_lay, h_chains.n_chain, h_chains.n_seed, h_lay.chain_off,
         h_lay.seed_off, h_rmax, h_srt, h_alive, h_run, h_q, h_ql, mat_c, params,
         t_cap, h_order, kernel_q, h_reg_c, h_reg_i, h_nregs, h_wk, err), 3, dev)
     fo.raise_flags(int(err.item()))
-    e_plain = max(e_plain, _diff(h_wk, whole.work[heavy]),
+    e_plain = max(e_plain, e_prep, _diff(h_wk, whole.work[heavy]),
                   _diff(h_out.work, whole.work[heavy]),
                   sum(a != b for a, b in zip(_region_rows(h_out),
                                              [all_rows[i] for i in heavy.tolist()])))
@@ -1845,7 +1992,10 @@ def phase_chain2aln_kernels(dev, index, batch):
           f"cells mean {work[:, fo.W_CELLS].mean():.0f} p99 "
           f"{np.percentile(work[:, fo.W_CELLS], 99):.0f} max "
           f"{int(work[:, fo.W_CELLS].max())}): chain2aln_prep_kernel "
-          f"{prep_ms:.4f} ms, chain2aln_kernel {ms:.4f} ms ({cold_ms:.4f} ms "
+          f"{prep_ms:.5f} ms ({prep_by}; its plain version chain_windows "
+          f"{prep_plain_ms:.4f} ms once; the chain with the most seeds, "
+          f"{int(lay.ns[top_c])}, alone {prep_top_ms:.5f} ms, {prep_top_by}), "
+          f"chain2aln_kernel {ms:.4f} ms ({cold_ms:.4f} ms "
           f"from a cold L2); plain PyTorch on "
           f"{len(pick)} reads {plain_ms:.1f} ms (once)")
     print("  chain2aln_kernel by batch size: " + ", ".join(
@@ -1862,6 +2012,9 @@ def phase_chain2aln_kernels(dev, index, batch):
         f"bases); reads of up to {limit} bases fit a block ({at_limit} warps "
         f"a SM there; longer reads take the staged path); the read order (one "
         f"torch.sort) not timed")
+    print(f"  prep kernel's rmax and srt against chain_windows's windows and "
+          f"order (the whole batch, the chain with the most seeds alone, the "
+          f"100 reads with the most cells): max|diff| {e_prep}")
     print(f"  max|kernel-plain| {e_plain} ({len(pick)} reads, every field); reads "
           f"whose regions differ between the sample's run and the whole batch's "
           f"{e_sub}, from the host wave runner's {e_host} (of {len(pick)}), from "
@@ -1872,11 +2025,15 @@ def phase_chain2aln_kernels(dev, index, batch):
                              "references")
     io_in = 56 * Nc + 32 * Ns + 4 * Ns + q8.numel() + 45 * B
     return {
-        "chain2aln_prep": dict(err=0, ms=prep_ms, plain_ms=plain_ms,
-                               bound=_bound(56 * Nc + 32 * Ns + 16 * Nc + 4 * Ns,
-                                            30 * Ns)),
-        "chain2aln": dict(err=0, ms=ms, plain_ms=plain_ms, slowest_ms=top_ms,
-                          bound=_bound(
+        # ns, chain_seed_off, chain_read, the read's qlen and rmax a chain;
+        # the seed rows and srt a seed; the contig table once
+        "chain2aln_prep": dict(
+            err=e_prep, ms=prep_ms, ms_by=prep_by, plain_ms=prep_plain_ms,
+            slowest_ms=prep_top_ms, slowest_by=prep_top_by,
+            bound=_bound(40 * Nc + 36 * Ns + 16 * ctg.ctg_end.numel(),
+                         30 * Ns)),
+        "chain2aln": dict(err=0, ms=ms, ms_by="events", plain_ms=plain_ms,
+                          slowest_ms=top_ms, slowest_by="events", bound=_bound(
             io_in + 16 * Nc + min(rows / 4, ref.pac.numel()) + 56 * nr + 52 * B,
             10 * cells)),
     }
@@ -1925,10 +2082,10 @@ def phase_fused(dev, index, runs, chain_run, big):
             ref_st = chain_run["runs"]["pe+seed+sa+chain"]["stages"]
             print(f"  {tag}: phase 13's staged run of the same batch: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in ref_st.items()) + " s")
-            busy, wall, per = _device_busy(port, r["batch"], dev)
-            _check_traced(tag, per, {**res["seed_launches"],
-                                     **res["chain_launches"], **la,
-                                     "sa_lookup": res["sa_launches"]})
+            busy, wall, per = _traced_batch(
+                tag, port, r["batch"], dev,
+                {**res["seed_launches"], **res["chain_launches"], **la,
+                 "sa_lookup": res["sa_launches"]})
             res["batch_kernels"] = per
             print(f"  {tag}: again under torch.profiler: card busy {busy:.4f} s "
                   f"of {wall:.2f} s, idle share {1 - busy / wall:.4f}; kernels "
@@ -1940,11 +2097,13 @@ def phase_fused(dev, index, runs, chain_run, big):
 
 def _redesign(name: str, res: dict) -> dict:
     """A redesigned kernel's slowest job (the wave kernel), row (the SA
-    walk) or read alone, as this run timed it."""
+    walk), chain (the prep kernel) or read alone, as this run timed it."""
     if name not in REDESIGNED:
         return {}
-    unit = {"ksw_extend": "job", "sa_lookup": "row"}.get(name, "read")
-    return {f"slowest_{unit}_ms": res["slowest_ms"]}
+    unit = {"ksw_extend": "job", "sa_lookup": "row",
+            "chain2aln_prep": "chain"}.get(name, "read")
+    return {f"slowest_{unit}_ms": res["slowest_ms"],
+            f"slowest_{unit}_ms_by": res["slowest_by"]}
 
 
 def _batch(name: str, traces) -> dict:
@@ -2042,40 +2201,44 @@ def main() -> int:
          "replaces": "bwamem_tpu/ops/extend_pallas.py:83",
          "launches": runs["pe"]["launches"],
          "max_abs_err": max(err3, ksw["err"]), "ms": ksw["ms"],
-         "plain_ms": ksw["plain_ms"], **ksw["bound"],
+         "ms_by": "events", "plain_ms": ksw["plain_ms"], **ksw["bound"],
          **_redesign("ksw_extend", ksw)},
         {"name": "occ4", "route": "cuda", "source": fm_src,
          "replaces": "bwamem_tpu/ops/fmindex_tpu.py:249",
          "launches": big["launches"]["occ4"],
          "max_abs_err": max(fm_err["occ4"], big["rank"]["occ4"][2]),
-         "ms": big["rank"]["occ4"][0], "plain_ms": big["rank"]["occ4"][1],
+         "ms": big["rank"]["occ4"][0], "ms_by": "events",
+         "plain_ms": big["rank"]["occ4"][1],
          **big["rank"]["occ4"][3]},
         {"name": "bwt_extend", "route": "cuda", "source": fm_src,
          "replaces": "bwamem_tpu/ops/fmindex_tpu.py:296",
          "launches": big["launches"]["bwt_extend"],
          "max_abs_err": max(fm_err["bwt_extend"], big["rank"]["bwt_extend"][2]),
-         "ms": big["rank"]["bwt_extend"][0],
+         "ms": big["rank"]["bwt_extend"][0], "ms_by": "events",
          "plain_ms": big["rank"]["bwt_extend"][1],
          **big["rank"]["bwt_extend"][3]},
         {"name": "sa_lookup", "route": "cuda", "source": fm_src,
          "replaces": "bwamem_tpu/ops/fmindex_tpu.py:382",
          "launches": sa["pe"]["launches"],
          "max_abs_err": max(fm_err["sa_lookup"], seed_k["walks_err"]),
-         "ms": big["sa"]["cold_ms"], "plain_ms": big["sa"]["plain_ms"],
+         "ms": big["sa"]["cold_ms"], "ms_by": "events",
+         "plain_ms": big["sa"]["plain_ms"],
          **big["sa"]["bound"], "latency_floor_ms": big["sa"]["floor_ms"],
+         "latency_floor_ms_by": big["sa"]["floor_by"],
          **_redesign("sa_lookup", big["sa"])},
         {"name": "backward_search", "route": "cuda", "source": fm_src,
          "replaces": "bwamem_tpu/ops/seed_tpu.py:27",
          "launches": big["launches"]["backward_search"],
          "max_abs_err": big["rank"]["backward_search"][2],
-         "ms": big["rank"]["backward_search"][0],
+         "ms": big["rank"]["backward_search"][0], "ms_by": "events",
          "plain_ms": big["rank"]["backward_search"][1],
          **big["rank"]["backward_search"][3]},
         {"name": "op_probe", "route": "cuda",
          "source": "bwamem_tpu_torch/csrc/op_probe.cu",
          "replaces": "benchmarks/mosaic_probe.py:44",
          "launches": probe["launches"], "max_abs_err": probe["err"],
-         "ms": probe["ms"], "plain_ms": probe["plain_ms"], **probe["bound"]},
+         "ms": probe["ms"], "ms_by": "events", "plain_ms": probe["plain_ms"],
+         **probe["bound"]},
     ] + [
         {"name": name, "route": "cuda", "source": "bwamem_tpu_torch/csrc/seed.cu",
          "replaces": SEED_REPLACES[name],
@@ -2085,22 +2248,24 @@ def main() -> int:
                          "kernel counts them",
          "own_kernel_launches": seed_run["launches"][name],
          "max_abs_err": seed_k[name]["err"], "ms": seed_k[name]["ms"],
-         "plain_ms": seed_k[name]["plain_ms"], **seed_k[name]["bound"]}
+         "ms_by": "events", "plain_ms": seed_k[name]["plain_ms"],
+         **seed_k[name]["bound"]}
         for name in ("smem1a", "strategy1")
     ] + [
         {"name": name, "route": "cuda", "source": "bwamem_tpu_torch/csrc/seed.cu",
          "replaces": SEED_REPLACES[name],
          "launches": seed_run["launches"][name],
          "max_abs_err": seed_k[name]["err"], "ms": seed_k[name]["ms"],
-         "plain_ms": seed_k[name]["plain_ms"], **seed_k[name]["bound"],
-         **_redesign(name, seed_k[name])}
+         "ms_by": seed_k[name]["ms_by"], "plain_ms": seed_k[name]["plain_ms"],
+         **seed_k[name]["bound"], **_redesign(name, seed_k[name])}
         for name in ("collect_intv", "sample_ks")
     ] + [
         {"name": name, "route": "cuda", "source": "bwamem_tpu_torch/csrc/chain.cu",
          "replaces": "bwamem_tpu/ops/chain_tpu.py:41",
          "launches": chain_run["launches"][name],
          "max_abs_err": chain_k[name]["err"], "ms": chain_k[name]["ms"],
-         "plain_ms": chain_k[name]["plain_ms"], **chain_k[name]["bound"],
+         "ms_by": chain_k[name]["ms_by"], "plain_ms": chain_k[name]["plain_ms"],
+         **chain_k[name]["bound"],
          **_redesign(name, chain_k[name])}
         for name in ("chain", "chain_emit")
     ] + [
@@ -2109,7 +2274,8 @@ def main() -> int:
          "replaces": "bwamem_tpu/ops/pipeline_fused.py:111",
          "launches": fused_run["launches"][name],
          "max_abs_err": fused_k[name]["err"], "ms": fused_k[name]["ms"],
-         "plain_ms": fused_k[name]["plain_ms"], **fused_k[name]["bound"],
+         "ms_by": fused_k[name]["ms_by"], "plain_ms": fused_k[name]["plain_ms"],
+         **fused_k[name]["bound"],
          **_redesign(name, fused_k[name])}
         for name in ("chain2aln_prep", "chain2aln")
     ]

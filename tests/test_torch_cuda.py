@@ -1090,3 +1090,156 @@ def test_cuda_fused_aligner_matches_host(tmp_path, mode):
         assert STATS.device_extend_waves + STATS.host_extend_waves == 0
     assert got == host.align_seqs(reads)
     index.close()
+
+
+def _prep_on_card(ctg, chains, qlen, params):
+    """The prep kernel launched twice on the same buffers (the second on
+    rmax/srt holding the first's output, srt's places set to -1 before it):
+    (rmax, srt, the flag word) of the second launch; both launches'
+    outputs equal."""
+    i32, i64 = torch.int32, torch.int64
+    chains = chains._replace(
+        chain_rows=chains.chain_rows.to(i64).contiguous(),
+        seed_rows=chains.seed_rows.to(i64).contiguous(),
+        n_chain=chains.n_chain.to(i64).contiguous(),
+        n_seed=chains.n_seed.to(i64).contiguous())
+    lay = fo._layout(chains)
+    ql = qlen.to(i32).contiguous()
+    rmax = torch.empty((chains.chain_rows.shape[0], 2), dtype=i64, device="cuda")
+    srt = torch.empty(chains.seed_rows.shape[0], dtype=i32, device="cuda")
+    err = torch.zeros(1, dtype=i32, device="cuda")
+    before = fo.LAUNCHES["chain2aln_prep"]
+    fo.chain2aln_prep_launch(ctg, chains, lay, ql, params, rmax, srt, err)
+    first = (rmax.clone(), srt.clone())
+    srt.fill_(-1)
+    fo.chain2aln_prep_launch(ctg, chains, lay, ql, params, rmax, srt, err)
+    torch.cuda.synchronize()
+    assert fo.LAUNCHES["chain2aln_prep"] == before + 2
+    assert torch.equal(rmax, first[0]) and torch.equal(srt, first[1])
+    return rmax, srt, int(err.item()), lay
+
+
+def _windows(ctg, chains, lay, qlen, params):
+    r0, r1, perm, c_of = fo.chain_windows(ctg, chains, lay, qlen, params)
+    return torch.stack([r0, r1], 1), perm - lay.chain_seed_off[c_of[perm]]
+
+
+@pytest.mark.cuda
+@needs_card
+def test_cuda_prep_matches_chain_windows_on_chain_case_reads(fused_engine):
+    """The prep kernel's own outputs, each chain's window [rmax0, rmax1] and
+    its seed order (indices within the chain, ascending by (score,
+    index)), against the plain version's ``chain_windows`` on the chains
+    of chain_cases reads (both strands, repeats, the ALT contig, reads at
+    the genome's ends), launched twice on the same buffers."""
+    from bwamem_tpu_torch.api.options import MemOptions
+
+    eng, contigs = fused_engine
+    opt = MemOptions()
+    reads = chain_cases.reads(contigs, np.random.default_rng(33), 120)
+    reads += fused_cases.boundary_reads(contigs)
+    _, (ctg, _, chains, _, qlen, _, p, _) = _fused_operands(eng, opt, reads)
+    rmax, srt, err, lay = _prep_on_card(ctg, chains, qlen, p)
+    assert err == 0
+    exp_rmax, exp_srt = _windows(ctg, chains, lay, qlen, p)
+    assert torch.equal(rmax, exp_rmax) and torch.equal(srt.long(), exp_srt)
+    assert int(chains.n_chain.max()) >= 2
+
+
+@pytest.mark.cuda
+@needs_card
+def test_cuda_prep_on_hand_built_chains():
+    """chain_cases.prep_table: a chain of equal scores (ties keep index
+    order), chains of 1, 31, 32, 33 and 600 seeds (two full 256-score tiles
+    of shared memory and a part), windows cut at the strand boundary on the
+    first seed's side, a read of three chains; then a first seed in no
+    contig sets ERR_CONTIG where the plain version raises."""
+    from bwamem_tpu_torch.api.options import MemOptions
+
+    l_pac = chain_cases.WARP_L_PAC
+    ctg = co.DeviceContigs(
+        torch.tensor([o + n for o, n, _ in chain_cases.WARP_CONTIGS],
+                     device="cuda"),
+        torch.tensor([a for _, _, a in chain_cases.WARP_CONTIGS],
+                     dtype=torch.int32, device="cuda"),
+        l_pac, torch.tensor([o for o, _, _ in chain_cases.WARP_CONTIGS],
+                            device="cuda"))
+    p = fo.ExtendParams.from_opt(MemOptions())
+
+    def table(no_contig):
+        names, crow, srow, n_chain, n_seed, qlen = chain_cases.prep_table(
+            np.random.default_rng(31), no_contig)
+        z = torch.zeros(len(names), dtype=torch.int64, device="cuda")
+        up = [torch.from_numpy(a).cuda() for a in (crow, srow, n_chain, n_seed)]
+        return names, co.Chains(*up, z, z.bool(), z.int()), torch.from_numpy(
+            qlen).cuda()
+
+    names, chains, qlen = table(False)
+    rmax, srt, err, lay = _prep_on_card(ctg, chains, qlen, p)
+    assert err == 0
+    exp_rmax, exp_srt = _windows(ctg, chains, lay, qlen, p)
+    assert torch.equal(rmax, exp_rmax) and torch.equal(srt.long(), exp_srt)
+    ns = lay.ns.tolist()
+    assert max(ns) == 600 and {1, 31, 32, 33} <= set(ns)
+    k = names.index("strand_fwd")
+    assert int(rmax[k, 1]) == l_pac and int(rmax[k + 1, 0]) == l_pac
+    eq = names.index("equal_scores")
+    assert srt[:ns[eq]].tolist() == list(range(ns[eq]))
+    _, chains, qlen = table(True)
+    rmax, _, err, lay = _prep_on_card(ctg, chains, qlen, p)
+    assert err == fo.ERR_CONTIG and rmax[-1].tolist() == [0, 0]
+    with pytest.raises(RuntimeError):
+        fo.chain_windows(ctg, chains, lay, qlen, p)
+    with pytest.raises(RuntimeError):
+        fo.raise_flags(err)
+
+
+def _sample_ks_rows(rng, nrows, M=48, max_occ=500):
+    """Rows [B, M, 5] on the card with sizes below, at and past max_occ."""
+    B = len(nrows)
+    rows = np.zeros((B, M, 5), np.int64)
+    rows[:, :, 0] = rng.integers(0, 1 << 40, (B, M))
+    rows[:, :, 2] = rng.choice([1, 2, 33, max_occ - 1, max_occ, max_occ + 1,
+                                2 * max_occ + 7, 100_003], (B, M))
+    rows[:, :, 1] = rows[:, :, 0] + rows[:, :, 2]
+    rows[:, :, 3] = rng.integers(0, 100, (B, M))
+    rows[:, :, 4] = rows[:, :, 3] + 25
+    n = torch.tensor(nrows, dtype=torch.int32, device="cuda")
+    r = torch.from_numpy(rows).cuda()
+    valid = torch.arange(M, device="cuda")[None, :] < n[:, None]
+    nks = torch.where(valid, r[:, :, 2].clamp(max=max_occ), 0).sum(1)
+    return r, n, nks
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("max_occ", (500, 7))
+def test_cuda_sample_ks_edges(max_occ):
+    """sample_ks on the card against sample_ks_torch: reads of 0, 1, 32, 33
+    and 48 rows at M = 48 (two rounds of the warp scan), rows below, at and
+    past max_occ (the step path), the kernel launched twice on the same
+    buffers; and empty batches (no read, no row), which launch nothing."""
+    rng = np.random.default_rng(max_occ + 1)
+    nrows = [0, 1, 32, 33, 48, 0] + rng.integers(0, 49, 40).tolist()
+    rows, n, nks = _sample_ks_rows(rng, nrows, max_occ=max_occ)
+    before = so.LAUNCHES["sample_ks"]
+    flat, ks = so.sample_ks(rows, n, nks, max_occ)
+    assert so.LAUNCHES["sample_ks"] == before + 1
+    pflat, pks = so.sample_ks_torch(rows, n, nks, max_occ)
+    assert torch.equal(flat, pflat) and torch.equal(ks, pks)
+    s = rows[:, :, 2][torch.arange(48, device="cuda")[None, :] < n[:, None]]
+    assert bool((s < max_occ).any() and (s == max_occ).any()
+                and (s > max_occ).any())
+    row_off, ks_off, _, _ = so._scan_offsets(n, nks)
+    flat.fill_(-1)
+    ks.fill_(-1)
+    for _ in range(2):
+        so.sample_ks_launch(rows, n, row_off, ks_off, max_occ, flat, ks)
+        torch.cuda.synchronize()
+        assert torch.equal(flat, pflat) and torch.equal(ks, pks)
+    assert so.LAUNCHES["sample_ks"] == before + 3
+    for B in (0, 5):
+        rows, n, nks = _sample_ks_rows(rng, [0] * B, max_occ=max_occ)
+        flat, ks = so.sample_ks(rows, n, nks, max_occ)
+        assert flat.shape == (0, 5) and ks.shape == (0,)
+    assert so.LAUNCHES["sample_ks"] == before + 3
