@@ -5,14 +5,28 @@ A package of its own: it imports ``torch``, never ``jax`` and nothing of
 copies under the same module names.  The banded-SW extension waves, and by
 ``device_stages`` the seeding, the sampled-SA walks and the chaining, run in
 hand-written Hopper kernels (``csrc/*.cu``) on the device the aligner is
-given.
+given.  The public names are the JAX package's, but for its ``metrics()``.
 """
 from .api import (
-    BwaMemAligner, BwaMemAlignment, BwaMemIndex, BwaMemPairEndStats,
+    DO_NOT_INFER,
+    FAILED,
+    MEM_F_ALL,
+    MEM_F_NO_MULTI,
+    MEM_F_NO_RESCUE,
+    MEM_F_NOPAIRING,
+    MEM_F_PE,
+    MEM_F_PRIMARY5,
+    MEM_F_REF_HDR,
+    MEM_F_SMARTPE,
+    MEM_F_SOFTCLIP,
+    Algorithm,
+    BwaMemAligner,
+    BwaMemAlignment,
+    BwaMemIndex,
+    BwaMemPairEndStats,
     MemOptions,
+    exceptions,
 )
+from .api import __all__
 
-__all__ = [
-    "BwaMemAligner", "BwaMemAlignment", "BwaMemIndex", "BwaMemPairEndStats",
-    "MemOptions",
-]
+__version__ = "0.2.0"

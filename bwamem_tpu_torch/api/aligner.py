@@ -13,20 +13,44 @@ Record assembly reproduces the reference's binary record semantics
 internal-flag 0x10000 -> SAM 0x100 mapping and bwa's idiosyncratic outie
 tlen rule (jnibwa.c:79-96).
 
-Every batch goes through the port's ``align_regs_batch``; the JAX package's
-shortcut that aligns the whole batch in host C++ is not in the port.
+Routes, as the JAX package's aligner takes them:
+
+* the whole-batch host route: ``device="cpu"`` with no ``device_stages``
+  and no ``device_pipeline`` aligns the batch from seeds to records in one
+  host C++ call (``engine.native_pipeline.pipeline_batch_arrays``), the
+  reference's shortcut when no device stage is asked for;
+* every other route (``device="cuda"``, where the extension waves are on the
+  card; any ``device_stages``; ``device_pipeline``) makes the batch's
+  regions by ``engine.pipeline.align_regs_raw`` and hands them, before
+  dedup, to the host C++ tail (``native_pipeline.tail_batch_arrays``):
+  dedup, pairing with mate rescue, MAPQ and the records, timed as the
+  ``native_tail`` stage.  On a card a tail library that does not build or
+  load raises;
+* on the CPU only, where the tail library is not available, the Python tail
+  (``python_tail``: ``mark_primary_se``, ``pair.sam_pe``,
+  ``reg2sam_records``) on ``align_regs_batch``'s regions.  The tests call it
+  as the oracle of the C++ tail.
+
+``align_seqs`` assembles its records from the C++ tail's flat arrays
+(``_records_fast``); ``align_seqs_raw`` builds ``Aln`` lists from them
+(``native_pipeline.records_from_arrays``).
 """
 from __future__ import annotations
 
 from typing import Callable, Iterable, List, Optional, TypeVar
 
+import numpy as np
 import torch
 
+from ..engine import native_pipeline
 from ..engine import pair as pair_mod
 from ..engine.exec_ctx import HOST_FALLBACK_JOBS, ExecConfig
 from ..engine.finalize import Aln, mark_primary_se, reorder_primary5
-from ..engine.pipeline import align_regs_batch, reg2sam_records
+from ..engine.pipeline import (align_regs_batch, align_regs_raw,
+                               native_pipeline_ok, native_seed_sa,
+                               reg2sam_records)
 from ..utils.encoding import seq_to_codes_batch
+from ..utils.timers import TIMERS
 from .alignment import BAM_CIGAR_CHARS, BwaMemAlignment
 from .exceptions import InvalidInputException
 from .index import BwaMemIndex
@@ -99,6 +123,147 @@ def _aln_to_record(p: Aln, m: Optional[Aln]) -> BwaMemAlignment:
         mate_ref_start=mate_pos,
         template_len=tlen,
     )
+
+
+def _records_fast(
+    n_reads: int, rows: np.ndarray, cig: np.ndarray, sbuf: bytes, is_pe: bool
+) -> List[List[BwaMemAlignment]]:
+    """Flat native record arrays -> BwaMemAlignment lists, vectorized.
+
+    Produces exactly what _aln_to_record(records_from_arrays(...)) would —
+    the fmt_BAMish semantics (flag 0x10000->0x100 mapping, outie tlen,
+    jnibwa.c:43-97) computed column-wise instead of per object."""
+    out: List[List[BwaMemAlignment]] = [[] for _ in range(n_reads)]
+    nr = rows.shape[0]
+    if nr == 0:
+        return out
+    text = sbuf.decode("latin-1")
+    ridx = rows[:, 0]
+    flag_i = rows[:, 1]
+    flag = np.where(flag_i & 0x10000, flag_i | 0x100, flag_i) & 0xFFFF
+    mapped = (flag & 0x4) == 0
+    reflen = rows[:, 20]
+    ref_id = np.where(mapped, rows[:, 2], -1)
+    ref_start = np.where(mapped, rows[:, 3], -1)
+    ref_end = np.where(mapped, rows[:, 3] + reflen, -1)
+    seq_start = np.where(mapped, rows[:, 21], -1)
+    seq_end = np.where(mapped, rows[:, 21] + rows[:, 22], -1)
+    nm = np.where(mapped, rows[:, 7], 0)
+    score = np.where(mapped, rows[:, 8], 0)
+    sub = np.where(mapped, rows[:, 9], 0)
+    # mate block only when paired with a mapped mate ((flag & 0x9) == 1);
+    # the mate's representative is its first (primary) record
+    counts = np.bincount(ridx, minlength=n_reads)
+    starts = np.zeros(n_reads, dtype=np.int64)
+    np.cumsum(counts[:-1], out=starts[1:])
+    if is_pe:
+        mate_read = (ridx ^ 1).astype(np.int64)
+        has_mate = ((flag_i & 0x9) == 1) & (counts[mate_read] > 0)
+        m_idx = starts[mate_read]
+        m_rid = rows[m_idx, 2]
+        m_pos = rows[m_idx, 3]
+        mate_rid = np.where(has_mate, m_rid, -1)
+        mate_pos = np.where(has_mate, m_pos, -1)
+        p0 = rows[:, 3] + np.where(rows[:, 4] != 0, reflen - 1, 0)
+        m_reflen = rows[m_idx, 20]
+        m0 = m_pos + np.where(rows[m_idx, 4] != 0, m_reflen - 1, 0)
+        tlen = m0 - p0 + np.sign(m0 - p0)
+        tlen = np.where(
+            has_mate & mapped & (rows[:, 2] == m_rid), tlen, 0
+        )
+    else:
+        mate_rid = mate_pos = np.full(nr, -1, dtype=np.int64)
+        tlen = np.zeros(nr, dtype=np.int64)
+    cs_off = rows[:, 18].tolist()
+    cs_len = rows[:, 19].tolist()
+    md_off = rows[:, 13].tolist()
+    md_len = rows[:, 14].tolist()
+    xa_off = rows[:, 15].tolist()
+    xa_len = rows[:, 16].tolist()
+    has_xa = rows[:, 17].tolist()
+    cols = list(
+        zip(
+            flag.tolist(), ref_id.tolist(), ref_start.tolist(),
+            ref_end.tolist(), seq_start.tolist(), seq_end.tolist(),
+            rows[:, 6].tolist(), nm.tolist(), score.tolist(), sub.tolist(),
+            mate_rid.tolist(), mate_pos.tolist(), tlen.tolist(),
+        )
+    )
+    mapped_l = mapped.tolist()
+    ridx_l = ridx.tolist()
+    new = object.__new__
+    cls = BwaMemAlignment
+    for k in range(nr):
+        (fl, rid, rs, re_, ss, se, mq, nmv, sc, sb, mrid, mpos, tl) = cols[k]
+        if mapped_l[k]:
+            co = cs_off[k]
+            cigar = text[co : co + cs_len[k]]
+            mo = md_off[k]
+            md = text[mo : mo + md_len[k]]
+            if has_xa[k]:
+                xo = xa_off[k]
+                xa = text[xo : xo + xa_len[k]]
+            else:
+                xa = None
+        else:
+            cigar = ""
+            md = xa = None
+        a = new(cls)
+        a.__dict__.update(
+            sam_flag=fl, ref_id=rid, ref_start=rs, ref_end=re_,
+            seq_start=ss, seq_end=se, map_qual=mq, n_mismatches=nmv,
+            aligner_score=sc, suboptimal_score=sb, cigar=cigar, md_tag=md,
+            xa_tag=xa, mate_ref_id=mrid, mate_ref_start=mpos,
+            template_len=tl,
+        )
+        out[ridx_l[k]].append(a)
+    return out
+
+
+def resolve_pes(opt, eng, regs, pe_stats) -> List[pair_mod.PeStat]:
+    """PE-stats mode resolution, mirroring the JNI marshalling
+    (org_..._BwaMemIndex.c:21-40): ``pe_stats`` None infers from the
+    batch's deduplicated ``regs``; caller stats (or ``DO_NOT_INFER``, which
+    is failed) fill slot 1 (FR) only."""
+    if pe_stats is None:  # infer from the batch
+        return pair_mod.pestat(opt, eng.idx.bns.l_pac, regs)
+    pes = pair_mod.default_pes()
+    if not pe_stats.failed:
+        pes[1] = pair_mod.PeStat(low=pe_stats.low, high=pe_stats.high,
+                                 failed=0, avg=pe_stats.average,
+                                 std=pe_stats.std)
+    return pes
+
+
+def python_tail(opt, eng, reads, regs, pe_stats=None):
+    """The Python tail on deduplicated regions (``align_regs_batch``'s):
+    SE primary marking and records, or PE statistics (``pe_stats`` as
+    ``resolve_pes`` takes it), pairing with mate rescue and records.  Per
+    read a list of (Aln, mate Aln | None).  The oracle of the C++ tail, and
+    the route on the CPU where the tail library is not available."""
+    out = []
+    if not opt.flag & MEM_F_PE:
+        for i, (read, r) in enumerate(zip(reads, regs)):
+            mark_primary_se(opt, r, i)
+            if opt.flag & MEM_F_PRIMARY5:
+                reorder_primary5(opt.T, r)
+            out.append([(a, None) for a in reg2sam_records(opt, eng, read, r)])
+        return out
+    pes = resolve_pes(opt, eng, regs, pe_stats)
+    for i in range(len(reads) // 2):
+        alns0, alns1 = pair_mod.sam_pe(
+            opt, eng, pes, i, (reads[2 * i], reads[2 * i + 1]),
+            [regs[2 * i], regs[2 * i + 1]],
+        )
+        out.extend(_with_mates(alns0, alns1))
+    return out
+
+
+def _with_mates(alns0, alns1):
+    """One pair's two record lists, each record beside its mate's first."""
+    m0 = alns0[0] if alns0 else None
+    m1 = alns1[0] if alns1 else None
+    return [[(a, m1) for a in alns0], [(a, m0) for a in alns1]]
 
 
 class BwaMemAligner:
@@ -181,8 +346,36 @@ class BwaMemAligner:
                    ) -> List[List[BwaMemAlignment]]:
         """Align a batch; one result list per input sequence
         (BwaMemAligner.alignSeqs, :181-311)."""
-        raw = self.align_seqs_raw([func(s) for s in sequences])
+        seqs = [func(s) for s in sequences]
+        fast = self._align_seqs_fast(seqs)
+        if fast is not None:
+            return fast
+        raw = self.align_seqs_raw(seqs)
         return [[_aln_to_record(p, m) for p, m in per_read] for per_read in raw]
+
+    def _align_seqs_fast(self, seqs: List[bytes]):
+        """Vectorized record assembly over the C++ tail's flat arrays (the
+        whole-batch route's or ``bwamem_tail_batch``'s), the same records as
+        the Aln path.  Returns None when only the Python tail can serve this
+        batch (on the CPU, without the tail library)."""
+        if not self._open:
+            raise RuntimeError("The aligner has been closed.")
+        opt = self.options
+        is_pe = bool(opt.flag & MEM_F_PE)
+        if is_pe and len(seqs) % 2:
+            raise InvalidInputException(
+                "paired alignment requires an even number of sequences"
+            )
+        self._index.ref_index()
+        try:
+            eng = self._index._require()
+            reads = seq_to_codes_batch(seqs)
+            arrays = self._native_arrays(eng, opt, reads, is_pe)
+            if arrays is None:
+                return None
+            return _records_fast(len(reads), *arrays, is_pe=is_pe)
+        finally:
+            self._index.de_ref_index()
 
     def align_seqs_raw(self, sequences: List[bytes]):
         """Per read a list of (Aln, mate Aln | None) engine records."""
@@ -199,47 +392,66 @@ class BwaMemAligner:
         finally:
             self._index.de_ref_index()
 
+    def _native_arrays(self, eng, opt, reads, is_pe: bool):
+        """The batch's flat record arrays from the C++: the whole-batch
+        route where it applies, else the C++ tail on ``align_regs_raw``'s
+        regions; None on the CPU when the tail library is not available
+        (on a card its absence raises)."""
+        if native_pipeline_ok(eng, reads, self._exec_cfg):
+            return self._align_native_arrays(eng, opt, reads, is_pe)
+        if self._exec_cfg.device.type == "cpu" and not native_pipeline.available():
+            return None
+        rows, n_reg = align_regs_raw(opt, eng, reads, self._exec_cfg)
+        with TIMERS.stage("native_tail"):
+            return native_pipeline.tail_batch_arrays(
+                opt, eng.idx, reads, rows, n_reg, is_pe=is_pe,
+                pes=self._caller_pes(opt, eng, is_pe))
+
+    def _caller_pes(self, opt, eng, is_pe: bool):
+        """PE stats for the C++: None to infer them from the batch, else the
+        caller's mode resolved (``resolve_pes``)."""
+        if is_pe and self._pe_stats is not None:
+            return resolve_pes(opt, eng, None, self._pe_stats)
+        return None
+
+    def _align_native_arrays(self, eng, opt, reads, is_pe: bool):
+        """Full native pipeline (seeds -> flat record arrays in one C
+        call); engine/native/pipeline.cpp, the mem_process_seqs
+        equivalent."""
+        arrays = native_seed_sa(opt, eng, reads)
+        with TIMERS.stage("native_tail"):
+            return native_pipeline.pipeline_batch_arrays(
+                opt, eng.idx, reads, *arrays, is_pe=is_pe,
+                pes=self._caller_pes(opt, eng, is_pe))
+
+    def _align_native(self, eng, opt, reads, is_pe: bool):
+        """Like _native_arrays but returns per-read Aln lists (None where
+        _native_arrays is None)."""
+        arrays = self._native_arrays(eng, opt, reads, is_pe)
+        if arrays is None:
+            return None
+        return native_pipeline.records_from_arrays(len(reads), *arrays)
+
     def _align_se(self, eng, opt, reads):
-        out = []
-        regs_all = align_regs_batch(opt, eng, reads, self._exec_cfg)
-        for i, (read, regs) in enumerate(zip(reads, regs_all)):
-            mark_primary_se(opt, regs, i)
-            if opt.flag & MEM_F_PRIMARY5:
-                reorder_primary5(opt.T, regs)
-            out.append([(a, None) for a in reg2sam_records(opt, eng, read, regs)])
-        return out
+        recs = self._align_native(eng, opt, reads, is_pe=False)
+        if recs is not None:
+            return [[(a, None) for a in alns] for alns in recs]
+        return python_tail(opt, eng, reads,
+                           align_regs_batch(opt, eng, reads, self._exec_cfg))
 
     def _align_pe(self, eng, opt, reads):
         if len(reads) % 2:
             raise InvalidInputException(
                 "paired alignment requires an even number of sequences"
             )
+        recs = self._align_native(eng, opt, reads, is_pe=True)
+        if recs is not None:
+            out = []
+            for i in range(len(reads) // 2):
+                out.extend(_with_mates(recs[2 * i], recs[2 * i + 1]))
+            return out
         regs = align_regs_batch(opt, eng, reads, self._exec_cfg)
-        pes = self._resolve_pes(opt, eng, regs)
-        out = []
-        for i in range(len(reads) // 2):
-            alns0, alns1 = pair_mod.sam_pe(
-                opt, eng, pes, i, (reads[2 * i], reads[2 * i + 1]),
-                [regs[2 * i], regs[2 * i + 1]],
-            )
-            m0 = alns0[0] if alns0 else None
-            m1 = alns1[0] if alns1 else None
-            out.append([(a, m1) for a in alns0])
-            out.append([(a, m0) for a in alns1])
-        return out
-
-    def _resolve_pes(self, opt, eng, regs) -> List[pair_mod.PeStat]:
-        """PE-stats mode resolution, mirroring the JNI marshalling
-        (org_..._BwaMemIndex.c:21-40): caller stats fill slot 1 (FR) only."""
-        if self._pe_stats is None:  # infer from the batch
-            return pair_mod.pestat(opt, eng.idx.bns.l_pac, regs)
-        pes = pair_mod.default_pes()
-        s = self._pe_stats
-        if not s.failed:
-            pes[1] = pair_mod.PeStat(
-                low=s.low, high=s.high, failed=0, avg=s.average, std=s.std
-            )
-        return pes
+        return python_tail(opt, eng, reads, regs, self._pe_stats)
 
     # --------------------------------------------- Java-style option surface
 

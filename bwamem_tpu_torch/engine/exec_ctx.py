@@ -14,6 +14,13 @@ the aligner's ``device_stages``, never from the environment.
 sends a batch through the fused device path, seeding to regions on the
 device (``engine.pipeline_device``), whatever the three stage switches say.
 
+``force_waves`` (the JAX field's name; no aligner keyword and no
+environment variable sets it) keeps a host-only configuration on the
+extension waves of ``extend_batch`` instead of the fused host chain+extend
+core (``engine.native_core``) and the whole-batch host route
+(``engine.native_pipeline``); a configuration on a card always has it
+(``want_force_waves``), so no batch of a card aligner runs all on the host.
+
 ``KEEP_LARGEST`` is a bench hook, off by default: when a caller sets it, the
 stats objects keep the largest batch's device tensors and job lists
 (``SA_STATS.largest_rows``, ``CHAIN_STATS.largest_table``,
@@ -40,6 +47,18 @@ class ExecConfig:
     device_seed: bool = False
     device_chain: bool = False
     device_pipeline: bool = False
+    force_waves: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "device", torch.device(self.device))
+
+    def want_force_waves(self) -> bool:
+        """Extension in the cross-read waves: asked for, or on a card."""
+        return self.force_waves or self.device.type != "cpu"
+
+    def any_device_stage(self) -> bool:
+        """Whether any stage leaves the host-only whole-batch route
+        (bwamem_tpu/engine/exec_ctx.py ``any_device_stage``)."""
+        return (self.want_force_waves() or self.device_seed
+                or self.device_chain or self.device_sa_lookup
+                or self.device_pipeline)

@@ -1,12 +1,17 @@
 """End-to-end alignment pipeline of the port ([EXT] bwamem.c:
 mem_align1_core + mem_reg2sam + bwamem_extra.c: mem_gen_alt).
 
-``align_regs_batch`` is the counterpart of bwamem_tpu/engine/pipeline.py
-``align_regs_batch``/``_align_regs_batch_native`` with the fused host
-chain+extend core always off, so every extension goes through the cross-read
-waves of ``extend_batch.chain2aln_batch`` on the port's device.  Each earlier
-stage runs on the host (the C++ natives, or the Python oracles without them)
-or, by ``exec_cfg``, on the port's device:
+``align_regs_raw`` takes a batch of reads to its alignment regions before
+dedup, as rows in the host C++ core's layout (``regs_to_rows``), and
+``align_regs_batch`` adds the Python dedup step; together they are the
+counterpart of bwamem_tpu/engine/pipeline.py
+``align_regs_batch``/``_align_regs_batch_native``.  A host-only
+configuration (``device="cpu"``, no device stage, no ``force_waves``) runs
+the fused host chain+extend core (``engine.native_core``) as the reference
+does; every other one extends through the cross-read waves of
+``extend_batch.chain2aln_batch`` on the port's device.  Each earlier stage
+runs on the host (the C++ natives, or the Python oracles without them) or,
+by ``exec_cfg``, on the port's device:
 
 * ``device_seed``: the three seeding rounds in ``engine.seed_device``;
 * ``device_sa_lookup``: every SA walk of the batch in one call of
@@ -18,13 +23,17 @@ or, by ``exec_cfg``, on the port's device:
   from seeding to chaining, and only chains come back;
 * ``device_pipeline``: the fused device path of ``engine.pipeline_device``
   (seeding, walks, chaining and the whole mem_chain2aln loop on the device;
-  regions come back, no extension wave runs), whatever the three switches
-  above say.
+  region rows come back, no extension wave runs), whatever the three
+  switches above say.
 
 A read that overflows a stage's budget takes that stage on the host (the
 reference's rule) and is spliced in read order; there is no other fallback
 from the device: a failed build, launch or kernel flag raises.  The record
-assembly (``reg2sam_records``, ``gen_alt_xa``) is the host's.
+assembly is the host C++ tail's (``engine.native_pipeline``, called by the
+aligner on ``align_regs_raw``'s rows), or the Python oracle's
+(``reg2sam_records``, ``gen_alt_xa``) on ``align_regs_batch``'s regions.
+``native_seed_sa`` and ``native_pipeline_ok`` feed and gate the aligner's
+whole-batch host route, as in the reference.
 """
 from __future__ import annotations
 
@@ -322,23 +331,115 @@ def _chains(opt, eng, reads, exec_cfg: ExecConfig):
     return chains_list
 
 
-def align_regs_batch(opt, eng, reads: List[np.ndarray],
-                     exec_cfg: ExecConfig) -> List[List[AlnReg]]:
-    """Reads (codes 0-4) -> deduplicated alignment regions per read."""
+_REG_FIELDS = ("rb", "re", "qb", "qe", "rid", "score", "truesc", "w",
+               "seedcov", "seedlen0")
+
+
+def regs_to_rows(regs_list: List[List[AlnReg]]):
+    """Per read its regions -> (rows [Nr, 11] int64, n_reg [len] int64): the
+    region rows of ``bwamem_align_regs_batch`` (native/align_core.cpp: rb,
+    re, qb, qe, rid, score, truesc, w, seedcov, seedlen0, then the bits of
+    frac_rep), read after read, and the count of each read's."""
+    n_reg = np.fromiter(map(len, regs_list), dtype=np.int64,
+                        count=len(regs_list))
+    flat = [a for regs in regs_list for a in regs]
+    rows = np.empty((len(flat), 11), dtype=np.int64)
+    if flat:
+        rows[:, :10] = [[getattr(a, f) for f in _REG_FIELDS] for a in flat]
+        rows[:, 10] = np.asarray([a.frac_rep for a in flat],
+                                 dtype=np.float64).view(np.int64)
+    return rows, n_reg
+
+
+def regs_from_rows(rows: np.ndarray, n_reg: np.ndarray) -> List[List[AlnReg]]:
+    """``regs_to_rows``'s inverse: per read its ``AlnReg`` list."""
+    frac = rows[:, 10].copy().view(np.float64).tolist()
+    cols = [rows[:, j].tolist() for j in range(10)]
+    flat = [AlnReg(rb=rb, re=re, qb=qb, qe=qe, rid=rid, score=sc, truesc=ts,
+                   w=w, seedcov=cov, seedlen0=sl0, frac_rep=fr)
+            for (rb, re, qb, qe, rid, sc, ts, w, cov, sl0), fr
+            in zip(zip(*cols), frac)]
+    out, k = [], 0
+    for n in n_reg.tolist():
+        out.append(flat[k: k + n])
+        k += n
+    return out
+
+
+_HOST = ExecConfig(device="cpu")
+
+
+def native_seed_sa(opt, eng, reads):
+    """Native three-round seeding + vectorized SA resolution on the host
+    (bwamem_tpu/engine/pipeline.py ``native_seed_sa``).
+
+    Returns the raw arrays consumed by the native core/pipeline entries:
+    (intv rows [N,5], intv_off, n_intv, rbegs, rbeg_off, cnt).
+    """
+    return _seed_sa(opt, eng, reads, _HOST)
+
+
+def native_pipeline_ok(eng, reads, exec_cfg: ExecConfig) -> bool:
+    """Full-native pipeline applicability: native libs present, no device
+    stage (a configuration on a card never qualifies, nor one with
+    ``force_waves``), and an unpacked reference cache."""
+    from . import native_pipeline
+
+    if not (native_fm.available() and native_pipeline.available()):
+        return False
+    if exec_cfg.any_device_stage():
+        return False
+    # all read lengths supported: the native tail carries the long-read
+    # stages too (mem_flt_chained_seeds / mem_seed_sw in pipeline.cpp)
+    return eng.idx.bns.l_pac <= eng.idx._UNPACK_CACHE_MAX
+
+
+def _fused_core_ok(eng, reads, exec_cfg: ExecConfig) -> bool:
+    """The reference's gate of its fused chain+extend core: the host-only
+    route, every native built, no read long enough for
+    mem_flt_chained_seeds to act, the reference in the unpacked cache."""
+    from . import native_core
+
+    return (not exec_cfg.any_device_stage()
+            and native_fm.available() and native_chain.available()
+            and native_core.available()
+            and max((len(r) for r in reads), default=0) < 500
+            and eng.idx.bns.l_pac <= eng.idx._UNPACK_CACHE_MAX)
+
+
+def align_regs_raw(opt, eng, reads: List[np.ndarray], exec_cfg: ExecConfig):
+    """Reads (codes 0-4) -> alignment regions before dedup, in the order
+    chain2aln appends them: (rows [Nr, 11] int64, n_reg [len] int64), the
+    layout of ``regs_to_rows``, which the C++ tail
+    (``native_pipeline.tail_batch_arrays``) takes as it is."""
     if exec_cfg.device_pipeline:
-        from .pipeline_device import regs_batch_fused
+        from .pipeline_device import regs_rows_fused
 
         with TIMERS.stage("device_pipeline"), TIMERS.paused():
-            regs_list = regs_batch_fused(opt, eng, reads, exec_cfg)
-    else:
-        chains_list = _chains(opt, eng, reads, exec_cfg)
-        with TIMERS.stage("extend"):
-            regs_list = chain2aln_batch(opt, eng.idx, reads, chains_list,
-                                        exec_cfg)
+            return regs_rows_fused(opt, eng, reads, exec_cfg)
+    if _fused_core_ok(eng, reads, exec_cfg):
+        from . import native_core
+
+        table = native_seed_sa(opt, eng, reads)
+        with TIMERS.stage("chain+extend"):
+            return regs_to_rows(native_core.align_regs_batch_core(
+                opt, eng.idx, reads, *table))
+    chains_list = _chains(opt, eng, reads, exec_cfg)
+    with TIMERS.stage("extend"):
+        return regs_to_rows(chain2aln_batch(opt, eng.idx, reads, chains_list,
+                                            exec_cfg))
+
+
+def align_regs_batch(opt, eng, reads: List[np.ndarray],
+                     exec_cfg: ExecConfig) -> List[List[AlnReg]]:
+    """Reads (codes 0-4) -> deduplicated alignment regions per read:
+    ``align_regs_raw``, then the Python dedup (sort_dedup_patch and the ALT
+    flags)."""
+    rows, n_reg = align_regs_raw(opt, eng, reads, exec_cfg)
     with TIMERS.stage("dedup"):
         return [
             _flag_alt_regs(eng.idx.bns, sort_dedup_patch(opt, eng.idx, q, regs))
-            for q, regs in zip(reads, regs_list)
+            for q, regs in zip(reads, regs_from_rows(rows, n_reg))
         ]
 
 

@@ -7,9 +7,11 @@ kernels, launched one after another on tensors that never leave the device:
 ``engine.seed_device.seed_batch`` (seeding), ``ops.fmindex.sa_lookup`` (the
 walks), ``ops.chain.chain`` (mem_chain + chain_flt) and
 ``ops.pipeline_fused.chain2aln`` (the mem_chain2aln loop, extension
-included).  Then one copy back, and ``AlnReg`` lists built from arrays.  No
-chain is rebuilt in Python and no extension wave passes through
-``extend_batch`` for a read that stays on this path.
+included).  Then one copy back of the region rows, already in the host C++
+core's column order (``engine.pipeline.regs_to_rows``), which the C++ tail
+takes as they are.  No chain is rebuilt in Python, no ``AlnReg`` is built
+and no extension wave passes through ``extend_batch`` for a read that stays
+on this path.
 
 Reads that leave it, by the reference's budget rule: reads seeded on the host
 (flagged by the K or M budget), reads flagged by the C budget, and reads for
@@ -45,7 +47,8 @@ from .chain import (MEM_HSP_COEF, MEM_MINSC_COEF, MEM_SEEDSW_COEF,
 from .exec_ctx import ExecConfig
 from .extend import AlnReg
 from .extend_batch import chain2aln_batch
-from .pipeline import _device_table, _host_chains, gather_reads
+from .pipeline import (_device_table, _host_chains, gather_reads,
+                       regs_from_rows, regs_to_rows)
 from .state import device_contigs, device_ref, device_scoring
 
 # the JAX package's fused budgets (bwamem_tpu/engine/pipeline_device.py)
@@ -111,19 +114,24 @@ def ref_t_cap(opt: MemOptions, longest: int) -> int:
     return ((t + 127) // 128) * 128
 
 
-def _regs_from_rows(rows: np.ndarray, nregs: np.ndarray) -> List[List[AlnReg]]:
-    """``Regions.compact()`` on the host -> per read its ``AlnReg`` list."""
-    frac = rows[:, 2].copy().view(np.float64).tolist()
-    cols = [rows[:, j].tolist() for j in (0, 1, 3, 4, 5, 6, 7, 8, 9, 10)]
-    flat = [AlnReg(rb=rb, re=re, qb=qb, qe=qe, score=sc, truesc=ts, w=w,
-                   seedcov=cov, seedlen0=sl0, rid=rid, frac_rep=fr)
-            for (rb, re, qb, qe, sc, ts, w, cov, sl0, rid), fr
-            in zip(zip(*cols), frac)]
-    out, k = [], 0
-    for n in nregs.tolist():
-        out.append(flat[k: k + n])
-        k += n
-    return out
+# ``Regions.compact()``'s columns (rb, re, frac_rep bits, qb, qe, score,
+# truesc, w, seedcov, seedlen0, rid) in ``regs_to_rows``'s order
+ROW_ORDER = (0, 1, 3, 4, 10, 5, 6, 7, 8, 9, 2)
+
+
+def _splice(rows, nregs, staged, staged_rows, staged_n):
+    """The device's region rows with the reads ``staged`` replaced by their
+    staged rows, read after read: (rows, n_reg)."""
+    n = len(nregs)
+    keep = np.ones(n, dtype=bool)
+    keep[staged] = False
+    dev_keep = np.repeat(keep, nregs)
+    read_of = np.concatenate([np.repeat(np.arange(n), nregs)[dev_keep],
+                              np.repeat(staged, staged_n)])
+    order = np.argsort(read_of, kind="stable")
+    n_reg = np.where(keep, nregs, 0)
+    n_reg[staged] = staged_n
+    return np.concatenate([rows[dev_keep], staged_rows])[order], n_reg
 
 
 def _staged(opt, eng, reads, qlens, which, seeded_on_host, tab, host, host_tab,
@@ -154,9 +162,18 @@ def _staged(opt, eng, reads, qlens, which, seeded_on_host, tab, host, host_tab,
 def regs_batch_fused(opt: MemOptions, eng, reads: List[np.ndarray],
                      exec_cfg: ExecConfig) -> List[List[AlnReg]]:
     """Per read its regions before dedup, by the fused device path."""
+    return regs_from_rows(*regs_rows_fused(opt, eng, reads, exec_cfg))
+
+
+def regs_rows_fused(opt: MemOptions, eng, reads: List[np.ndarray],
+                    exec_cfg: ExecConfig):
+    """The regions before dedup of the batch by the fused device path, as
+    (rows [Nr, 11] int64, n_reg [len] int64) in ``regs_to_rows``'s layout;
+    the columns are put in that order on the device, before the one copy
+    back."""
     n = len(reads)
     if n == 0:
-        return []
+        return np.zeros((0, 11), dtype=np.int64), np.zeros(0, dtype=np.int64)
     st = FUSED_STATS
     dev = exec_cfg.device
     cfg = dataclasses.replace(exec_cfg, device_seed=True, device_sa_lookup=True,
@@ -178,7 +195,7 @@ def regs_batch_fused(opt: MemOptions, eng, reads: List[np.ndarray],
             fusedops.ExtendParams.from_opt(opt), device_scoring(opt, dev).mat,
             ref_t_cap(opt, int(qlens.max())))
     regs = fusedops.chain2aln(*args)
-    rows = regs.compact()
+    rows = regs.compact()[:, list(ROW_ORDER)]
     flat = torch.cat([regs.nregs.long(), chains.ovf.long(), chains.seed_cnt,
                       chains.nslots.long(), regs.work[:, :4].t().reshape(-1),
                       rows.reshape(-1)]).cpu().numpy()
@@ -192,14 +209,14 @@ def regs_batch_fused(opt: MemOptions, eng, reads: List[np.ndarray],
     meta = flat[:8 * n].reshape(8, n)
     nregs, ovf, seed_cnt, nslots = meta[0], meta[1] != 0, meta[2], meta[3]
     tasks, pruned, jobs, ref_t = meta[4:8]
-    out = _regs_from_rows(flat[8 * n:].reshape(-1, 11), nregs)
+    rows = flat[8 * n:].reshape(-1, 11)
+    n_reg = nregs
     t4 = clock()
     staged = np.flatnonzero(seeds.on_host | ovf | ~fcs_ok | ~fits)
     if staged.size:
-        for i, r in zip(staged, _staged(opt, eng, reads, qlens, staged,
-                                        seeds.on_host, tab, host, host_tab,
-                                        exec_cfg)):
-            out[i] = r
+        rows, n_reg = _splice(rows, nregs, staged, *regs_to_rows(_staged(
+            opt, eng, reads, qlens, staged, seeds.on_host, tab, host, host_tab,
+            exec_cfg)))
     t5 = clock()
     for name, dt in zip(st.seconds, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
         st.seconds[name] += dt
@@ -222,4 +239,4 @@ def regs_batch_fused(opt: MemOptions, eng, reads: List[np.ndarray],
     st.ref_c_overflows += int(ref_c.sum())
     st.ref_r_overflows += int(ref_r.sum())
     st.ref_t_overflows += int((on_path & ~ref_r & (ref_t != 0)).sum())
-    return out
+    return rows, n_reg

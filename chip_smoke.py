@@ -9,7 +9,9 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    (torch.cuda.is_available() false) exits at once;
 2. build: compiles csrc/extend.cu, csrc/fmindex.cu, csrc/op_probe.cu,
    csrc/seed.cu, csrc/chain.cu and csrc/chain2aln.cu with nvcc for sm_90a,
-   one nvcc per source, all at once, and prints the compiler's register and
+   one nvcc per source, and the host C++ libraries (SA-IS, seeding,
+   chaining, ksw, the chain+extend core and the whole-batch pipeline with
+   its tail) with g++, all at once, and prints the compiler's register and
    spill report;
 3. kernel against plain: the SW extension kernel against the plain
    PyTorch version on the card and the host C++ ksw_extend2, field for
@@ -18,12 +20,14 @@ Phases, each of which stops the run with a non-zero exit if it fails:
 4. main path: the port's BwaMemAligner(device="cuda") aligns 6,000 pairs of
    150 bp reads (and 2,000 reads single-end) on bench.py's 4.6 Mbp "ecoli"
    synthetic genome; every record must equal the host oracle's (the port's
-   own aligner with no device stage and every extension wave on the host, so
-   that every stage runs in the port's host C++; the CPU tests hold that path
-   record-equal to bwamem_tpu's aligner), the kernel must have run, and at least half of the extension jobs must
-   have gone to the card; then the PE batch runs once more under
-   torch.profiler for the card's busy and idle share and each kernel's
-   device time and launches summed over the batch;
+   own aligner with device="cpu" and no device stage: the whole-batch host
+   route, seeds to records in the port's host C++; the CPU tests hold that
+   route record-equal to bwamem_tpu's aligner, and here the SE batch's
+   oracle records are held against the Python route's, the port's host
+   regions through its Python tail), the kernel must have run, and at least
+   half of the extension jobs must have gone to the card; then the PE batch
+   runs once more under torch.profiler for the card's busy and idle share and
+   each kernel's device time and launches summed over the batch;
 5. timing: the kernel (also from a cold L2) and the plain version on the
    largest wave of phase 4, with CUDA events after a warm-up, the wave's
    heaviest job alone, the jobs on the kernel's scalar path and its warps
@@ -122,10 +126,22 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    the path's kernels launched, at least 95 % of the reads on the fused path
    (the rest, seeded on the host, flagged by the C budget or long enough for
    mem_flt_chained_seeds to act, on the staged path and counted by cause), no
-   extension wave when no read left the path; the device_pipeline, dedup and
-   pairing seconds beside phase 13's stages; the PE batch once more under
-   torch.profiler for the card's idle share and each kernel's device time
-   and launches summed over the batch.
+   extension wave when no read left the path; the device_pipeline and
+   native_tail seconds beside phase 13's stages; the PE batch once more under
+   torch.profiler, in a fresh process, for the card's idle share and each
+   kernel's device time and launches summed over the batch;
+16. the C++ tail: phase 4's batches (PE and SE) and phase 8's chr20 pairs
+   through four routes, the host whole-batch route (device="cpu"), the
+   default route (extension waves on the card), the staged route (all three
+   stages on the card) and the fused route: every record equal to the host
+   whole-batch route's and to the Python route's (the same route's regions,
+   align_regs_batch, through the Python tail python_tail); on each card
+   route the tail ran in the timed native_tail stage and pair.sam_pe was
+   never called; per route reads/s, the TIMERS stages, native_tail beside
+   the Python tail's seconds on the same regions and the untimed rest, and
+   for the fused ecoli PE batch the card's busy and idle share from phase
+   15's profiled rerun of it; the card's name and power limit on each of
+   those lines.
 
 The launch counts in the ``kernels`` line come from the runs that drive
 each kernel: phase 4's PE batch (ksw_extend), phase 7's PE batch
@@ -223,12 +239,40 @@ def _line_bound(dfm, n_io_bytes: float, line_reads: float, extra_ops: float = 0)
 
 
 def _host_aligner(index):
-    """The record oracle: the port's aligner with no device stage and every
-    extension wave on the host, so that every stage runs in the port's host
-    C++ (held record-equal to bwamem_tpu's aligner by the CPU tests)."""
+    """The record oracle: the port's aligner on the CPU with no device
+    stage, which takes the whole-batch host route (seeds to records in one
+    host C++ call; held record-equal to bwamem_tpu's aligner by the CPU
+    tests)."""
     from bwamem_tpu_torch import BwaMemAligner
 
     return BwaMemAligner(index, device="cpu", min_device_jobs=1 << 30)
+
+
+def _python_route(aligner, seqs):
+    """The Python route of ``aligner``'s configuration on ``seqs``: the
+    regions of ``align_regs_batch`` through ``python_tail``, as records;
+    and the Python tail's seconds."""
+    import torch
+
+    from bwamem_tpu_torch.api.aligner import _aln_to_record, python_tail
+    from bwamem_tpu_torch.engine.pipeline import align_regs_batch
+    from bwamem_tpu_torch.utils.encoding import seq_to_codes_batch
+
+    eng = aligner.index._require()
+    reads = seq_to_codes_batch(seqs)
+    regs = align_regs_batch(aligner.options, eng, reads, aligner._exec_cfg)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = python_tail(aligner.options, eng, reads, regs, aligner._pe_stats)
+    t_py = time.perf_counter() - t0
+    return [[_aln_to_record(p, m) for p, m in r] for r in raw], t_py
+
+
+def _equal(got, ref) -> int:
+    """Reads whose records are all equal, field for field."""
+    return sum([vars(x) for x in g] == [vars(x) for x in r]
+               for g, r in zip(got, ref))
 
 
 def _wave_tensors(wave, device):
@@ -269,14 +313,23 @@ def _diff(a, b) -> int:
 
 
 def phase_build():
-    """Phase 2: one nvcc per source, all started together."""
+    """Phase 2: one nvcc per source and one g++ per host C++ library, all
+    started together."""
+    from bwamem_tpu_torch.engine import (native_chain, native_core, native_fm,
+                                         native_ksw, native_pipeline)
+    from bwamem_tpu_torch.index import native_sais
     from bwamem_tpu_torch.utils import cudabuild
 
+    hosts = (native_sais, native_fm, native_chain, native_ksw, native_core,
+             native_pipeline)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as ex:
+    with ThreadPoolExecutor(len(SOURCES) + len(hosts)) as ex:
+        built = [ex.submit(m._ensure_built) for m in hosts]
         libs = list(ex.map(cudabuild.build, SOURCES))
-    print(f"[2] nvcc built {len(libs)} libraries in "
-          f"{time.perf_counter() - t0:.2f} s")
+        if not all(f.result() for f in built):
+            raise AssertionError("a host C++ library did not build")
+    print(f"[2] nvcc built {len(libs)} libraries and g++ {len(hosts)} host "
+          f"libraries in {time.perf_counter() - t0:.2f} s")
     for name, lib in zip(SOURCES, libs):
         info = cudabuild.BUILD_INFO[name]
         print(f"  {os.path.relpath(lib, ROOT)} ({info['seconds']:.2f} s)")
@@ -402,10 +455,9 @@ def _device_busy(aligner, reads, dev):
     per = {}
     for e in dev_events:
         entry = _kernel_of(e.name)
-        if entry is not None:
-            ms, n = per.get(entry, (0.0, 0))
-            per[entry] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
-                          n + 1)
+        ms, n = per.get(entry or e.name, (0.0, 0))
+        per[entry or e.name] = (
+            ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
     return (busy_us + hi - lo) / 1e6, wall, per
 
 
@@ -442,30 +494,20 @@ def _port_run(tag, port, batch, ref, t_host, dev, fused=False):
     from bwamem_tpu_torch.ops import pipeline_fused as fusedops
     from bwamem_tpu_torch.ops import seed as seedops
 
-    STATS.reset()
-    SA_STATS.reset()
-    SEED_STATS.reset()
-    CHAIN_STATS.reset()
-    FUSED_STATS.reset()
-    TIMERS.reset()
-    ext.LAUNCHES = 0
-    fmops.LAUNCHES["sa_lookup"] = 0
-    for counts in (seedops.LAUNCHES, chainops.LAUNCHES, fusedops.LAUNCHES):
-        for name in counts:
-            counts[name] = 0
+    _reset_counts()
     got, t_port = _timed(port, batch, dev)
     launches, sa_launches = ext.LAUNCHES, fmops.LAUNCHES["sa_lookup"]
     seed_launches = dict(seedops.LAUNCHES)
     chain_launches = dict(chainops.LAUNCHES)
     fused_launches = dict(fusedops.LAUNCHES)
     stages = TIMERS.snapshot()
-    ok = sum([vars(x) for x in g] == [vars(x) for x in r] for g, r in zip(got, ref))
+    ok = _equal(got, ref)
     aligned = sum(1 for r in got if r and not (r[0].sam_flag & 0x4))
     share = STATS.device_share()
     print(f"  {tag}: {len(batch)} reads, records equal {ok}/{len(batch)}, "
           f"aligned {aligned}; port {len(batch) / t_port:.1f} reads/s "
-          f"({t_port:.2f} s), the oracle (the port with every stage on the "
-          f"host) {len(batch) / t_host:.1f} reads/s ({t_host:.2f} s)")
+          f"({t_port:.2f} s), the oracle (the port's whole-batch host route) "
+          f"{len(batch) / t_host:.1f} reads/s ({t_host:.2f} s)")
     print(f"  {tag}: extension kernel launches {launches}, device_extend_jobs "
           f"{STATS.device_extend_jobs} in {STATS.device_extend_waves} waves, "
           f"host_extend_jobs {STATS.host_extend_jobs} in "
@@ -507,7 +549,7 @@ def _port_run(tag, port, batch, ref, t_host, dev, fused=False):
     rest = t_port - sum(stages.values())
     print(f"  {tag}: port seconds by stage: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items())
-        + f", pairing+records {rest:.3f}; inside extend: device waves "
+        + f", untimed rest {rest:.3f}; inside extend: device waves "
         f"{STATS.device_wave_seconds:.3f} (pack, copies, kernel), host "
         f"waves {STATS.host_wave_seconds:.3f}")
     if ok != len(batch):
@@ -549,6 +591,13 @@ def phase_main_path(dev, index, codes):
         for a in (host, port):
             a.align_seqs(warm)
         ref, t_host = _timed(host, batch, dev)
+        if mode == "se":
+            py, _ = _python_route(host, batch)
+            ok = _equal(ref, py)
+            print(f"  se: the oracle's records against the Python route's "
+                  f"(host regions, Python tail): equal {ok}/{len(batch)}")
+            if ok != len(batch):
+                raise AssertionError("the oracle differs from the Python route")
         res = _port_run(mode, port, batch, ref, t_host, dev)
         runs[mode] = dict(batch=batch, ref=ref, t_host=t_host, warm=warm,
                           launches=res["launches"], stages=res["stages"],
@@ -566,20 +615,88 @@ def phase_main_path(dev, index, codes):
 def _traced_batch(tag, aligner, reads, dev, launches):
     """``_device_busy`` on a rerun of the batch, whose trace must show each
     kernel as often as the counted run launched it, or its summed time
-    would miss launches.  A trace can drop launches: the rerun is traced
-    again (three tries) before the run fails."""
-    for _ in range(3):
+    would miss launches.  Traces drop launches in bursts of a second or
+    more: the rerun is traced again, up to six tries with pauses of 0.5, 1,
+    2, 4 and 8 s between them, before the run fails."""
+    for attempt in range(6):
+        if attempt:
+            time.sleep(0.25 * 2 ** attempt)
         busy, wall, per = _device_busy(aligner, reads, dev)
         seen = {k: per.get(k, (0.0, 0))[1] for k in launches}
         if seen == launches:
             return busy, wall, per
+        other = sorted(((ms, n, k[:90]) for k, (ms, n) in per.items()
+                        if k not in KERNEL_FN), reverse=True)[:6]
+        print(f"  {tag}: a trace held launches {seen}, the run made "
+              f"{launches}; traced again; its longest other device events "
+              f"(ms, count, name): {other}")
     raise AssertionError(f"{tag}: the profiler saw launches {seen}, the run "
-                         f"made {launches}, three times")
+                         f"made {launches}, six times")
+
+
+def _fresh_traced_batch(tag, route: dict, mode: str, launches: dict):
+    """``_traced_batch`` of phase 4's ecoli batch (``mode`` "pe" or "se")
+    through ``route`` (the aligner's keywords) in a fresh process: once a
+    trace of a process has come back empty, that process's later traces
+    of this batch have held every kernel but its first,
+    collect_intv_kernel, six times running, while a fresh process's hold
+    them all.  The
+    child builds nothing (kernels, host libraries and the image are in
+    build/), makes the same reads from the same seeds, and must launch what
+    ``launches`` says in its own counted run before it traces a rerun.
+    Returns busy seconds, wall seconds and the per-kernel sums."""
+    spec = json.dumps(dict(tag=tag, route=route, mode=mode, launches=launches))
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--traced-batch", spec], capture_output=True,
+                         text=True, timeout=600)
+    for line in res.stdout.splitlines()[:-1]:
+        print(line)
+    if res.returncode != 0:
+        raise AssertionError(f"{tag}: the traced rerun in a fresh process "
+                             f"failed: {res.stderr[-2000:]}")
+    out = json.loads(res.stdout.splitlines()[-1])
+    return out["busy"], out["wall"], {k: tuple(v) for k, v in out["per"].items()}
+
+
+def traced_batch_child(spec: str) -> int:
+    """The child of ``_fresh_traced_batch``: one JSON line, last."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch import BwaMemAligner, BwaMemIndex
+    from bwamem_tpu_torch.utils.synth import simulate_pairs
+
+    spec = json.loads(spec)
+    dev = torch.device("cuda", 0)
+    codes, img, _ = _synthetic_index(ECOLI_LEN)
+    index = BwaMemIndex(img)
+    rng = np.random.default_rng(SEED + 1)  # phase_main_path's reads
+    warm = simulate_pairs(codes, rng, 8)
+    reads = simulate_pairs(codes, rng, N_PAIRS)
+    if spec["mode"] == "se":
+        reads = reads[:N_SE]
+    port = BwaMemAligner(index, device=dev, **spec["route"])
+    if spec["mode"] == "pe":
+        _pe_setup(port)
+    port.align_seqs(warm)
+    _reset_counts()
+    port.align_seqs(reads)
+    torch.cuda.synchronize(dev)
+    counted = {k: _launched()[k] for k in spec["launches"]}
+    if counted != spec["launches"]:
+        raise AssertionError(f"the fresh process launched {counted}, the "
+                             f"run {spec['launches']}")
+    busy, wall, per = _traced_batch(spec["tag"], port, reads, dev,
+                                    spec["launches"])
+    index.close()
+    print(json.dumps(dict(busy=busy, wall=wall, per={
+        k: v for k, v in per.items() if k in KERNEL_FN})))
+    return 0
 
 
 def _per_kernel(per) -> str:
     return ", ".join(f"{k} {ms:.4f} ms in {n} launches"
-                     for k, (ms, n) in sorted(per.items()))
+                     for k, (ms, n) in sorted(per.items()) if k in KERNEL_FN)
 
 
 def _event_ms(fn, reps, dev):
@@ -2073,8 +2190,8 @@ def phase_fused(dev, index, runs, chain_run, big):
             raise AssertionError(f"{tag}: {res['waves']} extension waves though "
                                  "no read left the fused path")
         st = res["stages"]
-        print(f"  {tag}: device_pipeline {st['device_pipeline']:.4f} s, dedup "
-              f"{st['dedup']:.4f} s, pairing+records "
+        print(f"  {tag}: device_pipeline {st['device_pipeline']:.4f} s, "
+              f"native_tail {st['native_tail']:.4f} s, untimed rest "
               f"{res['seconds'] - sum(st.values()):.3f} s; {res['waves']} "
               f"extension waves (all from the {fs['host_reads']} reads on the "
               "staged path)")
@@ -2082,17 +2199,139 @@ def phase_fused(dev, index, runs, chain_run, big):
             ref_st = chain_run["runs"]["pe+seed+sa+chain"]["stages"]
             print(f"  {tag}: phase 13's staged run of the same batch: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in ref_st.items()) + " s")
-            busy, wall, per = _traced_batch(
-                tag, port, r["batch"], dev,
+            busy, wall, per = _fresh_traced_batch(
+                tag, dict(device_pipeline=True), "pe",
                 {**res["seed_launches"], **res["chain_launches"], **la,
                  "sa_lookup": res["sa_launches"]})
             res["batch_kernels"] = per
-            print(f"  {tag}: again under torch.profiler: card busy {busy:.4f} s "
-                  f"of {wall:.2f} s, idle share {1 - busy / wall:.4f}; kernels "
-                  "summed over the batch: " + _per_kernel(per))
+            res["busy"], res["wall"] = busy, wall
+            print(f"  {tag}: again under torch.profiler, in a fresh process: "
+                  f"card busy {busy:.4f} s of {wall:.2f} s, idle share "
+                  f"{1 - busy / wall:.4f}; kernels summed over the batch: "
+                  + _per_kernel(per))
         out[tag] = res
     return dict(runs=out, launches=out["pe+fused"]["fused_launches"],
-                batch_kernels=out["pe+fused"]["batch_kernels"])
+                batch_kernels=out["pe+fused"]["batch_kernels"],
+                busy=out["pe+fused"]["busy"], wall=out["pe+fused"]["wall"])
+
+
+ROUTES = (("host", None), ("default", {}),
+          ("staged", dict(device_stages=ALL_STAGES)),
+          ("fused", dict(device_pipeline=True)))
+
+
+def _reset_counts():
+    """Every launch count and stats object of the port set to 0."""
+    from bwamem_tpu_torch.engine.extend_batch import STATS
+    from bwamem_tpu_torch.engine.pipeline import CHAIN_STATS, SA_STATS
+    from bwamem_tpu_torch.engine.pipeline_device import FUSED_STATS
+    from bwamem_tpu_torch.engine.seed_device import SEED_STATS
+    from bwamem_tpu_torch.ops import chain as chainops
+    from bwamem_tpu_torch.ops import extend as ext
+    from bwamem_tpu_torch.ops import fmindex as fmops
+    from bwamem_tpu_torch.ops import pipeline_fused as fusedops
+    from bwamem_tpu_torch.ops import seed as seedops
+    from bwamem_tpu_torch.utils.timers import TIMERS
+
+    for st in (STATS, SA_STATS, SEED_STATS, CHAIN_STATS, FUSED_STATS, TIMERS):
+        st.reset()
+    ext.LAUNCHES = 0
+    fmops.LAUNCHES["sa_lookup"] = 0
+    for counts in (seedops.LAUNCHES, chainops.LAUNCHES, fusedops.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _launched() -> dict:
+    """The launch counts since ``_reset_counts``, by kernel."""
+    from bwamem_tpu_torch.ops import chain as chainops
+    from bwamem_tpu_torch.ops import extend as ext
+    from bwamem_tpu_torch.ops import fmindex as fmops
+    from bwamem_tpu_torch.ops import pipeline_fused as fusedops
+    from bwamem_tpu_torch.ops import seed as seedops
+
+    return {"ksw_extend": ext.LAUNCHES, "sa_lookup": fmops.LAUNCHES["sa_lookup"],
+            **seedops.LAUNCHES, **chainops.LAUNCHES, **fusedops.LAUNCHES}
+
+
+# the kernels each card route must launch in its run
+ROUTE_KERNELS = {"default": ("ksw_extend",),
+                 "staged": ("collect_intv", "sample_ks", "sa_lookup", "chain",
+                            "chain_emit"),
+                 "fused": ("collect_intv", "sample_ks", "sa_lookup", "chain",
+                           "chain_emit", "chain2aln_prep", "chain2aln")}
+
+
+def phase_native_tail(dev, index, runs, big, card, fused_trace):
+    """Phase 16: the C++ tail under the four routes, on phase 4's batches
+    and phase 8's chr20 pairs.  ``fused_trace``: phase 15's profiled rerun
+    of the fused ecoli PE batch (the same route, C++ tail included), whose
+    busy and idle share this phase prints beside that route."""
+    from bwamem_tpu_torch import BwaMemAligner
+    from bwamem_tpu_torch.engine import pair as pair_mod
+    from bwamem_tpu_torch.utils.timers import TIMERS
+
+    calls = {"sam_pe": 0}
+    sam_pe = pair_mod.sam_pe
+
+    def counted(*a, **k):
+        calls["sam_pe"] += 1
+        return sam_pe(*a, **k)
+
+    out = {}
+    for name, r, idx in (("ecoli pe", runs["pe"], index),
+                         ("ecoli se", runs["se"], index),
+                         ("chr20 pe", big["run"], big["index"])):
+        n = len(r["batch"])
+        for route, kw in ROUTES:
+            tag = f"{name} {route}"
+            a = (_host_aligner(idx) if kw is None
+                 else BwaMemAligner(idx, device=dev, **kw))
+            if name.endswith("pe"):
+                _pe_setup(a)
+            a.align_seqs(r["warm"])
+            _reset_counts()
+            calls["sam_pe"] = 0
+            pair_mod.sam_pe = counted
+            try:
+                got, secs = _timed(a, r["batch"], dev)
+            finally:
+                pair_mod.sam_pe = sam_pe
+            st, launched = TIMERS.snapshot(), _launched()
+            py, t_py = _python_route(a, r["batch"])
+            ok_host, ok_py = _equal(got, r["ref"]), _equal(got, py)
+            rest = secs - sum(st.values())
+            print(f"  {tag}: {n} reads, records equal to the host whole-batch "
+                  f"route's {ok_host}/{n}, to the Python route's {ok_py}/{n}; "
+                  f"{n / secs:.1f} reads/s ({secs:.3f} s) [{card}]")
+            print(f"  {tag}: stages " + ", ".join(
+                f"{k} {v:.4f}" for k, v in st.items())
+                + f" s, untimed rest {rest:.4f} s; native_tail "
+                f"{st.get('native_tail', 0.0):.4f} s against the Python tail's "
+                f"{t_py:.4f} s on the same regions; pair.sam_pe calls "
+                f"{calls['sam_pe']}; launches " + ", ".join(
+                    f"{k} {v}" for k, v in launched.items() if v) + f" [{card}]")
+            if ok_host != n or ok_py != n:
+                raise AssertionError(f"{tag}: records differ")
+            if "native_tail" not in st:
+                raise AssertionError(f"{tag}: no native_tail stage")
+            if kw is not None:
+                if calls["sam_pe"] or "dedup" in st:
+                    raise AssertionError(f"{tag}: the tail ran in Python")
+                idle = [k for k in ROUTE_KERNELS[route] if launched.get(k, 0) <= 0]
+                if idle:
+                    raise AssertionError(f"{tag}: {idle} did not run")
+            elif any(launched.values()):
+                raise AssertionError(f"{tag}: the host route launched {launched}")
+            res = dict(seconds=secs, stages=st, python_tail=t_py,
+                       reads_per_s=n / secs)
+            if name == "ecoli pe" and route == "fused":
+                busy, wall = fused_trace["busy"], fused_trace["wall"]
+                print(f"  {tag}: phase 15's rerun of this batch and route "
+                      f"under torch.profiler: card busy {busy:.4f} s of "
+                      f"{wall:.3f} s, idle share {1 - busy / wall:.4f} [{card}]")
+            out[tag] = res
+    return out
 
 
 def _redesign(name: str, res: dict) -> dict:
@@ -2118,6 +2357,9 @@ def _batch(name: str, traces) -> dict:
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--traced-batch":
+        sys.path.insert(0, ROOT)
+        return traced_batch_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
               file=sys.stderr)
@@ -2190,6 +2432,10 @@ def main() -> int:
     print("[15] fused device path: BwaMemAligner(device='cuda', "
           "device_pipeline=True) vs the host oracle")
     fused_run = phase_fused(dev, index, runs, chain_run, big)
+
+    print("[16] the C++ tail: the host whole-batch, default, staged and fused "
+          "routes vs the host route and the Python route")
+    phase_native_tail(dev, index, runs, big, card, fused_run)
     big["index"].close()
     index.close()
 

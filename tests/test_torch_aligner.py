@@ -2,7 +2,10 @@
 seeding, the SA walks and the chaining, on the CPU through the plain PyTorch
 versions) against bwamem_tpu's host aligner: equal records, read for read
 and field for field, on a synthetic genome and on the golden rotavirus
-reads.  Each package opens its own index on the same image."""
+reads.  Each package opens its own index on the same image.  A CPU aligner
+with no device stage takes the whole-batch host route; the tests of the
+wave driver set ``force_waves`` (``_waves``) to keep it on the waves."""
+import dataclasses
 import os
 
 import numpy as np
@@ -41,6 +44,13 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def _waves(aligner):
+    """``aligner`` with its extension in the cross-read waves (the
+    reference's ``force_waves``), not the whole-batch host route."""
+    aligner._exec_cfg = dataclasses.replace(aligner._exec_cfg, force_waves=True)
+    return aligner
 
 
 def _records(aligner, reads):
@@ -87,7 +97,7 @@ def genome(tmp_path_factory):
 def test_records_match_host_aligner(genome, mode):
     index, reads = genome
     host = HostAligner(index.ref)
-    port = BwaMemAligner(index.port, device="cpu", min_device_jobs=1)
+    port = _waves(BwaMemAligner(index.port, device="cpu", min_device_jobs=1))
     if mode != "se":
         _pe_mode(host, mode)
         _pe_mode(port, mode)
@@ -222,7 +232,7 @@ def test_device_stages_the_port_lacks_raise(rotavirus, stages):
 
 def test_default_threshold_routes_small_waves_to_host(genome):
     index, reads = genome
-    port = BwaMemAligner(index.port, device="cpu")
+    port = _waves(BwaMemAligner(index.port, device="cpu"))
     STATS.reset()
     got = _records(port, reads[:40])
     assert STATS.host_extend_jobs > 0 and STATS.device_extend_jobs == 0
@@ -238,7 +248,7 @@ def rotavirus():
 
 def test_golden_single_end(rotavirus):
     reads = [READ_L1, READ_SNV, READ_RC, READ_DEL]
-    port = BwaMemAligner(rotavirus.port, device="cpu", min_device_jobs=1)
+    port = _waves(BwaMemAligner(rotavirus.port, device="cpu", min_device_jobs=1))
     got = port.align_seqs(reads)
     assert [len(r) for r in got] == [1, 1, 1, 1]
     assert [(a[0].ref_start, a[0].ref_end, a[0].cigar, a[0].n_mismatches,
@@ -251,7 +261,7 @@ def test_golden_single_end(rotavirus):
 
 @pytest.mark.parametrize("mode", ["inferred", "fixed", "none"])
 def test_golden_pair(rotavirus, mode):
-    port = BwaMemAligner(rotavirus.port, device="cpu", min_device_jobs=1)
+    port = _waves(BwaMemAligner(rotavirus.port, device="cpu", min_device_jobs=1))
     host = HostAligner(rotavirus.ref)
     for a in (port, host):  # BwaMemIndexTest.java's stats for this pair
         _pe_mode(a, mode, stats=(200, 10, 1, 600))

@@ -1,6 +1,8 @@
-"""The port's aligner with every stage set (no device stage, ("seed",),
-("chain",), all three, and the fused device path), on the CPU through the
-plain PyTorch versions, against bwamem_tpu's host aligner: equal records on
+"""The port's aligner with every stage set (no device stage, which takes
+the whole-batch host route; no device stage with the extension waves kept,
+``force_waves``; ("seed",), ("chain",), all three, and the fused device
+path), on the CPU through the plain PyTorch versions, against bwamem_tpu's
+host aligner: equal records on
 inputs beyond 150-base pairs of a one-contig genome: pairs of 300 bases,
 single reads of 161-1,500 bases, reads across the borders of a short middle
 contig, reads with N runs, all N, 15 and 19 bases, homopolymers and
@@ -8,6 +10,8 @@ dinucleotide repeats, a chimeric read, and the synthetic ALT-contig and
 MEM_F_PRIMARY5 cases of tests/test_alt_contigs.py.  Each package opens its
 own index on the same image.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -22,7 +26,8 @@ from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
 from bwamem_tpu_torch.utils.synth import simulate_pairs, synthetic_genome
 
 ALL = ("seed", "sa_lookup", "chain")
-ROUTES = {"host": dict(), "seed": dict(device_stages=("seed",)),
+ROUTES = {"host": dict(), "waves": dict(force_waves=True),
+          "seed": dict(device_stages=("seed",)),
           "chain": dict(device_stages=("chain",)), "all": dict(device_stages=ALL),
           "fused": dict(device_pipeline=True)}
 
@@ -74,8 +79,12 @@ class _Genome:
             setup(host, bwamem_tpu.BwaMemPairEndStats)
             self._want[name] = [[vars(a) for a in r]
                                 for r in host.align_seqs(reads)]
-        port = BwaMemAligner(self.port, device="cpu", min_device_jobs=1,
-                             **ROUTES[route])
+        kw = dict(ROUTES[route])
+        waves = kw.pop("force_waves", False)
+        port = BwaMemAligner(self.port, device="cpu", min_device_jobs=1, **kw)
+        if waves:
+            port._exec_cfg = dataclasses.replace(port._exec_cfg,
+                                                 force_waves=True)
         setup(port, BwaMemPairEndStats)
         FUSED_STATS.reset()
         got = [[vars(a) for a in r] for r in port.align_seqs(reads)]

@@ -5,7 +5,9 @@ kernels) against their plain PyTorch versions on the same CUDA tensors,
 exactly, the FM, seeding, chain and chain-to-region kernels also against the
 host oracles, and the aligner with device="cuda" (with and without the device
 seed, SA and chain stages, and with the fused device path) against the
-port's aligner with every stage on the host.
+port's whole-batch host route, each card route's records through the host
+C++ tail against the Python tail's on the same regions, and a card aligner
+whose tail library fails raising.
 
 Imports nothing of JAX and nothing of bwamem_tpu, so that it runs where JAX
 is not installed:
@@ -1243,3 +1245,83 @@ def test_cuda_sample_ks_edges(max_occ):
         flat, ks = so.sample_ks(rows, n, nks, max_occ)
         assert flat.shape == (0, 5) and ks.shape == (0,)
     assert so.LAUNCHES["sample_ks"] == before + 3
+
+
+@pytest.fixture(scope="module")
+def tail_genome(tmp_path_factory):
+    from bwamem_tpu_torch import BwaMemIndex
+    from bwamem_tpu_torch.index import image
+    from bwamem_tpu_torch.index.build import build_index
+    from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
+    from bwamem_tpu_torch.utils.synth import simulate_pairs, synthetic_genome
+
+    codes = synthetic_genome(200_000, np.random.default_rng(7))
+    img = str(tmp_path_factory.mktemp("tail") / "g.img")
+    image.write_image(img, build_index(Fasta([FastaContig("chr", "", codes)])))
+    index = BwaMemIndex(img)
+    yield index, simulate_pairs(codes, np.random.default_rng(9), 200)
+    index.close()
+
+
+CARD_ROUTES = {"default": {}, "sa": dict(device_stages=("sa_lookup",)),
+               "seed_sa": dict(device_stages=("seed", "sa_lookup")),
+               "chain": dict(device_stages=("chain",)),
+               "staged": dict(device_stages=("seed", "sa_lookup", "chain")),
+               "fused": dict(device_pipeline=True)}
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("mode", ("se", "pe"))
+@pytest.mark.parametrize("route", CARD_ROUTES)
+def test_cuda_native_tail_matches_python_tail(tail_genome, route, mode):
+    """Each card route: its records through the C++ tail (timed as
+    ``native_tail``; no Python dedup, no ``pair.sam_pe``) equal the Python
+    tail's on the same route's regions, and the host whole-batch route's."""
+    from bwamem_tpu_torch import BwaMemAligner
+    from bwamem_tpu_torch.api.aligner import _aln_to_record, python_tail
+    from bwamem_tpu_torch.engine import pair as pair_mod
+    from bwamem_tpu_torch.engine.pipeline import align_regs_batch
+    from bwamem_tpu_torch.utils.encoding import seq_to_codes_batch
+    from bwamem_tpu_torch.utils.timers import TIMERS
+
+    index, reads = tail_genome
+    port = BwaMemAligner(index, device="cuda", **CARD_ROUTES[route])
+    host = BwaMemAligner(index, device="cpu")
+    if mode == "pe":
+        for a in (port, host):
+            a.align_pairs()
+    sam_pe, calls = pair_mod.sam_pe, []
+    pair_mod.sam_pe = lambda *x, **k: calls.append(1) or sam_pe(*x, **k)
+    try:
+        TIMERS.reset()
+        got = port.align_seqs(reads)
+        stages = TIMERS.snapshot()
+    finally:
+        pair_mod.sam_pe = sam_pe
+    assert not calls and "native_tail" in stages and "dedup" not in stages
+    eng = index._require()
+    codes = seq_to_codes_batch(reads)
+    py = python_tail(port.options, eng, codes, align_regs_batch(
+        port.options, eng, codes, port._exec_cfg), port._pe_stats)
+    want = [[vars(_aln_to_record(p, m)) for p, m in r] for r in py]
+    assert [[vars(a) for a in r] for r in got] == want
+    assert [[vars(a) for a in r] for r in host.align_seqs(reads)] == want
+
+
+@pytest.mark.cuda
+@needs_card
+def test_cuda_aligner_raises_without_its_tail_library(tail_genome, monkeypatch):
+    """A card aligner whose tail library does not build or load raises; it
+    does not hand the batch to the Python tail."""
+    from bwamem_tpu_torch import BwaMemAligner
+    from bwamem_tpu_torch.engine import native_pipeline
+
+    index, reads = tail_genome
+    monkeypatch.setattr(native_pipeline, "_ensure_built", lambda: False)
+    for kw in CARD_ROUTES.values():
+        port = BwaMemAligner(index, device="cuda", **kw)
+        with pytest.raises(RuntimeError):
+            port.align_seqs(reads[:20])
+        with pytest.raises(RuntimeError):
+            port.align_seqs_raw(reads[:20])

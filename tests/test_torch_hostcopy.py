@@ -2,7 +2,11 @@
 layer by layer on seeded inputs, exactly: index files and images byte for
 byte, seeding intervals, chains, extension regions, deduplicated regions,
 paired records, and the golden reads of the rotavirus image; with the host
-C++ natives and without them.  Objects of the two packages are never
+C++ natives and without them.  The host C++ sources are the reference's
+byte for byte, but for pipeline.cpp's one difference, the split of
+``bwamem_pipeline_batch`` at its phase boundary (``SPLIT``), and its
+whole-batch entry, its core and the port's tail entry give the reference's
+records.  Objects of the two packages are never
 ``==`` (their classes differ), so fields are compared.  Each package
 builds its own index from the same genome.
 """
@@ -270,3 +274,115 @@ def test_options_pack_alike():
     a.set_intra_ctg()
     b.set_intra_ctg()
     assert a.pack() == b.pack()
+
+
+# ------------------------------------------------------------ the host C++
+
+J_NATIVE = os.path.join(os.path.dirname(j_pipeline.__file__), "native")
+P_NATIVE = os.path.join(os.path.dirname(p_pipeline.__file__), "native")
+
+
+def _text(d, name):
+    with open(os.path.join(d, name)) as fh:
+        return fh.read()
+
+
+@pytest.mark.parametrize("name", ("ksw.cpp", "chain.cpp", "fmindex.cpp",
+                                  "align_core.cpp"))
+def test_native_sources_are_the_references(name):
+    assert _text(P_NATIVE, name) == _text(J_NATIVE, name)
+
+
+def _lines(text):
+    return [ln.strip() for ln in text.splitlines() if ln.strip()]
+
+
+def _contains(lines, part):
+    n = len(part)
+    return any(lines[i: i + n] == part for i in range(len(lines) - n + 1))
+
+
+# the copy's one difference: bwamem_pipeline_batch split at its phase
+# boundary.  Phase 1 keeps every block's regions before dedup for the tail
+# (these lines of the reference's phase 1 change); the Reg -> RegT copy,
+# sort_dedup_patch and flag_alt_regs move, unchanged, into pipeline_tail,
+# which the reference's pestat, phase 2 and record rows end, unchanged; and
+# bwamem_tail_batch hands region rows to the same pipeline_tail.
+SPLIT = {
+    "std::vector<std::vector<RegT>> regs(n_reads);":
+        "std::vector<std::vector<Reg>> all_raws((size_t)n_reads);",
+    "std::vector<std::vector<Reg>> raws((size_t)nb);":
+        "std::vector<Reg>* raws = all_raws.data() + lo;",
+    "chv.data(), raws.data());": "chv.data(), raws);",
+    "std::vector<Reg>& raw = raws[(size_t)(i - lo)];":
+        "std::vector<Reg>& raw = raws[(size_t)i];",
+}
+
+
+def test_pipeline_cpp_differs_from_the_reference_only_by_the_split():
+    ref, port = _text(J_NATIVE, "pipeline.cpp"), _text(P_NATIVE, "pipeline.cpp")
+    note = port.index("//\n// This copy (bwamem_tpu_torch) differs")
+    port_body = port[:note] + port[port.index("\n#include", note):]
+    # everything before the entries is the reference's
+    head = ref.index("// Seed intervals -> final alignment records")
+    assert port_body.startswith(ref[:head])
+    assert "namespace tail {\n\n// Regions before dedup" in port_body[head:]
+    plines = _lines(port_body)
+    # phase 1, up to the regions' dedup, with the SPLIT lines changed
+    p1 = ref[ref.index("  // phase 1: align"):
+             ref.index("      for (int64_t i = lo; i < hi; ++i) {\n"
+                       "        SubTimer st(g_ns_dedup);")]
+    p1 = [SPLIT.get(ln, ln) for ln in _lines(p1)]
+    scratch = p1.index("#pragma omp for schedule(dynamic, 1)")
+    assert p1[scratch - 3: scratch] == ["#pragma omp parallel", "{", "Scratch s;"]
+    p1[scratch - 3: scratch + 1] = ["#pragma omp parallel for schedule(dynamic, 1)"]
+    assert _contains(plines, p1)
+    # the Reg -> RegT copy, sort_dedup_patch and flag_alt_regs
+    copy = ref[ref.index("        SubTimer st(g_ns_dedup);"):
+               ref.index("        flag_alt_regs(bns, out);")]
+    assert _contains(plines, [SPLIT.get(ln, ln) for ln in _lines(copy)]
+                     + ["flag_alt_regs(bns, out);"])
+    # pestat, phase 2 and the record rows
+    tail = ref[ref.index("  // PE stats: caller-provided"):
+               ref.index("  *str_len_out = str_len;")]
+    assert _contains(plines, _lines(tail) + ["*str_len_out = str_len;"])
+    assert port_body.count("pipeline_tail(") == 3  # defined, called twice
+    assert "void bwamem_tail_batch(" in port_body
+
+
+def test_native_seed_sa_and_core_match(engines, reads):
+    """native_seed_sa and the fused chain+extend core
+    (``bwamem_align_regs_batch``) of either package, on the same reads."""
+    from bwamem_tpu.engine import native_core as j_core
+    from bwamem_tpu_torch.engine import native_core as p_core
+
+    got = []
+    for (pkg, eng, opt), core in zip(engines, (j_core, p_core)):
+        table = pkg.pipeline.native_seed_sa(opt, eng, reads)
+        got.append(([np.asarray(a).tolist() for a in table],
+                    _fields(core.align_regs_batch_core(opt, eng.idx, reads,
+                                                       *table))))
+    assert got[0] == got[1] and any(got[0][1])
+
+
+@pytest.mark.parametrize("mode", ("se", "pe"))
+def test_native_pipeline_records_match(engines, reads, mode):
+    """``bwamem_pipeline_batch`` of either package, and the port's
+    ``bwamem_tail_batch`` on its own core's regions: the same records."""
+    from bwamem_tpu.engine import native_pipeline as j_np
+    from bwamem_tpu_torch.engine import native_core as p_core
+    from bwamem_tpu_torch.engine import native_pipeline as p_np
+
+    got = []
+    for (pkg, eng, opt), np_mod in zip(engines, (j_np, p_np)):
+        table = pkg.pipeline.native_seed_sa(opt, eng, reads)
+        got.append(_fields(np_mod.pipeline_batch(
+            opt, eng.idx, reads, *table, is_pe=mode == "pe")))
+    eng, opt = engines[1][1], engines[1][2]
+    table = p_pipeline.native_seed_sa(opt, eng, reads)
+    rows, n_reg = p_pipeline.regs_to_rows(
+        p_core.align_regs_batch_core(opt, eng.idx, reads, *table))
+    tail = p_np.records_from_arrays(len(reads), *p_np.tail_batch_arrays(
+        opt, eng.idx, reads, rows, n_reg, is_pe=mode == "pe"))
+    assert got[0] == got[1] == _fields(tail)
+    assert all(got[0])
