@@ -33,7 +33,11 @@ Routes, as the JAX package's aligner takes them:
 
 ``align_seqs`` assembles its records from the C++ tail's flat arrays
 (``_records_fast``); ``align_seqs_raw`` builds ``Aln`` lists from them
-(``native_pipeline.records_from_arrays``).
+(``native_pipeline.records_from_arrays``), and ``align_seqs_packed`` encodes
+those in the reference's binary layout (``api/wire.py``).  Each batch of
+``align_seqs``/``align_seqs_raw`` runs under ``utils.metrics.batch_scope``
+(the ``BWAMEM_TPU_METRICS`` dump and the ``BWAMEM_TPU_TRACE`` profile) and
+counts ``batches``, ``reads`` and ``records``.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from ..engine.finalize import Aln, mark_primary_se, reorder_primary5
 from ..engine.pipeline import (align_regs_batch, align_regs_raw,
                                native_pipeline_ok, native_seed_sa,
                                reg2sam_records)
+from ..utils import metrics as _metrics
 from ..utils.encoding import seq_to_codes_batch
 from ..utils.timers import TIMERS
 from .alignment import BAM_CIGAR_CHARS, BwaMemAlignment
@@ -235,16 +240,19 @@ def resolve_pes(opt, eng, regs, pe_stats) -> List[pair_mod.PeStat]:
     return pes
 
 
-def python_tail(opt, eng, reads, regs, pe_stats=None):
+def python_tail(opt, eng, reads, regs, pe_stats=None, id_base: int = 0,
+                id_stride: int = 1):
     """The Python tail on deduplicated regions (``align_regs_batch``'s):
     SE primary marking and records, or PE statistics (``pe_stats`` as
     ``resolve_pes`` takes it), pairing with mate rescue and records.  Per
     read a list of (Aln, mate Aln | None).  The oracle of the C++ tail, and
-    the route on the CPU where the tail library is not available."""
+    the route on the CPU where the tail library is not available.  Read
+    (SE) or pair (PE) ``i`` has the ordinal ``id_base + i * id_stride``,
+    the input of the hash tie-breaks, as the C++ takes them."""
     out = []
     if not opt.flag & MEM_F_PE:
         for i, (read, r) in enumerate(zip(reads, regs)):
-            mark_primary_se(opt, r, i)
+            mark_primary_se(opt, r, id_base + i * id_stride)
             if opt.flag & MEM_F_PRIMARY5:
                 reorder_primary5(opt.T, r)
             out.append([(a, None) for a in reg2sam_records(opt, eng, read, r)])
@@ -252,7 +260,8 @@ def python_tail(opt, eng, reads, regs, pe_stats=None):
     pes = resolve_pes(opt, eng, regs, pe_stats)
     for i in range(len(reads) // 2):
         alns0, alns1 = pair_mod.sam_pe(
-            opt, eng, pes, i, (reads[2 * i], reads[2 * i + 1]),
+            opt, eng, pes, id_base + i * id_stride,
+            (reads[2 * i], reads[2 * i + 1]),
             [regs[2 * i], regs[2 * i + 1]],
         )
         out.extend(_with_mates(alns0, alns1))
@@ -268,10 +277,12 @@ def _with_mates(alns0, alns1):
 
 class BwaMemAligner:
     def __init__(self, index: BwaMemIndex, options: Optional[MemOptions] = None,
-                 *, device, min_device_jobs: int = HOST_FALLBACK_JOBS,
-                 device_stages=(), device_pipeline: bool = False):
-        """device: where the extension waves run ("cuda", "cuda:1", "cpu").
-        A CUDA device with no card present raises; there is no fallback.
+                 *, device="cuda", min_device_jobs: int = HOST_FALLBACK_JOBS,
+                 device_stages=(), device_pipeline: Optional[bool] = None):
+        """device: where the extension waves run ("cuda", the default,
+        "cuda:1", "cpu").  A CUDA device with no card present raises; there
+        is no fallback.  ``device="cpu"`` with no ``device_stages`` is the
+        whole-batch host route.
         min_device_jobs: waves with fewer jobs run on the host C++.
         device_stages: further stages to run on ``device``, by the JAX
         package's names: "seed" (the three seeding rounds of a batch in the
@@ -283,12 +294,16 @@ class BwaMemAligner:
         that name): seeding, the walks, chaining and the whole chain
         extension run on ``device`` whatever ``device_stages`` says, and
         regions come back; only reads that a budget flags take the staged
-        path (``engine.pipeline_device``)."""
+        path (``engine.pipeline_device``).  None (the default) takes it on
+        a CUDA device and not on the CPU; False keeps a card aligner on the
+        extension waves (and ``device_stages``)."""
         stages = set(device_stages)
         unknown = stages - set(DEVICE_STAGES)
         if unknown:
             raise ValueError(f"unknown device stages: {sorted(unknown)}")
         dev = torch.device(device)
+        if device_pipeline is None:
+            device_pipeline = dev.type == "cuda"
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is not "
                                "available")
@@ -366,46 +381,85 @@ class BwaMemAligner:
             raise InvalidInputException(
                 "paired alignment requires an even number of sequences"
             )
+        if self._python_tail_only():
+            return None
         self._index.ref_index()
         try:
             eng = self._index._require()
             reads = seq_to_codes_batch(seqs)
-            arrays = self._native_arrays(eng, opt, reads, is_pe)
-            if arrays is None:
-                return None
-            return _records_fast(len(reads), *arrays, is_pe=is_pe)
+            with _metrics.batch_scope():
+                arrays = self._native_arrays(eng, opt, reads, is_pe)
+                out = _records_fast(len(reads), *arrays, is_pe=is_pe)
+                _metrics.count("batches")
+                _metrics.count("reads", len(reads))
+                _metrics.count("records", sum(len(r) for r in out))
+            return out
         finally:
             self._index.de_ref_index()
 
     def align_seqs_raw(self, sequences: List[bytes]):
-        """Per read a list of (Aln, mate Aln | None) engine records."""
+        """Per read a list of (Aln, mate Aln | None) engine records — the
+        substrate of the object API and of the binary wire codec
+        (api/wire.py)."""
+        if not self._open:
+            raise RuntimeError("The aligner has been closed.")
+        return self._align_codes_raw(seq_to_codes_batch(sequences))
+
+    def align_seqs_packed(self, seqs_buf: bytes) -> bytes:
+        """Binary in, binary out: the reference's createAlignments contract
+        ([int32 n][seq NUL]* -> fmt_BAMish record stream; SURVEY.md 2.4)."""
+        from . import wire
+
+        raw = self.align_seqs_raw(wire.decode_seqs(seqs_buf))
+        return wire.encode_alignments(raw)
+
+    def _align_codes_raw(self, reads, id_base: int = 0, id_stride: int = 1):
+        """``align_seqs_raw`` on reads already encoded (codes 0-4), read
+        (SE) or pair (PE) ``i`` with the ordinal ``id_base + i *
+        id_stride``: a streaming or sharded caller (the CLI) passes the
+        original stream ordinals, so its output does not depend on the
+        chunking or the partition."""
         if not self._open:
             raise RuntimeError("The aligner has been closed.")
         opt = self.options
-        self._index.ref_index()
-        try:
-            eng = self._index._require()
-            reads = seq_to_codes_batch(sequences)
-            if opt.flag & MEM_F_PE:
-                return self._align_pe(eng, opt, reads)
-            return self._align_se(eng, opt, reads)
-        finally:
-            self._index.de_ref_index()
+        with _metrics.batch_scope():
+            self._index.ref_index()
+            try:
+                eng = self._index._require()
+                ids = dict(id_base=id_base, id_stride=id_stride)
+                out = (self._align_pe(eng, opt, reads, **ids)
+                       if opt.flag & MEM_F_PE
+                       else self._align_se(eng, opt, reads, **ids))
+            finally:
+                self._index.de_ref_index()
+            _metrics.count("batches")
+            _metrics.count("reads", len(reads))
+            _metrics.count("records", sum(len(r) for r in out))
+        return out
 
-    def _native_arrays(self, eng, opt, reads, is_pe: bool):
+    def _python_tail_only(self) -> bool:
+        """Only the Python tail can serve a batch: a CPU aligner without
+        the tail library (on a card its absence raises)."""
+        return (self._exec_cfg.device.type == "cpu"
+                and not native_pipeline.available())
+
+    def _native_arrays(self, eng, opt, reads, is_pe: bool, id_base: int = 0,
+                       id_stride: int = 1):
         """The batch's flat record arrays from the C++: the whole-batch
         route where it applies, else the C++ tail on ``align_regs_raw``'s
         regions; None on the CPU when the tail library is not available
-        (on a card its absence raises)."""
+        (on a card its absence raises).  ``id_base``/``id_stride`` as
+        ``_align_codes_raw`` takes them."""
+        ids = dict(id_base=id_base, id_stride=id_stride)
         if native_pipeline_ok(eng, reads, self._exec_cfg):
-            return self._align_native_arrays(eng, opt, reads, is_pe)
-        if self._exec_cfg.device.type == "cpu" and not native_pipeline.available():
+            return self._align_native_arrays(eng, opt, reads, is_pe, **ids)
+        if self._python_tail_only():
             return None
         rows, n_reg = align_regs_raw(opt, eng, reads, self._exec_cfg)
         with TIMERS.stage("native_tail"):
             return native_pipeline.tail_batch_arrays(
                 opt, eng.idx, reads, rows, n_reg, is_pe=is_pe,
-                pes=self._caller_pes(opt, eng, is_pe))
+                pes=self._caller_pes(opt, eng, is_pe), **ids)
 
     def _caller_pes(self, opt, eng, is_pe: bool):
         """PE stats for the C++: None to infer them from the batch, else the
@@ -414,7 +468,8 @@ class BwaMemAligner:
             return resolve_pes(opt, eng, None, self._pe_stats)
         return None
 
-    def _align_native_arrays(self, eng, opt, reads, is_pe: bool):
+    def _align_native_arrays(self, eng, opt, reads, is_pe: bool,
+                             id_base: int = 0, id_stride: int = 1):
         """Full native pipeline (seeds -> flat record arrays in one C
         call); engine/native/pipeline.cpp, the mem_process_seqs
         equivalent."""
@@ -422,36 +477,44 @@ class BwaMemAligner:
         with TIMERS.stage("native_tail"):
             return native_pipeline.pipeline_batch_arrays(
                 opt, eng.idx, reads, *arrays, is_pe=is_pe,
-                pes=self._caller_pes(opt, eng, is_pe))
+                pes=self._caller_pes(opt, eng, is_pe), id_base=id_base,
+                id_stride=id_stride)
 
-    def _align_native(self, eng, opt, reads, is_pe: bool):
+    def _align_native(self, eng, opt, reads, is_pe: bool, id_base: int = 0,
+                      id_stride: int = 1):
         """Like _native_arrays but returns per-read Aln lists (None where
         _native_arrays is None)."""
-        arrays = self._native_arrays(eng, opt, reads, is_pe)
+        arrays = self._native_arrays(eng, opt, reads, is_pe, id_base=id_base,
+                                     id_stride=id_stride)
         if arrays is None:
             return None
-        return native_pipeline.records_from_arrays(len(reads), *arrays)
+        with TIMERS.stage("records"):
+            return native_pipeline.records_from_arrays(len(reads), *arrays)
 
-    def _align_se(self, eng, opt, reads):
-        recs = self._align_native(eng, opt, reads, is_pe=False)
+    def _align_se(self, eng, opt, reads, id_base: int = 0, id_stride: int = 1):
+        recs = self._align_native(eng, opt, reads, is_pe=False,
+                                  id_base=id_base, id_stride=id_stride)
         if recs is not None:
             return [[(a, None) for a in alns] for alns in recs]
         return python_tail(opt, eng, reads,
-                           align_regs_batch(opt, eng, reads, self._exec_cfg))
+                           align_regs_batch(opt, eng, reads, self._exec_cfg),
+                           id_base=id_base, id_stride=id_stride)
 
-    def _align_pe(self, eng, opt, reads):
+    def _align_pe(self, eng, opt, reads, id_base: int = 0, id_stride: int = 1):
         if len(reads) % 2:
             raise InvalidInputException(
                 "paired alignment requires an even number of sequences"
             )
-        recs = self._align_native(eng, opt, reads, is_pe=True)
+        recs = self._align_native(eng, opt, reads, is_pe=True,
+                                  id_base=id_base, id_stride=id_stride)
         if recs is not None:
             out = []
             for i in range(len(reads) // 2):
                 out.extend(_with_mates(recs[2 * i], recs[2 * i + 1]))
             return out
         regs = align_regs_batch(opt, eng, reads, self._exec_cfg)
-        return python_tail(opt, eng, reads, regs, self._pe_stats)
+        return python_tail(opt, eng, reads, regs, self._pe_stats,
+                           id_base=id_base, id_stride=id_stride)
 
     # --------------------------------------------- Java-style option surface
 

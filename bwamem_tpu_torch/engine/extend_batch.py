@@ -20,6 +20,7 @@ import numpy as np
 from ..api.options import MemOptions
 from ..ops import extend as ext
 from ..ops.extend import ksw_extend_batch_np
+from ..utils import metrics as _metrics
 from . import exec_ctx, native_ksw
 from .chain import Chain
 from .exec_ctx import ExecConfig
@@ -197,6 +198,8 @@ def _run_kernel(opt, jobs, bonuses, ws, h0s, exec_cfg: ExecConfig, scoring):
     """One batched ksw_extend2 wave; jobs = list of (qseq, tseq)."""
     n = len(jobs)
     t0 = time.perf_counter()
+    _metrics.count("extend_waves")
+    _metrics.count("extend_jobs", n)
     if n < exec_cfg.min_device_jobs:
         out = _host_wave(opt, jobs, bonuses, ws, h0s)
         STATS.host_extend_waves += 1
@@ -208,6 +211,8 @@ def _run_kernel(opt, jobs, bonuses, ws, h0s, exec_cfg: ExecConfig, scoring):
         [q for q, _ in jobs], [t for _, t in jobs], scoring, h0s, ws, bonuses,
     )
     STATS.device_scalar_jobs += ext.SCALAR_JOBS - scalar
+    _metrics.count("device_extend_waves")
+    _metrics.count("device_extend_jobs", n)
     STATS.device_extend_waves += 1
     STATS.device_extend_jobs += n
     STATS.device_wave_seconds += time.perf_counter() - t0

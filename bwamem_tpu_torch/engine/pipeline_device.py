@@ -41,6 +41,7 @@ import torch
 from ..api.options import MemOptions
 from ..ops import chain as chainops
 from ..ops import pipeline_fused as fusedops
+from ..utils import metrics as _metrics
 from . import exec_ctx
 from .chain import (MEM_HSP_COEF, MEM_MINSC_COEF, MEM_SEEDSW_COEF,
                     flt_chained_seeds)
@@ -176,6 +177,7 @@ def regs_rows_fused(opt: MemOptions, eng, reads: List[np.ndarray],
         return np.zeros((0, 11), dtype=np.int64), np.zeros(0, dtype=np.int64)
     st = FUSED_STATS
     dev = exec_cfg.device
+    _metrics.count("device_fused_pipeline_batches")
     cfg = dataclasses.replace(exec_cfg, device_seed=True, device_sa_lookup=True,
                               device_chain=True)
     qlens = np.asarray([len(r) for r in reads], dtype=np.int32)
@@ -214,6 +216,7 @@ def regs_rows_fused(opt: MemOptions, eng, reads: List[np.ndarray],
     t4 = clock()
     staged = np.flatnonzero(seeds.on_host | ovf | ~fcs_ok | ~fits)
     if staged.size:
+        _metrics.count("device_fused_pipeline_fallbacks", int(staged.size))
         rows, n_reg = _splice(rows, nregs, staged, *regs_to_rows(_staged(
             opt, eng, reads, qlens, staged, seeds.on_host, tab, host, host_tab,
             exec_cfg)))

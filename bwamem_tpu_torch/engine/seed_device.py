@@ -37,6 +37,7 @@ import torch
 
 from ..ops import fmindex as fmops
 from ..ops import seed as seedops
+from ..utils import metrics as _metrics
 from . import native_fm
 from .seed_batch import collect_intv_batch
 from .state import device_fm
@@ -124,6 +125,7 @@ def seed_batch(opt, fm, reads: List[np.ndarray], device,
                            np.zeros((0, 5), dtype=np.int64), dfm.sa[:0], dfm,
                            *seedops.pad_reads([], dfm.device))
     qseq, qlen = seedops.pad_reads(reads, dfm.device)
+    _metrics.count("device_seed_fused_batches")
     before = sum(seedops.LAUNCHES.values())
     work = torch.zeros((len(reads), 5), dtype=torch.int32, device=dfm.device)
     out = seedops.seed_sa(dfm, qseq, qlen, seedops.SeedParams.from_opt(opt),
@@ -146,6 +148,7 @@ def seed_batch(opt, fm, reads: List[np.ndarray], device,
     rows_fb = np.zeros((0, 5), dtype=np.int64)
     fb = np.flatnonzero(on_host)
     if fb.size:
+        _metrics.count("device_seed_fused_fallbacks", int(fb.size))
         rows_fb, n_intv[fb] = host_rows(opt, fm, [reads[i] for i in fb])
     SEED_STATS.device_reads += len(reads) - fb.size
     SEED_STATS.host_reads += fb.size

@@ -17,7 +17,10 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    PyTorch version on the card and the host C++ ksw_extend2, field for
    field and exactly, on seeded batches (a 4096-job main-path wave, the JAX
    tests' ragged shapes, edge cases, zdrop=0, non-default scoring);
-4. main path: the port's BwaMemAligner(device="cuda") aligns 6,000 pairs of
+4. main path: the port's BwaMemAligner(device="cuda", device_pipeline=False)
+   (the extension waves on the card; every card aligner of phases 4-13 and
+   16's default and staged routes says device_pipeline=False, since a card
+   aligner takes the fused path by default) aligns 6,000 pairs of
    150 bp reads (and 2,000 reads single-end) on bench.py's 4.6 Mbp "ecoli"
    synthetic genome; every record must equal the host oracle's (the port's
    own aligner with device="cpu" and no device stage: the whole-batch host
@@ -141,7 +144,27 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    the Python tail's seconds on the same regions and the untimed rest, and
    for the fused ecoli PE batch the card's busy and idle share from phase
    15's profiled rerun of it; the card's name and power limit on each of
-   those lines.
+   those lines;
+17. the command line on the card: bench.py's 4.6 Mbp "ecoli" genome as a
+   FASTA and 40,000 simulated pairs of 150 bp reads (insert 350 +- 35) as
+   FASTQ; ``python -m bwamem_tpu_torch index --sa-intv 8 ref.fa`` timed,
+   then ``mem`` in fresh processes: with no device flag (the card, the fused
+   path; two batches at the default -K, the first of 66,668 reads) under
+   BWAMEM_TPU_METRICS and BWAMEM_TPU_TRACE, its SAM equal byte for byte to
+   ``--device cpu``'s (the host route), its metrics dump counting 2
+   batches, 80,000 reads and 2 fused batches, its own traces holding the
+   seven fused-route kernels; the staged (``--no-device-pipeline
+   --device-stages seed,sa_lookup,chain``) and waves
+   (``--no-device-pipeline``, at least half the extension jobs on the card)
+   routes equal to the host route's SAM too; with ``--insert-mean 350
+   --insert-std 35``, ``-K 1000000``, ``-p`` on an interleaved file and
+   ``--shard 0/2`` + ``1/2`` merged by read ordinal giving the unsharded
+   run's lines; SE on the card equal to SE on the host; each timed run's
+   reads/s and where its seconds went (the aligner's stages, the command's
+   own, the rest) from its metrics dump; and, in this process,
+   ``align_seqs_packed`` of the default ``BwaMemAligner(index)`` (no device
+   given: the card, the fused path) on phase 4's PE batch equal to the host
+   route's bytes, with no ``pair.sam_pe`` call.
 
 The launch counts in the ``kernels`` line come from the runs that drive
 each kernel: phase 4's PE batch (ksw_extend), phase 7's PE batch
@@ -584,7 +607,8 @@ def phase_main_path(dev, index, codes):
     reads = simulate_pairs(codes, rng, N_PAIRS)
     runs = {}
     for mode, batch in (("pe", reads), ("se", reads[:N_SE])):
-        host, port = _host_aligner(index), BwaMemAligner(index, device=dev)
+        host = _host_aligner(index)
+        port = BwaMemAligner(index, device=dev, device_pipeline=False)
         if mode == "pe":
             for a in (host, port):
                 _pe_setup(a)
@@ -675,7 +699,8 @@ def traced_batch_child(spec: str) -> int:
     reads = simulate_pairs(codes, rng, N_PAIRS)
     if spec["mode"] == "se":
         reads = reads[:N_SE]
-    port = BwaMemAligner(index, device=dev, **spec["route"])
+    port = BwaMemAligner(index, device=dev,
+                         **{"device_pipeline": False, **spec["route"]})
     if spec["mode"] == "pe":
         _pe_setup(port)
     port.align_seqs(warm)
@@ -1049,7 +1074,8 @@ def phase_device_sa(dev, index, fm, runs):
     sa = {}
     for mode in ("pe", "se"):
         r = runs[mode]
-        port = BwaMemAligner(index, device=dev, device_stages=("sa_lookup",))
+        port = BwaMemAligner(index, device=dev, device_stages=("sa_lookup",),
+                             device_pipeline=False)
         if mode == "pe":
             _pe_setup(port)
         port.align_seqs(r["warm"])
@@ -1252,7 +1278,8 @@ def phase_chr20(dev):
     warm = simulate_pairs(codes, rng, 8)
     reads = simulate_pairs(codes, rng, CHR20_PAIRS)
     host = _host_aligner(index)
-    port = BwaMemAligner(index, device=dev, device_stages=ALL_STAGES)
+    port = BwaMemAligner(index, device=dev, device_stages=ALL_STAGES,
+                         device_pipeline=False)
     for a in (host, port):
         _pe_setup(a)
         a.align_seqs(warm)
@@ -1623,7 +1650,8 @@ def phase_device_seed(dev, index, runs):
                               ("se+seed+sa", "se", ("seed", "sa_lookup")),
                               ("pe+seed", "pe", ("seed",))):
         r = runs[mode]
-        port = BwaMemAligner(index, device=dev, device_stages=stages)
+        port = BwaMemAligner(index, device=dev, device_stages=stages,
+                             device_pipeline=False)
         if mode == "pe":
             _pe_setup(port)
         port.align_seqs(r["warm"])
@@ -1852,7 +1880,8 @@ def phase_device_chain(dev, index, runs):
                               ("se+seed+sa+chain", "se", ALL_STAGES),
                               ("pe+chain", "pe", ("chain",))):
         r = runs[mode]
-        port = BwaMemAligner(index, device=dev, device_stages=stages)
+        port = BwaMemAligner(index, device=dev, device_stages=stages,
+                             device_pipeline=False)
         if mode == "pe":
             _pe_setup(port)
         port.align_seqs(r["warm"])
@@ -2215,8 +2244,10 @@ def phase_fused(dev, index, runs, chain_run, big):
                 busy=out["pe+fused"]["busy"], wall=out["pe+fused"]["wall"])
 
 
-ROUTES = (("host", None), ("default", {}),
-          ("staged", dict(device_stages=ALL_STAGES)),
+# a card aligner takes the fused path unless it says device_pipeline=False
+WAVES = dict(device_pipeline=False)
+ROUTES = (("host", None), ("default", WAVES),
+          ("staged", dict(WAVES, device_stages=ALL_STAGES)),
           ("fused", dict(device_pipeline=True)))
 
 
@@ -2334,6 +2365,273 @@ def phase_native_tail(dev, index, runs, big, card, fused_trace):
     return out
 
 
+CLI_PAIRS = 40_000
+FUSED_KERNELS = ("collect_intv", "sample_ks", "sa_lookup", "chain", "chain_emit",
+                 "chain2aln_prep", "chain2aln")
+
+
+def _write_cli_inputs(d: str, codes):
+    """The genome as ref.fa, and CLI_PAIRS simulated pairs (150 bp, insert
+    350 +- 35) as r1.fq, r2.fq and the interleaved inter.fq; read names
+    p<pair ordinal>."""
+    import numpy as np
+
+    from bwamem_tpu_torch.utils.synth import simulate_pairs
+
+    text = np.frombuffer(b"ACGTN", dtype=np.uint8)[codes].tobytes()
+    with open(os.path.join(d, "ref.fa"), "wb") as fh:
+        fh.write(b">chr\n")
+        for i in range(0, len(text), 80):
+            fh.write(text[i: i + 80] + b"\n")
+    reads = simulate_pairs(codes, np.random.default_rng(SEED + 17), CLI_PAIRS)
+    qual = b"I" * 150
+    recs = [b"@p%d\n%s\n+\n%s\n" % (i // 2, r, qual[: len(r)])
+            for i, r in enumerate(reads)]
+    for name, part in (("r1", recs[0::2]), ("r2", recs[1::2]), ("inter", recs)):
+        with open(os.path.join(d, f"{name}.fq"), "wb") as fh:
+            fh.write(b"".join(part))
+
+
+def _cli(d: str, args, out: str, env=None):
+    """``python -m bwamem_tpu_torch <args>`` in a fresh process from the
+    checkout, its standard output into ``d/out``: (wall seconds, stderr)."""
+    child_env = {**os.environ, "PYTHONPATH": ROOT, **(env or {})}
+    t0 = time.perf_counter()
+    with open(os.path.join(d, out), "wb") as fh:
+        res = subprocess.run([sys.executable, "-m", "bwamem_tpu_torch", *args],
+                             stdout=fh, stderr=subprocess.PIPE, text=True,
+                             cwd=d, env=child_env, timeout=900)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"bwamem_tpu_torch {' '.join(args)} exited "
+                             f"{res.returncode}: {res.stderr[-3000:]}")
+    return secs, res.stderr
+
+
+def _sam_body(path: str) -> list:
+    with open(path) as fh:
+        return [ln for ln in fh if not ln.startswith("@")]
+
+
+def _same_file(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def _merged(paths) -> list:
+    """The SAM lines of one run, or of its shards merged back, in read
+    ordinal order (names p<ordinal>)."""
+    groups = {}
+    for p in paths:
+        for ln in _sam_body(p):
+            groups.setdefault(ln.split("\t", 1)[0], []).append(ln)
+    return [ln for name in sorted(groups, key=lambda n: int(n[1:]))
+            for ln in groups[name]]
+
+
+def _trace_kernels(trace_dir: str) -> list:
+    """Per Chrome trace file of ``trace_dir``: its kernels' launches by
+    entry of the kernels line."""
+    out = []
+    for f in sorted(os.listdir(trace_dir)):
+        with open(os.path.join(trace_dir, f)) as fh:
+            events = json.load(fh)["traceEvents"]
+        counts = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                entry = _kernel_of(e.get("name", "")) or e.get("name", "")[:60]
+                counts[entry] = counts.get(entry, 0) + 1
+        out.append((f, counts))
+    return out
+
+
+def _cli_shares(tag, secs, dumps, card) -> dict:
+    """Reads/s of a CLI run and where its seconds went, from its metrics
+    dumps (one after each batch, one at the end): the aligner's stages, the
+    command's own (``cli_*``, and ``records``: records_from_arrays) and the
+    rest (the interpreter's start-up, the imports, the card's set-up
+    outside a stage); then each batch's reads and aligner seconds (the
+    first batch's include the first calls' set-up on the card)."""
+    def own(k):
+        return k.startswith("cli_") or k == "records"
+
+    last = dumps[-1]
+    st, n_reads = last["stage_seconds"], last["counters"]["reads"]
+    cli = {k: v for k, v in st.items() if own(k)}
+    aligner = sum(v for k, v in st.items() if not own(k))
+    rest = secs - aligner - sum(cli.values())
+    print(f"  {tag}: {n_reads} reads in {secs:.2f} s: {n_reads / secs:.1f} "
+          f"reads/s; the aligner's stages {aligner:.3f} s (share "
+          f"{aligner / secs:.4f}: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in st.items() if not own(k))
+          + "); the command's own " + ", ".join(
+              f"{k} {v:.3f}" for k, v in cli.items())
+          + f" s (share {sum(cli.values()) / secs:.4f}); the rest (start-up, "
+          f"imports, set-up outside a stage) {rest:.3f} s [{card}]")
+    done, before = [], (0, 0.0)
+    for dump in dumps[:-1]:
+        r = dump["counters"]["reads"]
+        a = sum(v for k, v in dump["stage_seconds"].items() if not own(k))
+        done.append((r - before[0], a - before[1]))
+        before = (r, a)
+    print(f"  {tag}: by batch, reads and the aligner's stages: " + "; ".join(
+        f"{r} reads {a:.3f} s ({r / a:.1f} reads/s)" for r, a in done)
+        + f" [{card}]")
+    return dict(seconds=secs, reads_per_s=n_reads / secs, aligner_s=aligner,
+                cli_s=cli, rest_s=rest, batches=done,
+                counters=last["counters"])
+
+
+def phase_cli(dev, index, codes, runs, card):
+    """Phase 17: ``python -m bwamem_tpu_torch`` on the card, end to end."""
+    import shutil
+
+    import torch
+
+    from bwamem_tpu_torch import BwaMemAligner
+    from bwamem_tpu_torch.api import wire
+    from bwamem_tpu_torch.engine import pair as pair_mod
+
+    d = os.path.join(ROOT, "build", "smoke", "cli")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    _write_cli_inputs(d, codes)
+    n = 2 * CLI_PAIRS
+    print(f"  inputs: ref.fa (4.6 Mbp), {CLI_PAIRS} pairs of 150 bp reads in "
+          f"{time.perf_counter() - t0:.1f} s")
+    secs, _ = _cli(d, ["index", "--sa-intv", "8", "ref.fa"], "index.out")
+    print(f"  index --sa-intv 8 ref.fa: {secs:.2f} s (a fresh process, start-up "
+          f"included) [{card}]")
+    out = {"index_s": secs}
+    img, pe = "ref.fa.img", ["ref.fa.img", "r1.fq", "r2.fq"]
+
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import bwamem_tpu_torch.__main__"],
+                   check=True, cwd=d, env={**os.environ, "PYTHONPATH": ROOT})
+    print(f"  a fresh interpreter importing the command line (torch "
+          f"included): {time.perf_counter() - t0:.2f} s [{card}]")
+
+    def timed(tag, args, sam, env=None):
+        secs, err = _cli(d, args, sam, dict(BWAMEM_TPU_METRICS="-",
+                                            **(env or {})))
+        dumps = [json.loads(ln) for ln in err.splitlines()
+                 if ln.startswith("{")]
+        out[tag] = _cli_shares(tag, secs, dumps, card)
+        return out[tag]
+
+    trace = os.path.join(d, "trace")
+    fused = timed("fused (default)", ["mem", *pe], "fused.sam",
+                  dict(BWAMEM_TPU_TRACE=trace))
+    c = fused["counters"]
+    print(f"  fused (default): counters " + ", ".join(
+        f"{k} {v}" for k, v in sorted(c.items())))
+    # the default -K: 10 Mbases a chunk, pairs of 300 bases
+    batches = -(-CLI_PAIRS // -(-10_000_000 // 300))
+    if (c.get("batches"), c.get("reads"),
+            c.get("device_fused_pipeline_batches")) != (batches, n, batches):
+        raise AssertionError(f"fused: the metrics dump counts {c}, not "
+                             f"{batches} batches, {n} reads and {batches} "
+                             "fused batches")
+    seen = {}
+    for f, counts in _trace_kernels(trace):
+        print(f"  fused (default): trace {f}: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(counts.items())))
+        for k, v in counts.items():
+            seen[k] = seen.get(k, 0) + v
+    missing = [k for k in FUSED_KERNELS if not seen.get(k)]
+    if missing:
+        raise AssertionError(f"fused: the CLI's traces lack {missing}")
+    host = timed("host (--device cpu)", ["mem", *pe, "--device", "cpu"],
+                 "host.sam")
+    if host["counters"].get("device_seed_fused_batches"):
+        raise AssertionError("the host route ran a device stage")
+    staged = timed("staged", ["mem", *pe, "--no-device-pipeline",
+                              "--device-stages", "seed,sa_lookup,chain"],
+                   "staged.sam")
+    waves = timed("waves (--no-device-pipeline)",
+                  ["mem", *pe, "--no-device-pipeline"], "waves.sam")
+    wc = waves["counters"]
+    share = wc.get("device_extend_jobs", 0) / max(wc.get("extend_jobs", 0), 1)
+    print(f"  waves: device_extend_jobs {wc.get('device_extend_jobs', 0)} of "
+          f"{wc.get('extend_jobs', 0)} extension jobs (share {share:.4f}) in "
+          f"{wc.get('device_extend_waves', 0)} of {wc.get('extend_waves', 0)} "
+          "waves")
+    if share < 0.5:
+        raise AssertionError("waves: less than half the jobs on the card")
+    for name in ("fused", "staged", "waves"):
+        same = _same_file(os.path.join(d, f"{name}.sam"), os.path.join(d, "host.sam"))
+        print(f"  {name}.sam equal to host.sam byte for byte: {same}")
+        if not same:
+            raise AssertionError(f"{name}: its SAM differs from the host route's")
+    stats = ["--insert-mean", "350", "--insert-std", "35"]
+    timed("fused, --insert-mean 350", ["mem", *pe, *stats], "base.sam")
+    base = _sam_body(os.path.join(d, "base.sam"))
+    # each must give the unsharded run's lines; then SE on the card and on
+    # the host
+    groups = [("-K 1000000", [[*pe, *stats, "-K", "1000000"]]),
+              ("-p", [[img, "inter.fq", "-p", *stats]]),
+              ("--shard 0/2 + 1/2",
+               [[*pe, *stats, "--shard", f"{i}/2"] for i in (0, 1)]),
+              ("se", [[img, "r1.fq"], [img, "r1.fq", "--device", "cpu"]])]
+    sams = [[f"v{k}_{i}.sam" for i in range(len(g))]
+            for k, (_, g) in enumerate(groups)]
+    jobs = [(["mem", *a], sam) for (_, g), names in zip(groups, sams)
+            for a, sam in zip(g, names)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as ex:
+        list(ex.map(lambda job: _cli(d, *job), jobs))
+    print(f"  {len(jobs)} more runs, four at a time: "
+          f"{time.perf_counter() - t0:.1f} s")
+    for (tag, _), names in zip(groups[:-1], sams):
+        got = _merged([os.path.join(d, f) for f in names])
+        print(f"  {tag}: {len(got)} lines, equal to the unsharded run's "
+              f"{len(base)}: {got == base}")
+        if got != base:
+            raise AssertionError(f"{tag}: lines differ from the unsharded "
+                                 "run's")
+    same = _same_file(*(os.path.join(d, f) for f in sams[-1]))
+    print(f"  se: the card's SAM equal to the host route's byte for byte: "
+          f"{same}")
+    if not same:
+        raise AssertionError("se: the SAM differs from the host route's")
+    # align_seqs_packed in this process, on phase 4's PE batch: the default
+    # aligner (the card, the fused path) against the host route
+    calls = {"sam_pe": 0}
+    sam_pe = pair_mod.sam_pe
+
+    def counted(*a, **k):
+        calls["sam_pe"] += 1
+        return sam_pe(*a, **k)
+
+    card_al, host_al = BwaMemAligner(index), _host_aligner(index)
+    for a in (card_al, host_al):
+        _pe_setup(a)
+    buf = wire.encode_seqs(runs["pe"]["batch"])
+    _reset_counts()
+    pair_mod.sam_pe = counted
+    try:
+        got = card_al.align_seqs_packed(buf)
+        torch.cuda.synchronize(dev)
+    finally:
+        pair_mod.sam_pe = sam_pe
+    launched = _launched()
+    want = host_al.align_seqs_packed(buf)
+    print(f"  wire: align_seqs_packed on phase 4's {len(runs['pe']['batch'])} "
+          f"PE reads, BwaMemAligner(index) (no device given) against the host "
+          f"route: {len(got)} bytes, equal {got == want}; pair.sam_pe calls "
+          f"{calls['sam_pe']}; launches " + ", ".join(
+              f"{k} {v}" for k, v in launched.items() if v) + f" [{card}]")
+    if got != want or calls["sam_pe"]:
+        raise AssertionError("wire: the packed records differ or the tail "
+                             "ran in Python")
+    if any(launched.get(k, 0) <= 0 for k in FUSED_KERNELS):
+        raise AssertionError("wire: the default aligner did not take the "
+                             "fused path")
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
 def _redesign(name: str, res: dict) -> dict:
     """A redesigned kernel's slowest job (the wave kernel), row (the SA
     walk), chain (the prep kernel) or read alone, as this run timed it."""
@@ -2380,7 +2678,8 @@ def main() -> int:
           "tolerance 0 (int32, exact)")
     err3 = phase_kernel_vs_plain(dev, ext.ksw_extend_cuda)
 
-    print("[4] main path: BwaMemAligner(device='cuda') vs the host oracle")
+    print("[4] main path: BwaMemAligner(device='cuda', device_pipeline=False) "
+          "vs the host oracle")
     t0 = time.perf_counter()
     codes, img, build_s = _synthetic_index(ECOLI_LEN)
     index = BwaMemIndex(img)
@@ -2437,6 +2736,10 @@ def main() -> int:
           "routes vs the host route and the Python route")
     phase_native_tail(dev, index, runs, big, card, fused_run)
     big["index"].close()
+
+    print("[17] the command line on the card: python -m bwamem_tpu_torch "
+          "index / mem, every route against the host route's SAM")
+    phase_cli(dev, index, codes, runs, card)
     index.close()
 
     fm_src = "bwamem_tpu_torch/csrc/fmindex.cu"

@@ -282,5 +282,12 @@ def test_cuda_device_without_card_raises(rotavirus):
 
 
 def test_device_is_required(rotavirus):
-    with pytest.raises(TypeError):
-        BwaMemAligner(rotavirus.port)  # no implicit device choice
+    """``device`` defaults to the card: without one the aligner raises and
+    does not fall back to the CPU; with one it is a card aligner on the
+    fused path."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            BwaMemAligner(rotavirus.port)
+        return
+    cfg = BwaMemAligner(rotavirus.port)._exec_cfg
+    assert cfg.device.type == "cuda" and cfg.device_pipeline

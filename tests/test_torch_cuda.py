@@ -527,7 +527,7 @@ def test_cuda_aligner_matches_host(tmp_path, stages):
     # the oracle: every stage in the port's host C++
     host = BwaMemAligner(index, device="cpu", min_device_jobs=1 << 30)
     port = BwaMemAligner(index, device="cuda", min_device_jobs=1,
-                         device_stages=stages)
+                         device_stages=stages, device_pipeline=False)
     for a in (host, port):
         a.align_pairs()
     STATS.reset()
@@ -1263,10 +1263,14 @@ def tail_genome(tmp_path_factory):
     index.close()
 
 
-CARD_ROUTES = {"default": {}, "sa": dict(device_stages=("sa_lookup",)),
-               "seed_sa": dict(device_stages=("seed", "sa_lookup")),
-               "chain": dict(device_stages=("chain",)),
-               "staged": dict(device_stages=("seed", "sa_lookup", "chain")),
+# a card aligner takes the fused path unless told otherwise: the waves and
+# the stage routes say device_pipeline=False
+WAVES = dict(device_pipeline=False)
+CARD_ROUTES = {"default": WAVES,
+               "sa": dict(WAVES, device_stages=("sa_lookup",)),
+               "seed_sa": dict(WAVES, device_stages=("seed", "sa_lookup")),
+               "chain": dict(WAVES, device_stages=("chain",)),
+               "staged": dict(WAVES, device_stages=("seed", "sa_lookup", "chain")),
                "fused": dict(device_pipeline=True)}
 
 
@@ -1325,3 +1329,92 @@ def test_cuda_aligner_raises_without_its_tail_library(tail_genome, monkeypatch):
             port.align_seqs(reads[:20])
         with pytest.raises(RuntimeError):
             port.align_seqs_raw(reads[:20])
+
+
+@pytest.fixture(scope="module")
+def cli_files(tmp_path_factory):
+    """A 200 kbp genome's image and 200 simulated pairs as FASTQ files."""
+    from bwamem_tpu_torch.index import image
+    from bwamem_tpu_torch.index.build import build_index
+    from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
+    from bwamem_tpu_torch.utils.synth import simulate_pairs, synthetic_genome
+
+    d = tmp_path_factory.mktemp("cli")
+    codes = synthetic_genome(200_000, np.random.default_rng(7))
+    img = str(d / "g.img")
+    image.write_image(img, build_index(Fasta([FastaContig("chr", "", codes)])))
+    reads = simulate_pairs(codes, np.random.default_rng(9), 200)
+    paths = [str(d / "r1.fq"), str(d / "r2.fq")]
+    with open(paths[0], "w") as f1, open(paths[1], "w") as f2:
+        for i in range(len(reads) // 2):
+            for f, s in ((f1, reads[2 * i]), (f2, reads[2 * i + 1])):
+                f.write(f"@p{i}\n{s.decode()}\n+\n{'I' * len(s)}\n")
+    return img, paths
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("mode", ("se", "pe"))
+@pytest.mark.parametrize("route", ((), ("--no-device-pipeline",)),
+                         ids=("fused", "waves"))
+def test_cuda_cli_sam_equals_the_host_routes(cli_files, mode, route):
+    """``mem`` with no device flag (the card, the fused path) and with
+    ``--no-device-pipeline`` prints the host route's SAM byte for byte;
+    the fused run launches the chain-to-region kernels; shards merge."""
+    import contextlib
+    import io
+
+    from bwamem_tpu_torch import __main__ as cli
+
+    img, (r1, r2) = cli_files
+    argv = ["mem", img, r1] + ([r2, "--insert-mean", "350", "--insert-std",
+                                "35"] if mode == "pe" else [])
+
+    def run(*extra):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert cli.main(argv + list(extra)) == 0
+        return out.getvalue()
+
+    before = fo.LAUNCHES["chain2aln"]
+    card = run(*route)
+    assert (fo.LAUNCHES["chain2aln"] > before) == (not route)
+    assert card == run("--device", "cpu")
+    body = [ln for ln in card.splitlines() if not ln.startswith("@")]
+    shards = [ln for i in range(2) for ln in run(*route, "--shard", f"{i}/2")
+              .splitlines() if not ln.startswith("@")]
+    assert sorted(shards) == sorted(body)
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("route", CARD_ROUTES)
+def test_cuda_threads_with_own_aligners(tail_genome, route):
+    """Two threads, each with its own card aligner on one index (the
+    device state cached on the index objects, the stats objects shared):
+    each thread's records equal the host whole-batch route's."""
+    import threading
+
+    from bwamem_tpu_torch import BwaMemAligner
+
+    index, reads = tail_genome
+    want = [[vars(a) for a in r]
+            for r in BwaMemAligner(index, device="cpu").align_seqs(reads)]
+    got, errors = {}, []
+
+    def worker(tid):
+        try:
+            a = BwaMemAligner(index, device="cuda", **CARD_ROUTES[route])
+            for _ in range(3):
+                got[tid] = [[vars(x) for x in r] for r in a.align_seqs(reads)]
+        except Exception as exc:  # pragma: no cover
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert got[0] == want and got[1] == want

@@ -1,6 +1,6 @@
 """The port's public names cover the JAX package's: ``__all__`` of the
-package and of its ``api`` sub-package, but for ``metrics`` (the metrics
-sink is not in the port yet), and each name stands for the same thing."""
+package (``metrics`` included) and of its ``api`` sub-package, and each
+name stands for the same thing."""
 import enum
 
 import pytest
@@ -10,14 +10,12 @@ import bwamem_tpu.api
 import bwamem_tpu_torch
 import bwamem_tpu_torch.api
 
-NOT_YET = {"metrics"}
-
 
 @pytest.mark.parametrize("ref, port", [
     (bwamem_tpu, bwamem_tpu_torch), (bwamem_tpu.api, bwamem_tpu_torch.api)],
     ids=("package", "api"))
 def test_all_covers_the_reference(ref, port):
-    missing = set(ref.__all__) - set(port.__all__) - NOT_YET
+    missing = set(ref.__all__) - set(port.__all__)
     assert not missing
     for name in port.__all__:
         assert hasattr(port, name), name

@@ -2,7 +2,8 @@
 layer by layer on seeded inputs, exactly: index files and images byte for
 byte, seeding intervals, chains, extension regions, deduplicated regions,
 paired records, and the golden reads of the rotavirus image; with the host
-C++ natives and without them.  The host C++ sources are the reference's
+C++ natives and without them.  The FASTQ reader, the SAM emitter and the
+wire codec are the JAX package's modules byte for byte.  The host C++ sources are the reference's
 byte for byte, but for pipeline.cpp's one difference, the split of
 ``bwamem_pipeline_batch`` at its phase boundary (``SPLIT``), and its
 whole-batch entry, its core and the port's tail entry give the reference's
@@ -291,6 +292,18 @@ def _text(d, name):
                                   "align_core.cpp"))
 def test_native_sources_are_the_references(name):
     assert _text(P_NATIVE, name) == _text(J_NATIVE, name)
+
+
+J_ROOT = os.path.dirname(bwamem_tpu.__file__)
+P_ROOT = os.path.dirname(bwamem_tpu_torch.__file__)
+
+
+@pytest.mark.parametrize("rel", ("utils/fastq.py", "api/sam.py", "api/wire.py"))
+def test_python_copies_are_the_references(rel):
+    """The FASTQ reader, the SAM emitter and the wire codec are the JAX
+    package's modules byte for byte (their imports are relative and
+    resolve in the port)."""
+    assert _text(P_ROOT, rel) == _text(J_ROOT, rel)
 
 
 def _lines(text):

@@ -2,12 +2,16 @@
 chip_smoke.py, imports JAX or anything of bwamem_tpu, and an image load, an
 index build and SE and PE alignments through the port (with the host C++
 natives and without them, with and without the device stages and through
-the fused device path) leave both out of sys.modules.  The check runs in a fresh interpreter, since this test
-process has JAX loaded."""
+the fused device path) leave both out of sys.modules, and so do the
+command line's ``index`` and ``mem`` (``python -m bwamem_tpu_torch``).  The
+checks run in fresh interpreters, since this test process has JAX
+loaded."""
 import os
 import re
 import subprocess
 import sys
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "bwamem_tpu_torch")
@@ -69,6 +73,43 @@ def test_alignment_through_port_loads_no_jax():
 
 def test_alignment_without_natives_loads_no_jax():
     _run_fresh("1")
+
+
+def test_command_line_loads_no_jax(tmp_path):
+    """``python -m bwamem_tpu_torch index`` and ``mem`` (SE and PE, the
+    host route and the plain versions of the staged and fused routes) in
+    fresh interpreters: ``-X importtime`` lists every module each run
+    imported, and none is of JAX or bwamem_tpu."""
+    codes = np.random.default_rng(5).integers(0, 4, 30000)
+    seq = "".join("ACGT"[c] for c in codes)
+    (tmp_path / "g.fa").write_text(">g\n" + seq + "\n")
+    rng = np.random.default_rng(6)
+    with open(tmp_path / "r1.fq", "w") as f1, open(tmp_path / "r2.fq", "w") as f2:
+        for i, s in enumerate(rng.integers(0, 29000, 20)):
+            r2 = seq[s + 230: s + 300][::-1].translate(str.maketrans("ACGT", "TGCA"))
+            f1.write(f"@p{i}\n{seq[s: s + 70]}\n+\n{'I' * 70}\n")
+            f2.write(f"@p{i}\n{r2}\n+\n{'I' * 70}\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    fa, img = str(tmp_path / "g.fa"), str(tmp_path / "g.img")
+    runs = (["index", fa, "-o", img],
+            ["mem", img, str(tmp_path / "r1.fq"), "--device", "cpu"],
+            ["mem", img, str(tmp_path / "r1.fq"), str(tmp_path / "r2.fq"),
+             "--device", "cpu", "--device-stages", "seed,sa_lookup,chain"],
+            ["mem", img, str(tmp_path / "r1.fq"), str(tmp_path / "r2.fq"),
+             "--device", "cpu", "--device-pipeline"])
+    for argv in runs:
+        res = subprocess.run(
+            [sys.executable, "-X", "importtime", "-m", "bwamem_tpu_torch", *argv],
+            cwd=tmp_path, env=env, capture_output=True, text=True, timeout=600)
+        assert res.returncode == 0, res.stderr[-2000:]
+        imported = {ln.rsplit("|", 1)[1].strip() for ln in res.stderr.splitlines()
+                    if ln.startswith("import time:") and "|" in ln}
+        assert "bwamem_tpu_torch.api.index" in imported
+        assert not {m for m in imported
+                    if m.split(".")[0] in ("jax", "jaxlib", "bwamem_tpu")}, argv
+        if argv[0] == "mem":
+            assert "bwamem_tpu_torch.api.sam" in imported
+            assert res.stdout.startswith("@SQ\tSN:g\tLN:30000\n")
 
 
 def _sources():
