@@ -9,7 +9,11 @@ The counterpart of bwamem_tpu/__main__.py, with its flags and its output:
 the fused device path (seeding to regions in the port's kernels);
 ``--no-device-pipeline`` keeps the extension waves on the card and, with
 ``--device-stages``, the seeding, SA walks and chaining; ``--device cpu`` is
-the whole-batch host route.  Every route ends in the aligner's host C++
+the whole-batch host route.  ``--devices N [--idx-shards K]`` aligns over a
+mesh of the first N cards (``parallel.mesh.make_mesh(N, idx_shards=K)``,
+the aligner's ``mesh``): more cards than the machine has, or ``--devices``
+with ``--device cpu``, is an error (exit code 2); no flag builds a virtual
+mesh.  Every route ends in the aligner's host C++
 (the whole-batch call or its tail), whose records become SAM lines through
 ``api.sam.aln2sam``; a read's hash tie-breaks take its ordinal in the
 input stream, so the output does not depend on ``-K`` or ``--shard``.
@@ -178,12 +182,25 @@ def cmd_mem(args) -> int:
         return (r for j, r in enumerate(it) if j % shard_n == shard_i)
 
     stages = tuple(s for s in (args.device_stages or "").split(",") if s)
+    if args.idx_shards is not None and args.devices is None:
+        print(f"{TAG} --idx-shards needs --devices", file=sys.stderr)
+        return 2
+    if args.devices is not None and args.device != "cuda":
+        print(f"{TAG} --devices aligns over a mesh of cards, not on "
+              f"--device {args.device}", file=sys.stderr)
+        return 2
     with TIMERS.stage("cli_open"):
         index = BwaMemIndex(ref)
         try:
-            aligner = BwaMemAligner(index, device=args.device,
+            mesh = None
+            if args.devices is not None:
+                from .parallel.mesh import make_mesh
+
+                mesh = make_mesh(args.devices, idx_shards=args.idx_shards or 1)
+            aligner = BwaMemAligner(index, device=None if mesh else args.device,
                                     device_stages=stages,
-                                    device_pipeline=args.device_pipeline)
+                                    device_pipeline=args.device_pipeline,
+                                    mesh=mesh)
         except (RuntimeError, ValueError) as exc:
             print(f"{TAG} {exc} (--device cpu aligns on the host)",
                   file=sys.stderr)
@@ -299,6 +316,17 @@ def main(argv=None) -> int:
              "(default: on a CUDA device, off on the CPU); "
              "--no-device-pipeline keeps the extension waves and "
              "--device-stages",
+    )
+    p_mem.add_argument(
+        "--devices", type=int, default=None, metavar="N",
+        help="align over a mesh of the first N cards (the aligner's mesh: "
+             "the fused path a sub-batch a card, or with "
+             "--no-device-pipeline the waves and --device-stages split "
+             "over them); more than the machine has is an error",
+    )
+    p_mem.add_argument(
+        "--idx-shards", type=int, default=None, metavar="K",
+        help="the mesh's idx axis (divides --devices)",
     )
     p_mem.add_argument(
         "--shard", default=None, metavar="I/N",

@@ -48,7 +48,7 @@ import torch
 
 from ..engine import native_pipeline
 from ..engine import pair as pair_mod
-from ..engine.exec_ctx import HOST_FALLBACK_JOBS, ExecConfig
+from ..engine.exec_ctx import HOST_FALLBACK_JOBS, ExecConfig, mesh_exec
 from ..engine.finalize import Aln, mark_primary_se, reorder_primary5
 from ..engine.pipeline import (align_regs_batch, align_regs_raw,
                                native_pipeline_ok, native_seed_sa,
@@ -277,12 +277,20 @@ def _with_mates(alns0, alns1):
 
 class BwaMemAligner:
     def __init__(self, index: BwaMemIndex, options: Optional[MemOptions] = None,
-                 *, device="cuda", min_device_jobs: int = HOST_FALLBACK_JOBS,
-                 device_stages=(), device_pipeline: Optional[bool] = None):
+                 *, device=None, min_device_jobs: int = HOST_FALLBACK_JOBS,
+                 device_stages=(), device_pipeline: Optional[bool] = None,
+                 mesh=None):
         """device: where the extension waves run ("cuda", the default,
         "cuda:1", "cpu").  A CUDA device with no card present raises; there
         is no fallback.  ``device="cpu"`` with no ``device_stages`` is the
         whole-batch host route.
+        mesh: a ``parallel.mesh.Mesh`` (``make_mesh``) to align over several
+        devices (``engine.exec_ctx.mesh_exec``): with ``device_pipeline``
+        the fused path runs a sub-batch of reads on each mesh device;
+        otherwise the extension waves are split over the mesh by jobs and
+        the ``device_stages`` by reads.  ``device`` is then the mesh's first
+        device (another raises).  The records are the single-device
+        route's.
         min_device_jobs: waves with fewer jobs run on the host C++.
         device_stages: further stages to run on ``device``, by the JAX
         package's names: "seed" (the three seeding rounds of a batch in the
@@ -301,7 +309,13 @@ class BwaMemAligner:
         unknown = stages - set(DEVICE_STAGES)
         if unknown:
             raise ValueError(f"unknown device stages: {sorted(unknown)}")
-        dev = torch.device(device)
+        if mesh is not None:
+            dev = mesh.flat[0]
+            if device is not None and torch.device(device) != dev:
+                raise ValueError(f"device {device!r} is not the mesh's first "
+                                 f"device {dev}")
+        else:
+            dev = torch.device("cuda" if device is None else device)
         if device_pipeline is None:
             device_pipeline = dev.type == "cuda"
         if dev.type == "cuda" and not torch.cuda.is_available():
@@ -315,11 +329,15 @@ class BwaMemAligner:
         self.options = options.copy() if options else MemOptions()
         self._pe_stats: Optional[BwaMemPairEndStats] = None
         self._open = True
-        self._exec_cfg = ExecConfig(device=dev, min_device_jobs=min_device_jobs,
-                                    device_sa_lookup="sa_lookup" in stages,
-                                    device_seed="seed" in stages,
-                                    device_chain="chain" in stages,
-                                    device_pipeline=bool(device_pipeline))
+        if mesh is not None:
+            self._exec_cfg = mesh_exec(mesh, stages, min_device_jobs,
+                                       bool(device_pipeline))
+        else:
+            self._exec_cfg = ExecConfig(
+                device=dev, min_device_jobs=min_device_jobs,
+                device_sa_lookup="sa_lookup" in stages,
+                device_seed="seed" in stages, device_chain="chain" in stages,
+                device_pipeline=bool(device_pipeline))
 
     # ------------------------------------------------------------ lifecycle
 
@@ -357,18 +375,21 @@ class BwaMemAligner:
     # -------------------------------------------------------------- aligning
 
     def align_seqs(self, sequences: Iterable[T],
-                   func: Callable[[T], bytes] = lambda x: x,
-                   ) -> List[List[BwaMemAlignment]]:
+                   func: Callable[[T], bytes] = lambda x: x, *,
+                   id_base: int = 0) -> List[List[BwaMemAlignment]]:
         """Align a batch; one result list per input sequence
-        (BwaMemAligner.alignSeqs, :181-311)."""
+        (BwaMemAligner.alignSeqs, :181-311).  ``id_base``: the ordinal of
+        the first read (SE) or pair (PE), the input of the hash
+        tie-breaks, for a caller that aligns one shard of a larger batch
+        (``parallel.distributed.align_shard``)."""
         seqs = [func(s) for s in sequences]
-        fast = self._align_seqs_fast(seqs)
+        fast = self._align_seqs_fast(seqs, id_base)
         if fast is not None:
             return fast
-        raw = self.align_seqs_raw(seqs)
+        raw = self._align_codes_raw(seq_to_codes_batch(seqs), id_base)
         return [[_aln_to_record(p, m) for p, m in per_read] for per_read in raw]
 
-    def _align_seqs_fast(self, seqs: List[bytes]):
+    def _align_seqs_fast(self, seqs: List[bytes], id_base: int = 0):
         """Vectorized record assembly over the C++ tail's flat arrays (the
         whole-batch route's or ``bwamem_tail_batch``'s), the same records as
         the Aln path.  Returns None when only the Python tail can serve this
@@ -388,7 +409,8 @@ class BwaMemAligner:
             eng = self._index._require()
             reads = seq_to_codes_batch(seqs)
             with _metrics.batch_scope():
-                arrays = self._native_arrays(eng, opt, reads, is_pe)
+                arrays = self._native_arrays(eng, opt, reads, is_pe,
+                                             id_base=id_base)
                 out = _records_fast(len(reads), *arrays, is_pe=is_pe)
                 _metrics.count("batches")
                 _metrics.count("reads", len(reads))

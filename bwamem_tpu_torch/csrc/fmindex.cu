@@ -34,6 +34,13 @@
 // `line_chase_kernel` measures the floor this leaves: one thread's chain of
 // dependent line fetches, with no decode.
 //
+// The idx-sharded tables (D12; bwamem_tpu/ops/fmindex_tpu.py
+// `make_occ4_sharded`, `_shard_gather`): `occ4_kernel` and
+// `sa_lookup_kernel` are templates of the index form (fmindex.cuh `Fm` or
+// `FmShards`), and the *_sharded launchers run the same bodies with each
+// line and SA fetch taken from the shard that owns it, on the launching
+// card or, through peer access (`bwamem_fm_enable_peer`), another.
+//
 // Errors: a row outside [-1, seq_len] (occ4, bwt_extend) or [0, seq_len]
 // (sa_lookup) sets bit 1 of *err and yields zeros; a walk that has taken
 // seq_len steps without reaching a sample (an inconsistent index) sets
@@ -47,13 +54,15 @@
 namespace {
 
 using bwamem_fm::Fm;
+using bwamem_fm::FmShards;
 
 constexpr int kThreads = 256;
 constexpr int kErrRowRange = 1;
 constexpr int kErrWalkLength = 2;
 
+template <class F>
 __global__ void __launch_bounds__(kThreads) occ4_kernel(
-    Fm fm, const int64_t* __restrict__ ks, int64_t n,
+    F fm, const int64_t* __restrict__ ks, int64_t n,
     int32_t* __restrict__ out,  // [n, 4]
     int32_t* __restrict__ err) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -91,9 +100,9 @@ __global__ void __launch_bounds__(kThreads) extend_kernel(
 // interval is 1 << shift, so a row is sampled when (k & mask) == 0 and its
 // sample is sa[k >> shift]; otherwise the test is k % sa_intv (a 64-bit
 // division a step), which only an index built with another interval takes.
-template <int NV, bool kPow2>
+template <int NV, bool kPow2, class F>
 __global__ void __launch_bounds__(kThreads) sa_lookup_kernel(
-    Fm fm, bwamem_fm::L2Regs l2, const int64_t* __restrict__ sa,
+    F fm, bwamem_fm::L2Regs l2, const int64_t* __restrict__ sa,
     int64_t sa_intv, int shift, const int64_t* __restrict__ ks, int64_t n,
     int64_t* __restrict__ out, int32_t* __restrict__ err) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -116,7 +125,8 @@ __global__ void __launch_bounds__(kThreads) sa_lookup_kernel(
   }
   // sa[0] == -1: a walk through the primary row wraps to row 0, and
   // steps - 1 is then the position (bwa bwt_sa's trick)
-  out[i] = sa[kPow2 ? k >> shift : k / sa_intv] + steps;
+  out[i] = bwamem_fm::sa_sample(fm, sa, kPow2 ? k >> shift : k / sa_intv) +
+           steps;
 }
 
 // Latency of one dependent line fetch: one thread fetches `steps` lines,
@@ -192,7 +202,7 @@ extern "C" int bwamem_fm_occ4_launch(
     const uint32_t* lines, int W, int lg, const int64_t* L2, int64_t primary,
     int64_t seq_len, const int64_t* ks, int64_t n, int32_t* out,
     int32_t* err, cudaStream_t stream) {
-  occ4_kernel<<<blocks(n), kThreads, 0, stream>>>(
+  occ4_kernel<Fm><<<blocks(n), kThreads, 0, stream>>>(
       make_fm(lines, W, lg, L2, primary, seq_len), ks, n, out, err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -210,15 +220,15 @@ extern "C" int bwamem_fm_extend_launch(
 
 namespace {
 
-template <int NV>
-void sa_launch(const Fm& fm, const bwamem_fm::L2Regs& l2, const int64_t* sa,
+template <int NV, class F>
+void sa_launch(const F& fm, const bwamem_fm::L2Regs& l2, const int64_t* sa,
                int64_t sa_intv, int shift, const int64_t* ks, int64_t n,
                int64_t* out, int32_t* err, cudaStream_t stream) {
   if (shift >= 0)
-    sa_lookup_kernel<NV, true><<<blocks(n), kThreads, 0, stream>>>(
+    sa_lookup_kernel<NV, true, F><<<blocks(n), kThreads, 0, stream>>>(
         fm, l2, sa, sa_intv, shift, ks, n, out, err);
   else
-    sa_lookup_kernel<NV, false><<<blocks(n), kThreads, 0, stream>>>(
+    sa_lookup_kernel<NV, false, F><<<blocks(n), kThreads, 0, stream>>>(
         fm, l2, sa, sa_intv, shift, ks, n, out, err);
 }
 
@@ -265,4 +275,63 @@ extern "C" int bwamem_fm_backward_search_launch(
       make_fm(lines, W, lg, L2, primary, seq_len), qseq, L, qlen, B, k_out,
       l_out, matched);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the idx-sharded tables.  line_ptrs / sa_ptrs: host arrays of
+// n_shards device pointers (shard s holds lines [s * bps, (s + 1) * bps)
+// and samples [s * sps, (s + 1) * sps)); the rest as the launchers above.
+// More than kMaxShards shards: cudaErrorInvalidValue, nothing launched.
+
+extern "C" int bwamem_fm_occ4_sharded_launch(
+    const uint64_t* line_ptrs, int n_shards, int64_t bps, int W, int lg,
+    const int64_t* L2, int64_t primary, int64_t seq_len, const int64_t* ks,
+    int64_t n, int32_t* out, int32_t* err, cudaStream_t stream) {
+  FmShards fm;
+  if (!bwamem_fm::make_fm_shards(line_ptrs, nullptr, n_shards, bps, 0, W, lg,
+                                 L2, primary, seq_len, &fm))
+    return static_cast<int>(cudaErrorInvalidValue);
+  occ4_kernel<FmShards><<<blocks(n), kThreads, 0, stream>>>(fm, ks, n, out,
+                                                           err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bwamem_fm_sa_lookup_sharded_launch(
+    const uint64_t* line_ptrs, const uint64_t* sa_ptrs, int n_shards,
+    int64_t bps, int64_t sps, int W, int lg, const int64_t* L2,
+    int64_t primary, int64_t seq_len, int64_t L2_0, int64_t L2_1,
+    int64_t L2_2, int64_t L2_3, int64_t sa_intv, int shift,
+    const int64_t* ks, int64_t n, int64_t* out, int32_t* err,
+    cudaStream_t stream) {
+  FmShards fm;
+  if (!bwamem_fm::make_fm_shards(line_ptrs, sa_ptrs, n_shards, bps, sps, W,
+                                 lg, L2, primary, seq_len, &fm))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bwamem_fm::L2Regs l2{L2_0, L2_1, L2_2, L2_3};
+  switch (W) {
+    case 12: sa_launch<3>(fm, l2, nullptr, sa_intv, shift, ks, n, out, err, stream); break;
+    case 20: sa_launch<5>(fm, l2, nullptr, sa_intv, shift, ks, n, out, err, stream); break;
+    case 36: sa_launch<9>(fm, l2, nullptr, sa_intv, shift, ks, n, out, err, stream); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Lets `dev` load `peer`'s memory (a shard on another card).  0 when it
+// can (already enabled included), else the CUDA error; never copies.
+extern "C" int bwamem_fm_enable_peer(int dev, int peer) {
+  if (dev == peer) return 0;
+  int ok = 0;
+  cudaError_t rc = cudaDeviceCanAccessPeer(&ok, dev, peer);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (!ok) return static_cast<int>(cudaErrorPeerAccessUnsupported);
+  int cur = 0;
+  cudaGetDevice(&cur);
+  cudaSetDevice(dev);
+  rc = cudaDeviceEnablePeerAccess(peer, 0);
+  cudaSetDevice(cur);
+  if (rc == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // clear the sticky-free error state
+    return 0;
+  }
+  return static_cast<int>(rc);
 }

@@ -12,6 +12,19 @@
 // occ offset of row k is k - (k >= primary) and its BWT char sits at
 // k - (k > primary); the two agree for every k but `primary`, whose LF
 // step is row 0, so one line fetch serves the char and the count.
+//
+// Two forms of the index, a template parameter of every function and
+// kernel that reads it (class F): `Fm`, one line table and one sampled SA,
+// and `FmShards`, the idx-sharded tables of bwamem_tpu/ops/fmindex_tpu.py
+// `sharded_tables` (D12): shard s holds the lines [s * blocks_per_shard,
+// (s + 1) * blocks_per_shard) and the SA samples [s * sa_per_shard, ...)
+// as separate allocations, on one card or several (peer access).  A fetch
+// takes its row from the shard that owns it, so the result is the
+// unsharded one bit for bit; the JAX package's gather-and-psum merge is a
+// TPU workaround (a program cannot load another chip's memory) and is not
+// carried over.  The shard's pointer is picked by selects from kernel
+// arguments and its index by compares with each shard's first row, so
+// `Fm`'s instantiation is the unsharded code as it was.
 
 #pragma once
 
@@ -28,16 +41,101 @@ struct Fm {
   int64_t seq_len;
   int W;   // u32 per line: 4 + span / 16
   int lg;  // log2(span)
+
+  __device__ __forceinline__ const uint32_t* line(int64_t li) const {
+    return lines + li * W;
+  }
 };
+
+constexpr int kMaxShards = 8;
+
+struct FmShards {
+  const uint32_t* lines[kMaxShards];  // shard s: lines [s * bps, (s+1) * bps)
+  const int64_t* sa[kMaxShards];      // shard s: samples [s * sps, ...)
+  const int64_t* __restrict__ L2;     // [5]
+  int64_t primary;
+  int64_t seq_len;
+  int W;
+  int lg;
+  int n_shards;
+  int64_t bps;  // blocks (lines) a shard
+  int64_t sps;  // SA samples a shard
+  // the first line and sample of each shard (INT64_MAX past n_shards)
+  int64_t line0[kMaxShards];
+  int64_t sa0[kMaxShards];
+
+  // the shard that owns item i of a table whose shards start at `first`
+  __device__ __forceinline__ int owner(int64_t i,
+                                       const int64_t (&first)[kMaxShards]) const {
+    int s = 0;
+#pragma unroll
+    for (int j = 1; j < kMaxShards; ++j) s += i >= first[j];
+    return s;
+  }
+  template <class T>
+  __device__ __forceinline__ const T* pick(const T* const (&p)[kMaxShards],
+                                           int s) const {
+    const T* x = p[0];
+#pragma unroll
+    for (int j = 1; j < kMaxShards; ++j) x = s == j ? p[j] : x;
+    return x;
+  }
+  __device__ __forceinline__ const uint32_t* line(int64_t li) const {
+    const int s = owner(li, line0);
+    return pick(lines, s) + (li - s * bps) * W;
+  }
+  __device__ __forceinline__ int64_t sa_at(int64_t i) const {
+    const int s = owner(i, sa0);
+    return __ldg(pick(sa, s) + (i - s * sps));
+  }
+};
+
+// The shard table of the launchers: n_shards (1..kMaxShards) pointers to
+// each shard's lines and, when sa_ptrs is not null, its SA samples.
+// Returns false for a shard count out of range.
+inline bool make_fm_shards(const uint64_t* line_ptrs, const uint64_t* sa_ptrs,
+                           int n_shards, int64_t bps, int64_t sps, int W,
+                           int lg, const int64_t* L2, int64_t primary,
+                           int64_t seq_len, FmShards* fm) {
+  if (n_shards < 1 || n_shards > kMaxShards) return false;
+  for (int s = 0; s < kMaxShards; ++s) {
+    const int t = s < n_shards ? s : n_shards - 1;
+    fm->lines[s] = reinterpret_cast<const uint32_t*>(line_ptrs[t]);
+    fm->sa[s] = sa_ptrs ? reinterpret_cast<const int64_t*>(sa_ptrs[t])
+                        : nullptr;
+    fm->line0[s] = s < n_shards ? s * bps : INT64_MAX;
+    fm->sa0[s] = s < n_shards ? s * sps : INT64_MAX;
+  }
+  fm->L2 = L2;
+  fm->primary = primary;
+  fm->seq_len = seq_len;
+  fm->W = W;
+  fm->lg = lg;
+  fm->n_shards = n_shards;
+  fm->bps = bps;
+  fm->sps = sps;
+  return true;
+}
+
+// SA sample i: sa[i] for the one table, the owning shard's otherwise.
+__device__ __forceinline__ int64_t sa_sample(const Fm&, const int64_t* sa,
+                                             int64_t i) {
+  return sa[i];
+}
+__device__ __forceinline__ int64_t sa_sample(const FmShards& fm,
+                                             const int64_t*, int64_t i) {
+  return fm.sa_at(i);
+}
 
 // The line holding row k, and the chars of it counted through k
 // (inclusive).  k = -1 reads line 0, which the callers mask.
-__device__ __forceinline__ const uint32_t* fm_line(const Fm& fm, int64_t k,
+template <class F>
+__device__ __forceinline__ const uint32_t* fm_line(const F& fm, int64_t k,
                                                    int* within) {
   int64_t kk = k - (k >= fm.primary);
   if (kk < 0) kk = 0;
   *within = static_cast<int>(kk & ((int64_t{1} << fm.lg) - 1)) + 1;
-  return fm.lines + (kk >> fm.lg) * fm.W;
+  return fm.line(kk >> fm.lg);
 }
 
 // The low bit of each of word w's chars that fall among the first nchars
@@ -68,7 +166,8 @@ __device__ __forceinline__ void count4(const uint32_t* words, int nchars,
 
 // bwa bwt_occ4: counts of each symbol among conceptual chars [0..k];
 // k == -1 -> 0, k == seq_len -> the full counts.
-__device__ __forceinline__ void occ4(const Fm& fm, int64_t k, int cnt[4]) {
+template <class F>
+__device__ __forceinline__ void occ4(const F& fm, int64_t k, int cnt[4]) {
   if (k == fm.seq_len) {
     for (int c = 0; c < 4; ++c)
       cnt[c] = static_cast<int>(fm.L2[c + 1] - fm.L2[c]);
@@ -120,11 +219,25 @@ __device__ __forceinline__ void fetch_line(const uint32_t* __restrict__ lines,
   for (int j = 0; j < NV; ++j) v[j] = __ldg(p + j);
 }
 
+// Line li of the index as NV vectors: `fetch_line` on the one table, on
+// the owning shard's otherwise.
+template <int NV>
+__device__ __forceinline__ void fetch_fm_line(const Fm& fm, int64_t li,
+                                              uint4 (&v)[NV]) {
+  fetch_line<NV>(fm.lines, li, v);
+}
+template <int NV>
+__device__ __forceinline__ void fetch_fm_line(const FmShards& fm, int64_t li,
+                                              uint4 (&v)[NV]) {
+  const int s = fm.owner(li, fm.line0);
+  fetch_line<NV>(fm.pick(fm.lines, s), li - s * fm.bps, v);
+}
+
 // One LF step (bwa bwt_invPsi) on lines of NV vectors.  Row k lies in
 // [0, seq_len]; the primary row steps to row 0.  The within-line offsets
 // are 32-bit; k and the line index stay 64-bit (genomes pass 2^31 rows).
-template <int NV>
-__device__ __forceinline__ int64_t lf_line(const Fm& fm, const L2Regs& l2,
+template <int NV, class F>
+__device__ __forceinline__ int64_t lf_line(const F& fm, const L2Regs& l2,
                                            int64_t k) {
   constexpr int kWords = 4 * (NV - 1);
   constexpr int kSpan = 16 * kWords;
@@ -133,7 +246,7 @@ __device__ __forceinline__ int64_t lf_line(const Fm& fm, const L2Regs& l2,
   int64_t kk = k - (k >= fm.primary);
   kk = kk < 0 ? 0 : kk;
   uint4 v[NV];
-  fetch_line<NV>(fm.lines, kk >> kLg, v);
+  fetch_fm_line<NV>(fm, kk >> kLg, v);
   const int pos = static_cast<int>(kk) & (kSpan - 1);  // the char's offset
   uint32_t w[kWords];
 #pragma unroll
@@ -169,7 +282,8 @@ __device__ __forceinline__ int64_t lf_line(const Fm& fm, const L2Regs& l2,
 // forward: ox0, ox1 and sz indexed by queried-space symbol, as the host
 // oracle's FMIndex.extend.  Two rank queries, one line each.  Returns
 // false (and counts of 0) when a queried row lies outside [-1, seq_len].
-__device__ __forceinline__ bool bwt_extend(const Fm& fm, int64_t x0,
+template <class F>
+__device__ __forceinline__ bool bwt_extend(const F& fm, int64_t x0,
                                            int64_t x1, int64_t s,
                                            bool is_back, int64_t ox0[4],
                                            int64_t ox1[4], int sz[4]) {
@@ -215,7 +329,8 @@ __device__ __forceinline__ void count4_packed(uint32_t x, uint32_t keep,
 // lane reads the two lines' four counts (broadcasts), so the query costs
 // one memory latency instead of two chains of word loads.  The per-lane
 // counts are packed two to a u32 and summed by four warp reductions.
-__device__ __forceinline__ bool bwt_extend_warp(const Fm& fm, int64_t x0,
+template <class F>
+__device__ __forceinline__ bool bwt_extend_warp(const F& fm, int64_t x0,
                                                 int64_t x1, int64_t s,
                                                 bool is_back, int64_t ox0[4],
                                                 int64_t ox1[4], int sz[4]) {

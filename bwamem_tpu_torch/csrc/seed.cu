@@ -54,6 +54,11 @@
 // no read of up to kMaxK bases overflows K: a call snapshots at most one
 // interval per base forward and emits at most one SMEM per base backward.
 // Errors: a rank query outside the index sets bit 1 of *err.
+//
+// The idx-sharded tables (D12): the device functions and
+// `collect_intv_kernel` are templates of the index form (fmindex.cuh `Fm`
+// or `FmShards`); `bwamem_seed_collect_intv_sharded_launch` runs the three
+// rounds with every line fetch taken from the shard that owns it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -63,6 +68,7 @@
 namespace {
 
 using bwamem_fm::Fm;
+using bwamem_fm::FmShards;
 
 constexpr int kMaxK = 160;  // K_MAX: snapshots / SMEMs per smem1a call
 constexpr int kMaxM = 48;   // M_SLOTS: the accumulator's size
@@ -89,7 +95,8 @@ struct Work {     // what a read's seeding cost
 };
 
 // bwa bwt_set_intv: the bi-interval of one symbol.
-__device__ __forceinline__ Intv set_intv(const Fm& fm, int c, int info) {
+template <class F>
+__device__ __forceinline__ Intv set_intv(const F& fm, int c, int info) {
   return Intv{fm.L2[c] + 1, fm.L2[3 - c] + 1,
               static_cast<int32_t>(fm.L2[c + 1] - fm.L2[c]), info};
 }
@@ -111,7 +118,8 @@ __device__ __forceinline__ T at4(const T a[4], int c) {
 // whichever lane extended them, as the scalar walk counts them) and the
 // slots needed.  buf_a, buf_b [K] and mems [K] are the warp's shared
 // memory; every value returned is warp-uniform.
-__device__ int smem1a_warp(const Fm& fm, const uint8_t* q, int len, int x,
+template <class F>
+__device__ int smem1a_warp(const F& fm, const uint8_t* q, int len, int x,
                            int64_t min_intv, int K, Intv* buf_a, Intv* buf_b,
                            Mem* mems, int* m_cnt, bool* ovf, int* err,
                            Work* wk) {
@@ -239,7 +247,8 @@ __device__ int smem1a_warp(const Fm& fm, const uint8_t* q, int len, int x,
 // max_intv with length >= min_len.  Returns whether one was found (into
 // *hit, qb = x); *nxt is the next start: i + 1 on a hit or an ambiguous
 // base at i, len at the end.  wk counts the bwt_extend calls.
-__device__ bool strategy1_warp(const Fm& fm, const uint8_t* q, int len, int x,
+template <class F>
+__device__ bool strategy1_warp(const F& fm, const uint8_t* q, int len, int x,
                                int min_len, int64_t max_intv, Mem* hit,
                                int* nxt, int* err, Work* wk) {
   *nxt = x + 1;
@@ -384,8 +393,9 @@ struct SeedOpts {
 // flagged it (0 nothing, 1 the K budget of an smem1a call, 2 the M-slot
 // accumulator) and the most K slots one of its smem1a calls needed (a lower
 // bound when the K budget flagged it).
+template <class F>
 __global__ void __launch_bounds__(kSeedThreads) collect_intv_kernel(
-    Fm fm, const uint8_t* __restrict__ qseq, int L,
+    F fm, const uint8_t* __restrict__ qseq, int L,
     const int32_t* __restrict__ qlen, int B, SeedOpts opt,
     int64_t* __restrict__ rows, int32_t* __restrict__ n_out,
     int32_t* __restrict__ ovf_out, int64_t* __restrict__ nks_out,
@@ -645,9 +655,9 @@ extern "C" int bwamem_seed_collect_intv_launch(
   const SeedOpts opt{min_seed_len, split_len, M, K, split_width, max_mem_intv,
                      max_occ};
   const size_t smem = kSeedWarps * warp_bytes(K, M);
-  const cudaError_t rc = allow_smem(collect_intv_kernel, smem);
+  const cudaError_t rc = allow_smem(collect_intv_kernel<Fm>, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  collect_intv_kernel<<<seed_blocks(B), kSeedThreads, smem, stream>>>(
+  collect_intv_kernel<Fm><<<seed_blocks(B), kSeedThreads, smem, stream>>>(
       make_fm(lines, W, lg, L2, primary, seq_len), qseq, L, qlen, B, opt,
       rows, n, ovf, nks, work, err);
   return static_cast<int>(cudaGetLastError());
@@ -658,9 +668,9 @@ extern "C" int bwamem_seed_collect_intv_launch(
 extern "C" int bwamem_seed_collect_intv_warps_per_sm(int K, int M) {
   const size_t smem = kSeedWarps * warp_bytes(K, M);
   int per_sm = 0;
-  if (allow_smem(collect_intv_kernel, smem) != cudaSuccess ||
+  if (allow_smem(collect_intv_kernel<Fm>, smem) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, collect_intv_kernel, kSeedThreads, smem) != cudaSuccess)
+          &per_sm, collect_intv_kernel<Fm>, kSeedThreads, smem) != cudaSuccess)
     return -1;
   return per_sm * kSeedWarps;
 }
@@ -674,5 +684,31 @@ extern "C" int bwamem_seed_sample_ks_launch(
                                            kSampleWarps),
                      kSampleThreads, 0, stream>>>(rows, M, nrows, row_off,
                                                   ks_off, B, max_occ, flat, ks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// collect_intv on the idx-sharded tables: line_ptrs is a host array of
+// n_shards device pointers, shard s holding lines [s * bps, (s + 1) * bps);
+// the rest as bwamem_seed_collect_intv_launch.
+extern "C" int bwamem_seed_collect_intv_sharded_launch(
+    const uint64_t* line_ptrs, int n_shards, int64_t bps, int W, int lg,
+    const int64_t* L2, int64_t primary, int64_t seq_len, const uint8_t* qseq,
+    int L, const int32_t* qlen, int B, int min_seed_len, int split_len,
+    int64_t split_width, int64_t max_mem_intv, int64_t max_occ, int M, int K,
+    int64_t* rows, int32_t* n, int32_t* ovf, int64_t* nks, int32_t* work,
+    int32_t* err, cudaStream_t stream) {
+  FmShards fm;
+  if (M < 1 || M > kMaxM || K < 1 || K > kMaxK ||
+      !bwamem_fm::make_fm_shards(line_ptrs, nullptr, n_shards, bps, 0, W, lg,
+                                 L2, primary, seq_len, &fm))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SeedOpts opt{min_seed_len, split_len, M, K, split_width, max_mem_intv,
+                     max_occ};
+  const size_t smem = kSeedWarps * warp_bytes(K, M);
+  const cudaError_t rc = allow_smem(collect_intv_kernel<FmShards>, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  collect_intv_kernel<FmShards>
+      <<<seed_blocks(B), kSeedThreads, smem, stream>>>(
+          fm, qseq, L, qlen, B, opt, rows, n, ovf, nks, work, err);
   return static_cast<int>(cudaGetLastError());
 }

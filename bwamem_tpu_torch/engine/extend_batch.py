@@ -6,8 +6,10 @@ banded extensions run as one batch.  Per-read seed order, contained-seed
 pruning (``_prune``) and band-doubling retries are the reference's; the
 wave runner and the two functions that call it are the port's own.  A wave of at least
 ``exec_cfg.min_device_jobs`` jobs goes to the device kernel
-(``ops.extend.ksw_extend_batch_np``), a smaller one to the host C++
-``native_ksw`` (or the Python oracle without it).
+(``ops.extend.ksw_extend_batch_np``; with ``exec_cfg.mesh``,
+``ksw_extend_batch_mesh``, the jobs split over the mesh's devices), a
+smaller one to the host C++ ``native_ksw`` (or the Python oracle without
+it).
 """
 from __future__ import annotations
 
@@ -21,10 +23,12 @@ from ..api.options import MemOptions
 from ..ops import extend as ext
 from ..ops.extend import ksw_extend_batch_np
 from ..utils import metrics as _metrics
+from ..utils.cudabuild import tally
 from . import exec_ctx, native_ksw
 from .chain import Chain
 from .exec_ctx import ExecConfig
 from .extend import MAX_BAND_TRY, AlnReg, ksw_extend2
+from ..parallel.mesh import replicate
 from .state import device_scoring
 
 
@@ -206,11 +210,12 @@ def _run_kernel(opt, jobs, bonuses, ws, h0s, exec_cfg: ExecConfig, scoring):
         STATS.host_extend_jobs += n
         STATS.host_wave_seconds += time.perf_counter() - t0
         return out
-    scalar = ext.SCALAR_JOBS
-    out = ksw_extend_batch_np(
-        [q for q, _ in jobs], [t for _, t in jobs], scoring, h0s, ws, bonuses,
-    )
-    STATS.device_scalar_jobs += ext.SCALAR_JOBS - scalar
+    scalar = tally()["extend_scalar"]
+    run = ext.ksw_extend_batch_mesh if exec_cfg.mesh is not None else \
+        ksw_extend_batch_np
+    out = run([q for q, _ in jobs], [t for _, t in jobs], scoring, list(h0s),
+              list(ws), list(bonuses))
+    STATS.device_scalar_jobs += tally()["extend_scalar"] - scalar
     _metrics.count("device_extend_waves")
     _metrics.count("device_extend_jobs", n)
     STATS.device_extend_waves += 1
@@ -287,8 +292,12 @@ def _extend_side(opt, pend, side: str, exec_cfg: ExecConfig, scoring):
 def chain2aln_batch(opt, idx, reads: List[np.ndarray], chains_list,
                     exec_cfg: ExecConfig) -> List[List[AlnReg]]:
     """Extend every read's chains; regions per read, identical to the
-    reference's sequential chain2aln loop."""
-    scoring = device_scoring(opt, exec_cfg.device)
+    reference's sequential chain2aln loop.  With ``exec_cfg.mesh`` each
+    device wave is split over the mesh (one scoring a mesh device)."""
+    if exec_cfg.mesh is not None:
+        scoring = replicate(exec_cfg.mesh, device_scoring, opt)
+    else:
+        scoring = device_scoring(opt, exec_cfg.device)
     states = [
         _prep_read(opt, idx, q, chains) for q, chains in zip(reads, chains_list)
     ]

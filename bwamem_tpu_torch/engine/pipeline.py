@@ -26,6 +26,14 @@ by ``exec_cfg``, on the port's device:
   region rows come back, no extension wave runs), whatever the three
   switches above say.
 
+With ``exec_cfg.mesh`` (``exec_ctx.mesh_exec``) the batch's reads are split
+in contiguous sub-batches, one a mesh device, and each runs the stages
+above on its device in its own thread (``parallel.mesh.run_shards``):
+seeding, the walks of its reads' SA rows and the chaining, or the whole
+fused path; the extension waves are split over the mesh by jobs
+(``extend_batch``).  Every stage's result for a read depends on that read
+alone, so the merged chains and region rows are the single-device route's.
+
 A read that overflows a stage's budget takes that stage on the host (the
 reference's rule) and is spliced in read order; there is no other fallback
 from the device: a failed build, launch or kernel flag raises.  The record
@@ -45,6 +53,7 @@ import torch
 from ..api.options import MEM_F_ALL, MEM_F_NO_MULTI, MemOptions
 from ..ops import chain as chainops
 from ..ops import fmindex as fmops
+from ..utils.cudabuild import tally
 from ..utils.timers import TIMERS
 from . import exec_ctx, native_chain, native_fm
 from .chain import chain_flt, flt_chained_seeds, mem_chain
@@ -283,11 +292,11 @@ def _chains_device(opt, eng, reads, exec_cfg: ExecConfig):
     qlens = np.asarray([len(r) for r in reads], dtype=np.int32)
     tab, host, host_tab, _ = _device_table(opt, eng, reads, qlens, exec_cfg)
     with TIMERS.stage("chain"):
-        before = sum(chainops.LAUNCHES.values())
+        before = tally()["chain"]
         chains_list, (ovf, seed_cnt, nslots) = chainops.chains_device_batch(
             device_contigs(eng.idx.bns, exec_cfg.device), tab,
             chainops.ChainParams.from_opt(opt))
-        CHAIN_STATS.launches += sum(chainops.LAUNCHES.values()) - before
+        CHAIN_STATS.launches += tally()["chain"] - before
         if exec_ctx.KEEP_LARGEST and (
                 CHAIN_STATS.largest_table is None
                 or tab.rbegs.numel() > CHAIN_STATS.largest_table.rbegs.numel()):
@@ -314,9 +323,28 @@ def _chains_device(opt, eng, reads, exec_cfg: ExecConfig):
     return chains_list
 
 
+def by_reads(fn, reads, exec_cfg: ExecConfig):
+    """``fn(sub_batch, shard_config)`` on the reads of each mesh device's
+    contiguous shard, one thread a shard (``parallel.mesh.run_shards``):
+    the per-shard results in read order."""
+    from ..parallel.mesh import run_shards, shards
+
+    work = [(d, reads[lo:hi]) for d, lo, hi in shards(exec_cfg.mesh, len(reads))]
+    return run_shards(lambda d, sub: fn(sub, exec_cfg.on(d)), work)
+
+
 def _chains(opt, eng, reads, exec_cfg: ExecConfig):
     """Seeding, SA walks, mem_chain + chain_flt and mem_flt_chained_seeds:
-    per read its chains."""
+    per read its chains.  With a mesh and a device stage, each mesh
+    device's sub-batch in its own thread (``by_reads``), timed as the one
+    stage ``mesh_chains``."""
+    if exec_cfg.mesh is not None and (exec_cfg.device_seed
+                                      or exec_cfg.device_sa_lookup
+                                      or exec_cfg.device_chain):
+        with TIMERS.stage("mesh_chains"), TIMERS.paused():
+            parts = by_reads(lambda sub, cfg: _chains(opt, eng, sub, cfg),
+                             reads, exec_cfg)
+        return [c for part in parts for c in part]
     if exec_cfg.device_chain:
         chains_list = _chains_device(opt, eng, reads, exec_cfg)
     else:

@@ -42,13 +42,14 @@ from ..api.options import MemOptions
 from ..ops import chain as chainops
 from ..ops import pipeline_fused as fusedops
 from ..utils import metrics as _metrics
+from ..utils.cudabuild import tally
 from . import exec_ctx
 from .chain import (MEM_HSP_COEF, MEM_MINSC_COEF, MEM_SEEDSW_COEF,
                     flt_chained_seeds)
 from .exec_ctx import ExecConfig
 from .extend import AlnReg
 from .extend_batch import chain2aln_batch
-from .pipeline import (_device_table, _host_chains, gather_reads,
+from .pipeline import (_device_table, _host_chains, by_reads, gather_reads,
                        regs_from_rows, regs_to_rows)
 from .state import device_contigs, device_ref, device_scoring
 
@@ -167,14 +168,25 @@ def regs_batch_fused(opt: MemOptions, eng, reads: List[np.ndarray],
 
 
 def regs_rows_fused(opt: MemOptions, eng, reads: List[np.ndarray],
-                    exec_cfg: ExecConfig):
+                    exec_cfg: ExecConfig, longest: int = 0):
     """The regions before dedup of the batch by the fused device path, as
     (rows [Nr, 11] int64, n_reg [len] int64) in ``regs_to_rows``'s layout;
     the columns are put in that order on the device, before the one copy
-    back."""
+    back.  With ``exec_cfg.mesh``, a sub-batch of reads a mesh device, each
+    in its own thread (``pipeline.by_reads``), their rows concatenated;
+    ``longest`` (the whole batch's longest read, when this is a shard of
+    it) sets the JAX package's window budget that ``ref_t_overflows``
+    counts against."""
     n = len(reads)
     if n == 0:
         return np.zeros((0, 11), dtype=np.int64), np.zeros(0, dtype=np.int64)
+    if exec_cfg.mesh is not None:
+        top = max(len(r) for r in reads)
+        parts = by_reads(lambda sub, cfg: regs_rows_fused(opt, eng, sub, cfg,
+                                                          top),
+                         reads, exec_cfg)
+        return (np.concatenate([r for r, _ in parts]),
+                np.concatenate([k for _, k in parts]))
     st = FUSED_STATS
     dev = exec_cfg.device
     _metrics.count("device_fused_pipeline_batches")
@@ -185,7 +197,7 @@ def regs_rows_fused(opt: MemOptions, eng, reads: List[np.ndarray],
     t0 = clock()
     tab, host, host_tab, seeds = _device_table(opt, eng, reads, qlens, cfg)
     t1 = clock()
-    before = sum(chainops.LAUNCHES.values()) + sum(fusedops.LAUNCHES.values())
+    before = tally()["chain"] + tally()["chain2aln"]
     ctg = device_contigs(eng.idx.bns, dev)
     chains = chainops.chain(ctg, tab, chainops.ChainParams.from_opt(opt))
     t2 = clock()
@@ -195,15 +207,14 @@ def regs_rows_fused(opt: MemOptions, eng, reads: List[np.ndarray],
     run = torch.from_numpy(fcs_ok & fits & ~seeds.on_host).to(dev) & ~chains.ovf
     args = (ctg, device_ref(eng.idx, dev), chains, seeds.qseq, seeds.qlen, run,
             fusedops.ExtendParams.from_opt(opt), device_scoring(opt, dev).mat,
-            ref_t_cap(opt, int(qlens.max())))
+            ref_t_cap(opt, max(int(qlens.max()), longest)))
     regs = fusedops.chain2aln(*args)
     rows = regs.compact()[:, list(ROW_ORDER)]
     flat = torch.cat([regs.nregs.long(), chains.ovf.long(), chains.seed_cnt,
                       chains.nslots.long(), regs.work[:, :4].t().reshape(-1),
                       rows.reshape(-1)]).cpu().numpy()
     t3 = clock()
-    st.launches += (sum(chainops.LAUNCHES.values())
-                    + sum(fusedops.LAUNCHES.values()) - before)
+    st.launches += tally()["chain"] + tally()["chain2aln"] - before
     if exec_ctx.KEEP_LARGEST and (
             st.largest_batch is None
             or chains.seed_rows.shape[0] > st.largest_batch[2].seed_rows.shape[0]):

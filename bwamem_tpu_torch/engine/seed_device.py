@@ -38,6 +38,7 @@ import torch
 from ..ops import fmindex as fmops
 from ..ops import seed as seedops
 from ..utils import metrics as _metrics
+from ..utils.cudabuild import tally
 from . import native_fm
 from .seed_batch import collect_intv_batch
 from .state import device_fm
@@ -126,7 +127,7 @@ def seed_batch(opt, fm, reads: List[np.ndarray], device,
                            *seedops.pad_reads([], dfm.device))
     qseq, qlen = seedops.pad_reads(reads, dfm.device)
     _metrics.count("device_seed_fused_batches")
-    before = sum(seedops.LAUNCHES.values())
+    before = tally()["seed"]
     work = torch.zeros((len(reads), 5), dtype=torch.int32, device=dfm.device)
     out = seedops.seed_sa(dfm, qseq, qlen, seedops.SeedParams.from_opt(opt),
                           K=K, work=work)
@@ -137,7 +138,7 @@ def seed_batch(opt, fm, reads: List[np.ndarray], device,
     B = len(reads)
     meta = torch.cat([iv.n.long(), iv.ovf.long(), counts]).cpu().numpy()
     n_dev, on_host, calls = meta[:B], meta[B: 2 * B] != 0, meta[2 * B:].tolist()
-    SEED_STATS.launches += sum(seedops.LAUNCHES.values()) - before
+    SEED_STATS.launches += tally()["seed"] - before
     SEED_STATS.smem1a_calls += calls[0]
     SEED_STATS.strategy1_calls += calls[1]
     SEED_STATS.extend_calls += calls[2]

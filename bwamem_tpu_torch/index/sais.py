@@ -9,12 +9,16 @@ Strategy here:
     Robust, pure-Python, fine up to tens of Mbp.
   * ``suffix_array_native``  — C++ SA-IS (index/native/sais.cpp via ctypes),
     linear time, for chromosome/genome scale.
-``suffix_array`` picks the native constructor when available.
+``suffix_array`` picks the native constructor when available, and with
+``BWAMEM_TPU_DEVICE_SA=1`` (the JAX package's switch) the device builder
+``ops.sa.suffix_array_device`` on the card, which raises without one.
 
 The returned SA is over ``codes + [sentinel]`` where the sentinel is strictly
 smaller than every symbol; length n+1 with SA[0] == n.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -56,8 +60,15 @@ def suffix_array_numpy(codes: np.ndarray) -> np.ndarray:
 
 
 def suffix_array(codes: np.ndarray) -> np.ndarray:
-    """SA of codes+sentinel. Uses the C++ SA-IS when available."""
+    """SA of codes+sentinel. Uses the C++ SA-IS when available.
+
+    BWAMEM_TPU_DEVICE_SA=1 builds it on the card by prefix doubling
+    (ops/sa.py); there is no host fallback when the card is missing."""
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    if os.environ.get("BWAMEM_TPU_DEVICE_SA") == "1":
+        from ..ops.sa import suffix_array_device
+
+        return suffix_array_device(codes, "cuda")
     if native_sais.available():
         return native_sais.suffix_array(codes)
     return suffix_array_numpy(codes)

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..engine.chain import Chain, Seed
+from ..utils.cudabuild import on_device, stream, tally
 
 C_MAX = 128  # csrc/chain.cu kMaxC; chain_tpu._C_BUCKETS[-1]
 # the JAX package's per-batch buckets (chain_tpu._S_BUCKETS/_C_BUCKETS)
@@ -414,10 +415,7 @@ def _launched(name: str, rc: int):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
-
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    tally()["chain"] += 1
 
 
 def _table_args(ctg: DeviceContigs, tab: SeedTable, seed_off):
@@ -448,20 +446,22 @@ def chain_launch(ctg, tab, seed_off, params: ChainParams, C, order, assign,
     float64, ``ovf``, ``nslots`` int32 [B]; scratch ``assign``,
     ``slot_dst`` int32 [T] and ``crec`` int32 [T, 5] for the emit pass."""
     nxt = torch.empty(1, dtype=torch.int32, device=ctg.device)
-    _launched("chain", _lib().bwamem_chain_launch(
-        *_table_args(ctg, tab, seed_off), params.w, params.max_chain_gap,
-        params.min_chain_weight, params.min_seed_len, params.max_chain_extend,
-        params.max_occ, params.mask_level, params.drop_ratio, C,
-        order.data_ptr(), nxt.data_ptr(), assign.data_ptr(),
-        slot_dst.data_ptr(), crec.data_ptr(), n_chain.data_ptr(),
-        n_seed.data_ptr(), frac.data_ptr(), ovf.data_ptr(), nslots.data_ptr(),
-        err.data_ptr(), _stream(ctg.device)))
+    with on_device(ctg.device):
+        _launched("chain", _lib().bwamem_chain_launch(
+            *_table_args(ctg, tab, seed_off), params.w, params.max_chain_gap,
+            params.min_chain_weight, params.min_seed_len, params.max_chain_extend,
+            params.max_occ, params.mask_level, params.drop_ratio, C,
+            order.data_ptr(), nxt.data_ptr(), assign.data_ptr(),
+            slot_dst.data_ptr(), crec.data_ptr(), n_chain.data_ptr(),
+            n_seed.data_ptr(), frac.data_ptr(), ovf.data_ptr(), nslots.data_ptr(),
+            err.data_ptr(), stream(ctg.device)))
 
 
-def warps_per_sm() -> int:
-    """Warps of ``chain_kernel`` resident on one SM (the CUDA occupancy
-    calculator's figure); -1 on error."""
-    return int(_lib().bwamem_chain_warps_per_sm())
+def warps_per_sm(device="cuda") -> int:
+    """Warps of ``chain_kernel`` resident on one SM of ``device`` (the CUDA
+    occupancy calculator's figure); -1 on error."""
+    with on_device(device):
+        return int(_lib().bwamem_chain_warps_per_sm())
 
 
 def chain_emit_launch(ctg, tab, seed_off, order, assign, slot_dst, crec,
@@ -477,12 +477,13 @@ def chain_emit_launch(ctg, tab, seed_off, order, assign, slot_dst, crec,
         if t.data_ptr() % 16:
             raise ValueError("the emit pass's outputs must be 16-byte aligned")
     nxt = torch.empty(1, dtype=torch.int32, device=ctg.device)
-    _launched("chain_emit", _lib().bwamem_chain_emit_launch(
-        *_table_args(ctg, tab, seed_off), order.data_ptr(), nxt.data_ptr(),
-        assign.data_ptr(), slot_dst.data_ptr(), crec.data_ptr(),
-        n_chain.data_ptr(), frac.data_ptr(), chain_off.data_ptr(),
-        seed_dst.data_ptr(), chain_rows.data_ptr(), seed_rows.data_ptr(),
-        _stream(ctg.device)))
+    with on_device(ctg.device):
+        _launched("chain_emit", _lib().bwamem_chain_emit_launch(
+            *_table_args(ctg, tab, seed_off), order.data_ptr(), nxt.data_ptr(),
+            assign.data_ptr(), slot_dst.data_ptr(), crec.data_ptr(),
+            n_chain.data_ptr(), frac.data_ptr(), chain_off.data_ptr(),
+            seed_dst.data_ptr(), chain_rows.data_ptr(), seed_rows.data_ptr(),
+            stream(ctg.device)))
 
 
 def prepare(ctg: DeviceContigs, tab: SeedTable):

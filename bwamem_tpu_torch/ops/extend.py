@@ -11,7 +11,8 @@ The counterpart of bwamem_tpu/ops/extend_tpu.py and ops/extend_pallas.py:
 * ``ksw_extend`` dispatches on the device of its inputs: CPU tensors go to
   the plain version, CUDA tensors to the kernel.
 * ``ksw_extend_batch_np`` is the entry of each extension wave: numpy
-  jobs in, one dict of results per job out.
+  jobs in, one dict of results per job out; ``ksw_extend_batch_mesh``
+  splits a wave's jobs over the devices of a mesh.
 
 All take the JAX package's public layout: ``qseq [B, Q]`` and ``tseq [B, T]``
 codes 0-4, per-job ``[B]`` int32 ``qlen, tlen, h0, w, end_bonus``, a ``[5, 5]``
@@ -21,12 +22,13 @@ int32 matrix, and return six ``[B]`` int32 results keyed like
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..engine.state import DeviceScoring
+from ..utils.cudabuild import on_device, stream, tally
 
 KEYS = ("score", "qle", "tle", "gtle", "gscore", "max_off")
 # launches of the CUDA kernel; bumped only where it is launched
@@ -242,7 +244,7 @@ def _lib():
 def kernel_max_qlen(device) -> int:
     """The longest query the group DP takes on ``device``: ``WARP_MAX_QLEN``,
     or less where the card's shared memory a block says so."""
-    with torch.cuda.device(torch.device(device)):
+    with on_device(device):
         q = int(_lib().bwamem_ksw_extend_max_qlen())
     if q < 0:
         raise RuntimeError("ksw_extend: could not read the card's shared "
@@ -250,10 +252,12 @@ def kernel_max_qlen(device) -> int:
     return q
 
 
-def warps_per_sm(Qw: int) -> int:
-    """Warps of the kernel resident on one SM for queries of up to ``Qw``
-    bases (the CUDA occupancy calculator's figure); -1 when refused."""
-    return int(_lib().bwamem_ksw_extend_warps_per_sm(Qw))
+def warps_per_sm(Qw: int, device="cuda") -> int:
+    """Warps of the kernel resident on one SM of ``device`` for queries of
+    up to ``Qw`` bases (the CUDA occupancy calculator's figure); -1 when
+    refused."""
+    with on_device(device):
+        return int(_lib().bwamem_ksw_extend_warps_per_sm(Qw))
 
 
 def plan_wave(scal: torch.Tensor, mat: torch.Tensor) -> WavePlan:
@@ -306,17 +310,19 @@ def ksw_extend_launch(q: torch.Tensor, t: torch.Tensor, scal: torch.Tensor,
     if plan is None:
         plan = plan_wave(scal, mat)
     nxt = torch.empty(1, dtype=torch.int32, device=dev)
-    rc = lib.bwamem_ksw_extend_launch(
-        q.data_ptr(), q.stride(0), t.data_ptr(), t.stride(0),
-        scal.data_ptr(), scal.stride(0), mat.data_ptr(),
-        plan.order.data_ptr(), plan.slot.data_ptr(), nxt.data_ptr(),
-        plan.scratch.data_ptr(), plan.Qs, plan.Qw, out.data_ptr(), B, o_del,
-        e_del, o_ins, e_ins, zdrop, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with on_device(dev):
+        rc = lib.bwamem_ksw_extend_launch(
+            q.data_ptr(), q.stride(0), t.data_ptr(), t.stride(0),
+            scal.data_ptr(), scal.stride(0), mat.data_ptr(),
+            plan.order.data_ptr(), plan.slot.data_ptr(), nxt.data_ptr(),
+            plan.scratch.data_ptr(), plan.Qs, plan.Qw, out.data_ptr(), B,
+            o_del, e_del, o_ins, e_ins, zdrop, stream(dev),
+        )
     if rc != 0:
         raise RuntimeError(f"ksw_extend kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
     SCALAR_JOBS += plan.n_scalar
+    tally().update(extend=1, extend_scalar=plan.n_scalar)
     return out
 
 
@@ -402,3 +408,27 @@ def ksw_extend_batch_np(qseqs, tseqs, scoring: DeviceScoring, h0s, ws,
         stacked = torch.stack([res[k] for k in KEYS]).numpy()
     cols = [stacked[j].tolist() for j in range(len(KEYS))]
     return [dict(zip(KEYS, vals)) for vals in zip(*cols)]
+
+
+def ksw_extend_batch_mesh(qseqs, tseqs, scorings: Sequence[DeviceScoring],
+                          h0s, ws, bonuses) -> List[dict]:
+    """``ksw_extend_batch_np`` with the wave's jobs split in contiguous
+    shards over the devices of ``scorings`` (one a mesh device, as
+    ``parallel.mesh.replicate`` gives them), each shard packed, copied,
+    launched and copied back in its own thread
+    (``parallel.mesh.run_shards``); one dict per job, in job order.  The
+    kernel's result for a job depends on that job alone, so the results are
+    those of one device's wave."""
+    from ..parallel.mesh import run_shards, split_offsets
+
+    off = split_offsets(len(qseqs), len(scorings))
+    work = [(sc.mat.device, (sc, lo, hi))
+            for sc, lo, hi in zip(scorings, off[:-1].tolist(), off[1:].tolist())
+            if hi > lo]
+
+    def shard(_dev, part):
+        sc, lo, hi = part
+        return ksw_extend_batch_np(qseqs[lo:hi], tseqs[lo:hi], sc, h0s[lo:hi],
+                                   ws[lo:hi], bonuses[lo:hi])
+
+    return [r for part in run_shards(shard, work) for r in part]

@@ -21,6 +21,17 @@ The counterpart of bwamem_tpu/ops/fmindex_tpu.py:
   of one dependent line fetch, the floor of a walk's step.
 * ``occ4``, ``extend``, ``sa_lookup`` and ``backward_search`` dispatch on the device of their
   inputs: CPU tensors go to the plain version, CUDA tensors to the kernel.
+* ``ShardedFMIndex`` holds the idx-sharded tables (D12; fmindex_tpu.py
+  ``sharded_tables``, ``make_occ4_sharded``): the line table and the sampled
+  SA in contiguous slices, one a device of the mesh's idx axis, padded as
+  tests/test_sharded_tables.py pads them.  The plain versions take either
+  form: every line and SA fetch goes through ``line_rows``/``sa_rows``, which
+  on the sharded form gather each row from the shard that owns it (the
+  JAX package's local gather and ``psum`` give the same rows, since one
+  shard owns each).  ``occ4_sharded`` and ``sa_lookup_sharded`` (and
+  ``ops.seed.seed_sa_walk``) launch the kernels' sharded instantiations
+  (csrc/fmindex.cuh ``FmShards``), which read each row from its owner's
+  memory, through peer access when it lies on another card.
 
 Conceptual rows follow bwa (engine/fmindex.py): row ``primary`` carries the
 implicit sentinel, so the occ offset of row k is ``k - (k >= primary)`` and
@@ -38,9 +49,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.cudabuild import on_device, stream, tally
+
 # launches of each CUDA kernel; bumped only where it is launched
 LAUNCHES = {"occ4": 0, "bwt_extend": 0, "sa_lookup": 0, "backward_search": 0,
-            "line_chase": 0}
+            "line_chase": 0, "occ4_sharded": 0, "sa_lookup_sharded": 0}
 # u32 per line the SA-walk and line-chase kernels take (span 128, 256, 512)
 WALK_LINE_WORDS = (12, 20, 36)
 # error flags the kernels raise (OR-ed into one int32 on the device)
@@ -64,10 +77,23 @@ class DeviceFMIndex:
     seq_len: int
     sa_intv: int
     span: int  # chars per line; power-of-two multiple of 128
+    sharded = False
 
     @property
     def device(self) -> torch.device:
         return self.lines.device
+
+    @property
+    def line_words(self) -> int:
+        return self.lines.shape[1]
+
+    def line_rows(self, block: torch.Tensor) -> torch.Tensor:
+        """The lines ``block`` [N] int64, [N, W]."""
+        return self.lines[block]
+
+    def sa_rows(self, i: torch.Tensor) -> torch.Tensor:
+        """The SA samples ``i`` [N] int64."""
+        return self.sa[i]
 
     @cached_property
     def L2_values(self) -> Tuple[int, ...]:
@@ -109,6 +135,108 @@ class DeviceFMIndex:
         )
 
 
+def _gather_shards(shards, per: int, i: torch.Tensor, dev) -> torch.Tensor:
+    """Rows ``i`` of a table split every ``per`` rows over ``shards``, each
+    row read from the shard that owns it, on ``dev``."""
+    out = torch.empty((i.shape[0], *shards[0].shape[1:]), dtype=shards[0].dtype,
+                      device=dev)
+    owner = i // per
+    for s, t in enumerate(shards):
+        sel = (owner == s).nonzero().flatten()
+        if sel.numel():
+            out[sel] = t[(i[sel] - s * per).to(t.device)].to(dev)
+    return out
+
+
+@dataclass(frozen=True)
+class ShardedFMIndex:
+    """The idx-sharded FM tables: shard ``s`` holds lines
+    ``[s * blocks_per_shard, (s + 1) * blocks_per_shard)`` and SA samples
+    ``[s * sa_per_shard, ...)`` on ``devices[s]``; ``L2`` and the statics
+    are on the first shard's device, where the kernels launch."""
+
+    line_shards: Tuple[torch.Tensor, ...]  # each [blocks_per_shard, W] int32
+    sa_shards: Tuple[torch.Tensor, ...]  # each [sa_per_shard] int64
+    L2: torch.Tensor
+    primary: int
+    seq_len: int
+    sa_intv: int
+    span: int
+    blocks_per_shard: int
+    sa_per_shard: int
+    sharded = True
+
+    @property
+    def device(self) -> torch.device:
+        return self.L2.device
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.line_shards)
+
+    @property
+    def line_words(self) -> int:
+        return self.line_shards[0].shape[1]
+
+    L2_values = DeviceFMIndex.L2_values
+    sa_shift = DeviceFMIndex.sa_shift
+
+    def line_rows(self, block: torch.Tensor) -> torch.Tensor:
+        return _gather_shards(self.line_shards, self.blocks_per_shard, block,
+                              self.device)
+
+    def sa_rows(self, i: torch.Tensor) -> torch.Tensor:
+        return _gather_shards(self.sa_shards, self.sa_per_shard, i,
+                              self.device)
+
+    @classmethod
+    def from_host(cls, fm, devices, span: int = 128) -> "ShardedFMIndex":
+        """``fm`` (an ``engine.fmindex.FMIndex``) split over ``devices`` (one
+        shard each; a device may repeat, each shard is then its own
+        allocation there): the lines of ``DeviceFMIndex.from_host`` and the
+        sampled SA, each zero-padded to a multiple of the shard count
+        (tests/test_sharded_tables.py).  Shards on another card than the
+        first get peer access from it, or this raises."""
+        devices = [torch.device(d) for d in devices]
+        n = len(devices)
+        if not 1 <= n <= MAX_SHARDS:
+            raise ValueError(f"1 to {MAX_SHARDS} shards, not {n}")
+        one = DeviceFMIndex.from_host(fm, "cpu", span)
+        lines, sa = one.lines, one.sa
+        bps, sps = -(-lines.shape[0] // n), -(-sa.shape[0] // n)
+        pad_l = torch.zeros((bps * n, lines.shape[1]), dtype=lines.dtype)
+        pad_l[: lines.shape[0]] = lines
+        pad_s = torch.zeros(sps * n, dtype=sa.dtype)
+        pad_s[: sa.shape[0]] = sa
+        home = devices[0]
+        for d in devices[1:]:
+            if d.type == "cuda" and d != home:
+                enable_peer(home, d)
+        return cls(
+            line_shards=tuple(pad_l[s * bps:(s + 1) * bps].clone().to(d)
+                              for s, d in enumerate(devices)),
+            sa_shards=tuple(pad_s[s * sps:(s + 1) * sps].clone().to(d)
+                            for s, d in enumerate(devices)),
+            L2=one.L2.to(home), primary=one.primary, seq_len=one.seq_len,
+            sa_intv=one.sa_intv, span=span, blocks_per_shard=bps,
+            sa_per_shard=sps)
+
+
+# the most shards the kernels take (csrc/fmindex.cuh kMaxShards)
+MAX_SHARDS = 8
+
+
+def enable_peer(dev, peer):
+    """Lets card ``dev`` load card ``peer``'s memory (a pair already
+    enabled stays so); raises when the cards cannot: a shard is never
+    copied through the host instead."""
+    dev, peer = torch.device(dev), torch.device(peer)
+    rc = _lib().bwamem_fm_enable_peer(dev.index or 0, peer.index or 0)
+    if rc != 0:
+        raise RuntimeError(f"peer access from {dev} to {peer} refused: "
+                           f"cudaError {rc}")
+
+
 # ------------------------------------------------------------ plain versions
 
 def _check_rows(dfm: DeviceFMIndex, k: torch.Tensor, lo: int):
@@ -128,7 +256,7 @@ def _rows_for(dfm: DeviceFMIndex, k: torch.Tensor):
     """Each row's fused line split into counts [N, 4] and u32 words
     [N, span/16] (int64), and the chars of the line counted through k."""
     kk = (k - (k >= dfm.primary).long()).clamp(min=0)
-    row = dfm.lines[kk >> (dfm.span.bit_length() - 1)].long()
+    row = dfm.line_rows(kk >> (dfm.span.bit_length() - 1)).long()
     within = (kk & (dfm.span - 1)) + 1
     return row[:, :4], row[:, 4:] & _U32, within
 
@@ -207,7 +335,7 @@ def sa_lookup_torch(dfm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
     steps = 0
     while True:
         hit = k % dfm.sa_intv == 0
-        out[idx[hit]] = dfm.sa[k[hit] // dfm.sa_intv] + steps
+        out[idx[hit]] = dfm.sa_rows(k[hit] // dfm.sa_intv) + steps
         idx, k = idx[~hit], k[~hit]
         if idx.numel() == 0:
             return out
@@ -279,6 +407,17 @@ def _bind(lib):
         fn.argtypes = fm + rest
     lib.bwamem_fm_line_chase_launch.restype = ctypes.c_int
     lib.bwamem_fm_line_chase_launch.argtypes = [p, i32, i64, i64, i32, p, p]
+    # line pointers, n_shards, blocks a shard, W, log2(span), L2, primary,
+    # seq_len
+    shards = [p, i32, i64, i32, i32, p, i64, i64]
+    lib.bwamem_fm_occ4_sharded_launch.restype = ctypes.c_int
+    lib.bwamem_fm_occ4_sharded_launch.argtypes = shards + [p, i64, p, p, p]
+    lib.bwamem_fm_sa_lookup_sharded_launch.restype = ctypes.c_int
+    lib.bwamem_fm_sa_lookup_sharded_launch.argtypes = (
+        [p, p, i32, i64, i64, i32, i32, p, i64, i64] + [i64] * 4
+        + [i64, i32, p, i64, p, p, p])
+    lib.bwamem_fm_enable_peer.restype = ctypes.c_int
+    lib.bwamem_fm_enable_peer.argtypes = [i32, i32]
 
 
 def _lib():
@@ -295,14 +434,32 @@ def _fm_args(dfm: DeviceFMIndex):
             dfm.seq_len)
 
 
-def _walk_lines(dfm: DeviceFMIndex):
-    """The line table as the SA-walk and line-chase kernels take it: lines
-    of span 128, 256 or 512, 16-byte aligned."""
-    W = dfm.lines.shape[1]
+def _ptrs(shards) -> np.ndarray:
+    """The shards' device pointers, a host uint64 array the launchers copy
+    into the kernels' arguments."""
+    return np.asarray([t.data_ptr() for t in shards], dtype=np.uint64)
+
+
+def _shard_args(sfm: ShardedFMIndex, lines_ptrs: np.ndarray):
+    """The sharded launchers' index arguments (``lines_ptrs`` kept alive by
+    the caller for the call)."""
+    for t in sfm.line_shards:
+        if not t.is_contiguous():
+            raise ValueError("every line shard must be contiguous")
+    return (lines_ptrs.ctypes.data, sfm.n_shards, sfm.blocks_per_shard,
+            sfm.line_words, sfm.span.bit_length() - 1, sfm.L2.data_ptr(),
+            sfm.primary, sfm.seq_len)
+
+
+def _walk_lines(dfm):
+    """The line table(s) as the SA-walk and line-chase kernels take them:
+    lines of span 128, 256 or 512, 16-byte aligned."""
+    W = dfm.line_words
     if W not in WALK_LINE_WORDS:
         raise ValueError(f"the SA-walk kernel takes spans 128, 256 and 512, "
                          f"not {dfm.span}")
-    if dfm.lines.data_ptr() % 16:
+    tabs = dfm.line_shards if dfm.sharded else (dfm.lines,)
+    if any(t.data_ptr() % 16 for t in tabs):
         raise ValueError("the line table must be 16-byte aligned")
 
 
@@ -320,13 +477,14 @@ def _as_rows(dfm: DeviceFMIndex, *xs: torch.Tensor):
 
 
 def _stream(dfm: DeviceFMIndex) -> int:
-    return torch.cuda.current_stream(dfm.device).cuda_stream
+    return stream(dfm.device)
 
 
 def _launched(name: str, rc: int):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
+    tally()["fmindex"] += 1
 
 
 def _raise_flags(name: str, err: torch.Tensor):
@@ -343,32 +501,55 @@ def _raise_flags(name: str, err: torch.Tensor):
 # allocated by the caller) and leave the flags for the caller to read: the
 # step the *_cuda wrappers share with a benchmark that times the kernel.
 
-def occ4_launch(dfm: DeviceFMIndex, k, out, err):
-    """``out`` [N, 4] int32 <- occ4 of the rows ``k`` [N]."""
-    _launched("occ4", _lib().bwamem_fm_occ4_launch(
-        *_fm_args(dfm), k.data_ptr(), k.shape[0], out.data_ptr(),
-        err.data_ptr(), _stream(dfm)))
+def occ4_launch(dfm, k, out, err):
+    """``out`` [N, 4] int32 <- occ4 of the rows ``k`` [N]; on a
+    ``ShardedFMIndex``, the sharded instantiation."""
+    with on_device(dfm.device):
+        if dfm.sharded:
+            ptrs = _ptrs(dfm.line_shards)
+            _launched("occ4_sharded", _lib().bwamem_fm_occ4_sharded_launch(
+                *_shard_args(dfm, ptrs), k.data_ptr(), k.shape[0],
+                out.data_ptr(), err.data_ptr(), _stream(dfm)))
+            return
+        _launched("occ4", _lib().bwamem_fm_occ4_launch(
+            *_fm_args(dfm), k.data_ptr(), k.shape[0], out.data_ptr(),
+            err.data_ptr(), _stream(dfm)))
 
 
 def extend_launch(dfm: DeviceFMIndex, x0, x1, s, is_back: bool, ox0, ox1, sz,
                   err):
     """``ox0``, ``ox1`` [N, 4] int64 and ``sz`` [N, 4] int32 <- bwt_extend
     of the bi-intervals (``x0``, ``x1``, ``s``) [N]."""
-    _launched("bwt_extend", _lib().bwamem_fm_extend_launch(
-        *_fm_args(dfm), x0.data_ptr(), x1.data_ptr(), s.data_ptr(),
-        x0.shape[0], int(bool(is_back)), ox0.data_ptr(), ox1.data_ptr(),
-        sz.data_ptr(), err.data_ptr(), _stream(dfm)))
+    with on_device(dfm.device):
+        _launched("bwt_extend", _lib().bwamem_fm_extend_launch(
+            *_fm_args(dfm), x0.data_ptr(), x1.data_ptr(), s.data_ptr(),
+            x0.shape[0], int(bool(is_back)), ox0.data_ptr(), ox1.data_ptr(),
+            sz.data_ptr(), err.data_ptr(), _stream(dfm)))
 
 
-def sa_lookup_launch(dfm: DeviceFMIndex, k, out, err):
+def sa_lookup_launch(dfm, k, out, err):
     """``out`` [N] int64 <- the text positions of the rows ``k`` [N]; a
     power-of-two ``sa_intv`` takes the mask-and-shift kernel, any other the
-    division one."""
+    division one; on a ``ShardedFMIndex``, the sharded instantiation."""
     _walk_lines(dfm)
-    _launched("sa_lookup", _lib().bwamem_fm_sa_lookup_launch(
-        *_fm_args(dfm), *dfm.L2_values[:4], dfm.sa.data_ptr(), dfm.sa_intv,
-        dfm.sa_shift, k.data_ptr(), k.shape[0], out.data_ptr(),
-        err.data_ptr(), _stream(dfm)))
+    if dfm.sharded:
+        lp, sp = _ptrs(dfm.line_shards), _ptrs(dfm.sa_shards)
+        with on_device(dfm.device):
+            _launched("sa_lookup_sharded",
+                      _lib().bwamem_fm_sa_lookup_sharded_launch(
+                          lp.ctypes.data, sp.ctypes.data, dfm.n_shards,
+                          dfm.blocks_per_shard, dfm.sa_per_shard,
+                          dfm.line_words, dfm.span.bit_length() - 1,
+                          dfm.L2.data_ptr(), dfm.primary, dfm.seq_len,
+                          *dfm.L2_values[:4], dfm.sa_intv, dfm.sa_shift,
+                          k.data_ptr(), k.shape[0], out.data_ptr(),
+                          err.data_ptr(), _stream(dfm)))
+        return
+    with on_device(dfm.device):
+        _launched("sa_lookup", _lib().bwamem_fm_sa_lookup_launch(
+            *_fm_args(dfm), *dfm.L2_values[:4], dfm.sa.data_ptr(), dfm.sa_intv,
+            dfm.sa_shift, k.data_ptr(), k.shape[0], out.data_ptr(),
+            err.data_ptr(), _stream(dfm)))
 
 
 def line_chase_launch(dfm: DeviceFMIndex, start: int, steps: int, out):
@@ -377,18 +558,20 @@ def line_chase_launch(dfm: DeviceFMIndex, start: int, steps: int, out):
     [1] <- the last line's index.  Its time over ``steps`` is the latency
     of one dependent line fetch: a measurement, on no aligner path."""
     _walk_lines(dfm)
-    _launched("line_chase", _lib().bwamem_fm_line_chase_launch(
-        dfm.lines.data_ptr(), dfm.lines.shape[1], dfm.lines.shape[0], start,
-        steps, out.data_ptr(), _stream(dfm)))
+    with on_device(dfm.device):
+        _launched("line_chase", _lib().bwamem_fm_line_chase_launch(
+            dfm.lines.data_ptr(), dfm.lines.shape[1], dfm.lines.shape[0], start,
+            steps, out.data_ptr(), _stream(dfm)))
 
 
 def backward_search_launch(dfm: DeviceFMIndex, qseq, qlen, k, l, matched):
     """``k``, ``l`` int64 [B] and ``matched`` int32 [B] <- the backward
     search of the reads ``qseq`` uint8 [B, L] with ``qlen`` int32 [B]."""
-    _launched("backward_search", _lib().bwamem_fm_backward_search_launch(
-        *_fm_args(dfm), qseq.data_ptr(), qseq.shape[1], qlen.data_ptr(),
-        qseq.shape[0], k.data_ptr(), l.data_ptr(), matched.data_ptr(),
-        _stream(dfm)))
+    with on_device(dfm.device):
+        _launched("backward_search", _lib().bwamem_fm_backward_search_launch(
+            *_fm_args(dfm), qseq.data_ptr(), qseq.shape[1], qlen.data_ptr(),
+            qseq.shape[0], k.data_ptr(), l.data_ptr(), matched.data_ptr(),
+            _stream(dfm)))
 
 
 def _flag_word(dfm: DeviceFMIndex) -> torch.Tensor:
@@ -482,3 +665,21 @@ def backward_search(dfm: DeviceFMIndex, qseq, qlen):
     fn = (backward_search_cuda if qseq.device.type == "cuda"
           else backward_search_torch)
     return fn(dfm, qseq, qlen)
+
+
+def occ4_sharded(sfm: ShardedFMIndex, k: torch.Tensor) -> torch.Tensor:
+    """occ4 on the idx-sharded tables (fmindex_tpu.py
+    ``make_occ4_sharded``): CPU tensors -> ``occ4_torch``, which gathers
+    each line from its owner; CUDA tensors -> the sharded kernel."""
+    if not sfm.sharded:
+        raise ValueError("occ4_sharded takes a ShardedFMIndex")
+    return occ4(sfm, k)
+
+
+def sa_lookup_sharded(sfm: ShardedFMIndex, k: torch.Tensor) -> torch.Tensor:
+    """The SA walk on the idx-sharded tables (fmindex_tpu.py
+    ``sa_lookup_body`` under ``sharded_tables``): CPU tensors ->
+    ``sa_lookup_torch``, CUDA tensors -> the sharded kernel."""
+    if not sfm.sharded:
+        raise ValueError("sa_lookup_sharded takes a ShardedFMIndex")
+    return sa_lookup(sfm, k)

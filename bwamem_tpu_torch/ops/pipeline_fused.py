@@ -40,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from ..engine.state import DeviceRef
+from ..utils.cudabuild import on_device, stream, tally
 from .chain import Chains, DeviceContigs, _excl_scan, expand_ranges
 from .extend import ksw_extend_torch
 
@@ -425,10 +426,7 @@ def _launched(name: str, rc: int):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     if name in LAUNCHES:
         LAUNCHES[name] += 1
-
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+        tally()["chain2aln"] += 1
 
 
 def _opts(p: ExtendParams):
@@ -445,13 +443,14 @@ def chain2aln_prep_launch(ctg, chains: Chains, lay: _Layout, qlen, p, rmax, srt,
                           err):
     """Per chain ``rmax`` [Nc, 2] int64 and its seed order ``srt`` [Ns]
     int32 (indices within the chain, ascending by (score, index))."""
-    _launched("chain2aln_prep", _lib().bwamem_chain2aln_prep_launch(
-        chains.chain_rows.data_ptr(), chains.seed_rows.data_ptr(),
-        lay.chain_seed_off.data_ptr(), lay.chain_read.data_ptr(),
-        qlen.data_ptr(), chains.chain_rows.shape[0], ctg.ctg_end.data_ptr(),
-        ctg.ctg_off.data_ptr(), ctg.ctg_end.numel(), ctg.l_pac, *_opts(p),
-        rmax.data_ptr(), srt.data_ptr(), err.data_ptr(),
-        _stream(ctg.device)))
+    with on_device(ctg.device):
+        _launched("chain2aln_prep", _lib().bwamem_chain2aln_prep_launch(
+            chains.chain_rows.data_ptr(), chains.seed_rows.data_ptr(),
+            lay.chain_seed_off.data_ptr(), lay.chain_read.data_ptr(),
+            qlen.data_ptr(), chains.chain_rows.shape[0], ctg.ctg_end.data_ptr(),
+            ctg.ctg_off.data_ptr(), ctg.ctg_end.numel(), ctg.l_pac, *_opts(p),
+            rmax.data_ptr(), srt.data_ptr(), err.data_ptr(),
+            stream(ctg.device)))
 
 
 def read_order(n_seed, qlen, run) -> torch.Tensor:
@@ -476,7 +475,7 @@ def kernel_max_qlen(mat, device) -> int:
     Q = min(MAX_QLEN, (MAX_H - 1) // max(hi, 1) - 1)
     device = torch.device(device)
     if device.type == "cuda":
-        with torch.cuda.device(device):
+        with on_device(device):
             fit = int(_lib().bwamem_chain2aln_max_qlen())
         if fit < 0:
             raise RuntimeError("chain2aln: could not read the card's shared "
@@ -508,22 +507,24 @@ def chain2aln_launch(ref, chains: Chains, lay: _Layout, n_chain, n_seed,
     B = qseq.shape[0]
     # the warps' read counter, which the launcher zeroes
     nxt = torch.empty(1, dtype=torch.int32, device=qseq.device)
-    _launched("chain2aln", _lib().bwamem_chain2aln_launch(
-        chains.chain_rows.data_ptr(), chains.seed_rows.data_ptr(),
-        chain_off.data_ptr(), n_chain.data_ptr(), seed_off.data_ptr(),
-        n_seed.data_ptr(), lay.chain_seed_off.data_ptr(), rmax.data_ptr(),
-        srt.data_ptr(), alive.data_ptr(), run.data_ptr(), qseq.data_ptr(),
-        qseq.stride(0), qlen.data_ptr(), B, Q, ref.pac.data_ptr(), ref.l_pac,
-        mat.data_ptr(), *_opts(p), t_cap, order.data_ptr(), nxt.data_ptr(),
-        reg_c.data_ptr(), reg_i.data_ptr(), nregs.data_ptr(), work.data_ptr(),
-        err.data_ptr(), _stream(qseq.device)))
+    with on_device(qseq.device):
+        _launched("chain2aln", _lib().bwamem_chain2aln_launch(
+            chains.chain_rows.data_ptr(), chains.seed_rows.data_ptr(),
+            chain_off.data_ptr(), n_chain.data_ptr(), seed_off.data_ptr(),
+            n_seed.data_ptr(), lay.chain_seed_off.data_ptr(), rmax.data_ptr(),
+            srt.data_ptr(), alive.data_ptr(), run.data_ptr(), qseq.data_ptr(),
+            qseq.stride(0), qlen.data_ptr(), B, Q, ref.pac.data_ptr(), ref.l_pac,
+            mat.data_ptr(), *_opts(p), t_cap, order.data_ptr(), nxt.data_ptr(),
+            reg_c.data_ptr(), reg_i.data_ptr(), nregs.data_ptr(), work.data_ptr(),
+            err.data_ptr(), stream(qseq.device)))
 
 
-def warps_per_sm(Q: int) -> int:
-    """Warps of the loop kernel resident on one SM when it runs reads of up
-    to ``Q`` bases (the CUDA occupancy calculator's figure); -1 when the
-    card refuses the shared memory that takes."""
-    return int(_lib().bwamem_chain2aln_warps_per_sm(Q))
+def warps_per_sm(Q: int, device="cuda") -> int:
+    """Warps of the loop kernel resident on one SM of ``device`` when it
+    runs reads of up to ``Q`` bases (the CUDA occupancy calculator's
+    figure); -1 when the card refuses the shared memory that takes."""
+    with on_device(device):
+        return int(_lib().bwamem_chain2aln_warps_per_sm(Q))
 
 
 def prepare(ctg: DeviceContigs, ref: DeviceRef, chains: Chains, qseq, qlen, run):
@@ -596,9 +597,10 @@ def band_width_cuda(qlen, w, end_bonus, max_sc: int, o_del: int, e_del: int,
         raise ValueError(f"band_width_cuda needs CUDA tensors, got {qlen.device}")
     args = [x.to(torch.int32).contiguous() for x in (qlen, w, end_bonus)]
     out = torch.empty_like(args[0])
-    _launched("band_width", _lib().bwamem_band_width_launch(
-        *(x.data_ptr() for x in args), args[0].numel(), max_sc, o_del, e_del,
-        o_ins, e_ins, out.data_ptr(), _stream(qlen.device)))
+    with on_device(qlen.device):
+        _launched("band_width", _lib().bwamem_band_width_launch(
+            *(x.data_ptr() for x in args), args[0].numel(), max_sc, o_del, e_del,
+            o_ins, e_ins, out.data_ptr(), stream(qlen.device)))
     return out
 
 

@@ -46,6 +46,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
+from ..utils.cudabuild import on_device, stream, tally
 from . import fmindex as fmops
 from .fmindex import DeviceFMIndex, extend_torch
 
@@ -53,7 +54,8 @@ K_SLOTS = 24  # smem_tpu.K_SLOTS, the JAX package's budget
 K_MAX = 160  # csrc/seed.cu kMaxK
 M_SLOTS = 48  # seed_fused.M_SLOTS
 # launches of each CUDA kernel; bumped only where it is launched
-LAUNCHES = {"smem1a": 0, "strategy1": 0, "collect_intv": 0, "sample_ks": 0}
+LAUNCHES = {"smem1a": 0, "strategy1": 0, "collect_intv": 0, "sample_ks": 0,
+            "collect_intv_sharded": 0}
 
 
 @dataclass(frozen=True)
@@ -466,6 +468,9 @@ def _bind(lib):
          fm + q + [p, i32, i32, i64, p, p, p, p, p]),
         ("bwamem_seed_collect_intv_launch",
          fm + q + [i32, i32, i32, i64, i64, i64, i32, i32, p, p, p, p, p, p, p]),
+        ("bwamem_seed_collect_intv_sharded_launch",
+         [p, i32, i64, i32, i32, p, i64, i64] + q
+         + [i32, i32, i32, i64, i64, i64, i32, i32, p, p, p, p, p, p, p]),
         ("bwamem_seed_sample_ks_launch", [p, i32, p, p, p, i32, i64, p, p, p]),
         ("bwamem_seed_collect_intv_warps_per_sm", [i32, i32]),
     ):
@@ -484,6 +489,7 @@ def _launched(name: str, rc: int):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
+    tally()["seed"] += 1
 
 
 def _reads_on_card(dfm: DeviceFMIndex, qseq, qlen, *lanes):
@@ -517,20 +523,22 @@ def _seed_args(dfm, qseq, qlen):
 def smem1a_launch(dfm, qseq, qlen, x, min_intv, ret, mems, m_cnt, ovf, err):
     """``x`` int32, ``min_intv`` int64 [B] -> ``ret``, ``m_cnt``, ``ovf``
     int32 [B] and ``mems`` [B, K, 5] int64 (K, the budget, is its size)."""
-    _launched("smem1a", _lib().bwamem_seed_smem1a_launch(
-        *_seed_args(dfm, qseq, qlen), x.data_ptr(), min_intv.data_ptr(),
-        qseq.shape[0], mems.shape[1], ret.data_ptr(), mems.data_ptr(),
-        m_cnt.data_ptr(), ovf.data_ptr(), err.data_ptr(), fmops._stream(dfm)))
+    with on_device(dfm.device):
+        _launched("smem1a", _lib().bwamem_seed_smem1a_launch(
+            *_seed_args(dfm, qseq, qlen), x.data_ptr(), min_intv.data_ptr(),
+            qseq.shape[0], mems.shape[1], ret.data_ptr(), mems.data_ptr(),
+            m_cnt.data_ptr(), ovf.data_ptr(), err.data_ptr(), fmops._stream(dfm)))
 
 
 def strategy1_launch(dfm, qseq, qlen, x, min_len, max_intv, found, out, nxt,
                      err):
     """``x`` int32 [B] -> ``found``, ``nxt`` int32 [B], ``out`` [B, 5]
     int64 (x0, x1, s, qb, qe)."""
-    _launched("strategy1", _lib().bwamem_seed_strategy1_launch(
-        *_seed_args(dfm, qseq, qlen), x.data_ptr(), qseq.shape[0],
-        int(min_len), int(max_intv), found.data_ptr(), out.data_ptr(),
-        nxt.data_ptr(), err.data_ptr(), fmops._stream(dfm)))
+    with on_device(dfm.device):
+        _launched("strategy1", _lib().bwamem_seed_strategy1_launch(
+            *_seed_args(dfm, qseq, qlen), x.data_ptr(), qseq.shape[0],
+            int(min_len), int(max_intv), found.data_ptr(), out.data_ptr(),
+            nxt.data_ptr(), err.data_ptr(), fmops._stream(dfm)))
 
 
 def collect_intv_launch(dfm, qseq, qlen, params: SeedParams, M, K, rows, n,
@@ -539,29 +547,47 @@ def collect_intv_launch(dfm, qseq, qlen, params: SeedParams, M, K, rows, n,
     [B]; and, given ``work`` int32 [B, 5], each read's smem1a calls,
     strategy1 calls and bwt_extend calls, what flagged it (0 nothing, 1 the
     K budget, 2 the M-slot accumulator) and the most K slots one of its
-    smem1a calls needed."""
-    _launched("collect_intv", _lib().bwamem_seed_collect_intv_launch(
-        *_seed_args(dfm, qseq, qlen), qseq.shape[0], params.min_seed_len,
-        params.split_len, params.split_width, params.max_mem_intv,
-        params.max_occ, M, K, rows.data_ptr(), n.data_ptr(), ovf.data_ptr(),
-        nks.data_ptr(), None if work is None else work.data_ptr(),
-        err.data_ptr(), fmops._stream(dfm)))
+    smem1a calls needed.  On a ``ShardedFMIndex``, the sharded
+    instantiation."""
+    if dfm.sharded:
+        ptrs = fmops._ptrs(dfm.line_shards)
+        with on_device(dfm.device):
+            _launched("collect_intv_sharded",
+                      _lib().bwamem_seed_collect_intv_sharded_launch(
+                          *fmops._shard_args(dfm, ptrs), qseq.data_ptr(),
+                          qseq.shape[1], qlen.data_ptr(), qseq.shape[0],
+                          params.min_seed_len, params.split_len,
+                          params.split_width, params.max_mem_intv,
+                          params.max_occ, M, K, rows.data_ptr(), n.data_ptr(),
+                          ovf.data_ptr(), nks.data_ptr(),
+                          None if work is None else work.data_ptr(),
+                          err.data_ptr(), fmops._stream(dfm)))
+        return
+    with on_device(dfm.device):
+        _launched("collect_intv", _lib().bwamem_seed_collect_intv_launch(
+            *_seed_args(dfm, qseq, qlen), qseq.shape[0], params.min_seed_len,
+            params.split_len, params.split_width, params.max_mem_intv,
+            params.max_occ, M, K, rows.data_ptr(), n.data_ptr(), ovf.data_ptr(),
+            nks.data_ptr(), None if work is None else work.data_ptr(),
+            err.data_ptr(), fmops._stream(dfm)))
 
 
-def warps_per_sm(M: int = M_SLOTS, K: int = K_MAX) -> int:
-    """Warps of the collect_intv kernel resident on one SM with budgets M
-    and K (the CUDA occupancy calculator's figure)."""
-    return int(_lib().bwamem_seed_collect_intv_warps_per_sm(K, M))
+def warps_per_sm(M: int = M_SLOTS, K: int = K_MAX, device="cuda") -> int:
+    """Warps of the collect_intv kernel resident on one SM of ``device``
+    with budgets M and K (the CUDA occupancy calculator's figure)."""
+    with on_device(device):
+        return int(_lib().bwamem_seed_collect_intv_warps_per_sm(K, M))
 
 
 def sample_ks_launch(rows, nrows, row_off, ks_off, max_occ, flat, ks):
     """``rows`` [B, M, 5] int64, ``nrows`` int32 and the exclusive scans
     ``row_off``/``ks_off`` int64 [B] -> ``flat`` [N, 5], ``ks`` [R]."""
     B, M, _ = rows.shape
-    _launched("sample_ks", _lib().bwamem_seed_sample_ks_launch(
-        rows.data_ptr(), M, nrows.data_ptr(), row_off.data_ptr(),
-        ks_off.data_ptr(), B, int(max_occ), flat.data_ptr(), ks.data_ptr(),
-        torch.cuda.current_stream(rows.device).cuda_stream))
+    with on_device(rows.device):
+        _launched("sample_ks", _lib().bwamem_seed_sample_ks_launch(
+            rows.data_ptr(), M, nrows.data_ptr(), row_off.data_ptr(),
+            ks_off.data_ptr(), B, int(max_occ), flat.data_ptr(), ks.data_ptr(),
+            stream(rows.device)))
 
 
 def smem1a_cuda(dfm: DeviceFMIndex, qseq, qlen, x, min_intv,
@@ -704,3 +730,14 @@ def seed_sa_torch(dfm: DeviceFMIndex, qseq, qlen, params: SeedParams,
     """``seed_sa`` through the plain versions only."""
     return _seed_sa(collect_intv_torch(dfm, qseq, qlen, params, M, K, work),
                     sample_ks_torch, params)
+
+
+def seed_sa_walk(dfm, qseq, qlen, params: SeedParams, M: int = M_SLOTS,
+                 K: int = K_MAX):
+    """The fused seed+SA step (bwamem_tpu/ops/seed_fused.py
+    ``seed_sa_fused_body``): ``seed_sa`` and the walks of its SA rows,
+    (SeedSA, text positions int64 [R]), on a ``DeviceFMIndex`` or on the
+    idx-sharded tables of a ``ShardedFMIndex`` (the sharded kernels on the
+    card, the plain versions' owner gathers on the CPU)."""
+    out = seed_sa(dfm, qseq, qlen, params, M, K)
+    return out, fmops.sa_lookup(dfm, out.ks)

@@ -11,9 +11,18 @@ of its source, the headers under ``csrc/``, the compiler flags and the
 source is rebuilt and an unchanged one is loaded as it is.  Nothing here
 runs at import time: ``import bwamem_tpu_torch`` works on a CPU-only PyTorch
 without a CUDA toolkit, and the first launch of a kernel builds it.
+
+``on_device`` is the guard every ctypes entry of the port runs under: the
+launchers read the current device (``cudaGetDevice``) to size their grids,
+so each call makes its operands' card the current one, and ``stream`` is
+that card's current stream.  ``tally`` is the calling thread's count of the
+launches it made, by ops module, with those of the shard threads it joined
+(``parallel.mesh.run_shards``): the stats objects take their launch counts
+from it, so concurrent shards do not count each other's.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -21,6 +30,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -98,3 +109,30 @@ def load(name: str, bind) -> ctypes.CDLL:
             bind(lib)
             _libs[name] = lib
         return lib
+
+
+def on_device(dev):
+    """``torch.cuda.device(dev)``: the context under which a launcher of
+    the ctypes libraries is called, so that the current device is the card
+    of its operands (an aligner on ``cuda:1``, a shard of a mesh) and not
+    whichever card the calling thread last used."""
+    return torch.cuda.device(torch.device(dev))
+
+
+def stream(dev) -> int:
+    """The handle of ``dev``'s current CUDA stream, a launcher's last
+    argument."""
+    return torch.cuda.current_stream(torch.device(dev)).cuda_stream
+
+
+_local = threading.local()
+
+
+def tally() -> collections.Counter:
+    """This thread's launches by ops module ("fmindex", "seed", "chain",
+    "chain2aln", "extend"; "extend_scalar" counts the wave kernel's scalar
+    jobs), with the tallies of the shard threads it has joined."""
+    t = getattr(_local, "t", None)
+    if t is None:
+        t = _local.t = collections.Counter()
+    return t

@@ -124,3 +124,101 @@ def simulate_pairs(
     if return_truth:
         return reads, truth
     return reads
+    return reads
+
+
+def synthetic_fmindex(seq_len: int, rng, sa_intv: int = 4096):
+    """A structurally consistent FM-index over a RANDOM BWT, built in
+    seconds at gigabase scale (no suffix-array construction).
+
+    The random packed words ARE a real 2-bit char sequence; the checkpoint
+    rows are its true prefix counts and L2 its true totals, so every
+    rank-query / interval-extension identity that the engine relies on
+    holds exactly — device kernels and the host oracle must agree on it
+    just as on a built index.  What it is NOT is the BWT of any particular
+    text, which none of the occ/extend/SA-walk arithmetic depends on.
+    Used to exercise the >2^31 (int64-coordinate, [EXT] bwt.h bwtint_t)
+    device domain without paying a gigabase SA-IS build.
+
+    The sampled SA holds random positions (sa[0] = -1 as always); walks
+    terminate at sampled rows exactly like the oracle's, so device-vs-
+    oracle SA equivalence is meaningful, while the values themselves are
+    arbitrary.
+    """
+    from ..engine.fmindex import FMIndex, OCC_INTERVAL
+
+    assert seq_len % OCC_INTERVAL == 0, "keep the tail simple"
+    assert (seq_len // OCC_INTERVAL) % 2 == 0, "need an even block count"
+    nb = seq_len // OCC_INTERVAL
+    # bidirectional-index invariant: the engine's bi-interval arithmetic
+    # (set_intv / bwt_extend) relies on count(c) == count(3-c), which a
+    # doubled fwd+revcomp reference guarantees.  Complementing the second
+    # half of the random chars (3-c == bitwise NOT of the 2-bit pair)
+    # restores exactly that global symmetry.
+    words = np.empty((nb, 8), dtype=np.uint32)
+    words[: nb // 2] = rng.integers(
+        0, 1 << 32, size=(nb // 2, 8), dtype=np.uint32
+    )
+    np.bitwise_not(words[: nb // 2], out=words[nb // 2 :])
+    # true per-block symbol counts via the two bit-planes (vectorized
+    # SWAR), chunked with preallocated scratch: fresh gigabyte temporaries
+    # can fault slowly on some hypervisors, so reuse the same buffers
+    # across chunks
+    M55 = np.uint32(0x55555555)
+    M33 = np.uint32(0x33333333)
+    M0F = np.uint32(0x0F0F0F0F)
+    per_block = np.empty((nb, 4), dtype=np.int64)
+    CH = 1 << 21
+    hi = np.empty((CH, 8), np.uint32)
+    lo = np.empty((CH, 8), np.uint32)
+    sel = np.empty((CH, 8), np.uint32)
+    t = np.empty((CH, 8), np.uint32)
+    for lo_r in range(0, nb, CH):
+        hi_r = min(nb, lo_r + CH)
+        m = hi_r - lo_r
+        w = words[lo_r:hi_r]
+        h, l, s, tt = hi[:m], lo[:m], sel[:m], t[:m]
+        np.right_shift(w, 1, out=h)
+        h &= M55
+        np.bitwise_and(w, M55, out=l)
+        for c in range(4):
+            np.bitwise_xor(h, M55 if not (c >> 1) else np.uint32(0), out=s)
+            np.bitwise_xor(l, M55 if not (c & 1) else np.uint32(0), out=tt)
+            s &= tt
+            # popcount32 in place on s
+            np.right_shift(s, 1, out=tt)
+            tt &= M55
+            s -= tt
+            np.right_shift(s, 2, out=tt)
+            tt &= M33
+            s &= M33
+            s += tt
+            np.right_shift(s, 4, out=tt)
+            s += tt
+            s &= M0F
+            s *= np.uint32(0x01010101)
+            np.right_shift(s, 24, out=s)
+            per_block[lo_r:hi_r, c] = s.sum(axis=1, dtype=np.int64)
+    del hi, lo, sel, t
+    ckpt = np.zeros((nb + 1, 4), dtype=np.int64)
+    np.cumsum(per_block, axis=0, out=ckpt[1:])
+    totals = ckpt[-1]
+    L2 = np.zeros(5, dtype=np.int64)
+    np.cumsum(totals, out=L2[1:])
+    n_sa = (seq_len + sa_intv) // sa_intv
+    sa = rng.integers(0, seq_len, size=n_sa, dtype=np.int64)
+    sa[0] = -1
+    fm = FMIndex.__new__(FMIndex)
+    fm.idx = None
+    fm.primary = int(rng.integers(1, seq_len))
+    fm.seq_len = int(seq_len)
+    fm.L2 = L2
+    fm.sa_intv = int(sa_intv)
+    fm.sa = sa
+    fm.n_blocks = nb
+    fm.ckpt = ckpt
+    fm.words = words
+    fm._patterns = np.array(
+        [c * 0x55555555 & 0xFFFFFFFF for c in range(4)], dtype=np.uint32
+    )
+    return fm

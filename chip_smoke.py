@@ -164,7 +164,32 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    own, the rest) from its metrics dump; and, in this process,
    ``align_seqs_packed`` of the default ``BwaMemAligner(index)`` (no device
    given: the card, the fused path) on phase 4's PE batch equal to the host
-   route's bytes, with no ``pair.sam_pe`` call.
+   route's bytes, with no ``pair.sam_pe`` call;
+18. several devices (the machine has one card, so every mesh of more than
+   one device is virtual, cuda:0 repeated, each entry its own shard,
+   launches and thread): (a) phase 4's PE and SE batches through
+   ``BwaMemAligner(index, mesh=...)`` on ``make_mesh()`` (the real cards)
+   and on a virtual (2, 2) mesh, with the fused path and with all three
+   device stages on the waves, every record equal to the host route's,
+   each route's kernels launched, reads/s; (b) ``parallel.dryrun``
+   ``dryrun_multichip`` on four virtual devices (PE records on a (2, 2)
+   mesh and the stage stack on a (4, 1) mesh equal to the single-device
+   route's, the sharded occ4 step equal to the host oracle, the seed+SA
+   step on a 1.55 Gbp ``synthetic_fmindex`` (past 2^31 rows, sa_intv 512)
+   equal to the host oracle and, on its tables sharded over 2 and over 4
+   shards on cuda:0, bit-equal to the unsharded kernels), then the sharded
+   kernels (occ4 on 2^20 rows, the SA walk of the chr20 batch's SA rows
+   from a cold L2, collect_intv on the chr20 batch) timed beside the
+   unsharded ones in the same run, bit-equal to them and exactly equal to
+   their plain versions; (c) two processes joined by ``torch.distributed``
+   (gloo, localhost), each aligning its half of phase 4's PE batch on
+   cuda:0, their merged records equal to one process's; (d) the device SA
+   build (D11) on the 4.6 and 64 Mbp genomes equal to the host SA-IS, and
+   the 4.6 Mbp index built with ``BWAMEM_TPU_DEVICE_SA=1`` equal to the
+   host-built image byte for byte; (e) ``mem --devices 1`` on phase 17's
+   FASTQ equal to its ``--device cpu`` SAM byte for byte, and ``--devices
+   2`` refused (exit 2).  Then the main-path kernel times of this run, in
+   one line, to set beside PERF.md section 6.
 
 The launch counts in the ``kernels`` line come from the runs that drive
 each kernel: phase 4's PE batch (ksw_extend), phase 7's PE batch
@@ -172,11 +197,17 @@ each kernel: phase 4's PE batch (ksw_extend), phase 7's PE batch
 probe run (op_probe), phase 11's PE batch with the seed and SA stages
 (collect_intv, sample_ks), phase 13's PE batch with all three stages (chain,
 chain_emit), phase 15's PE batch (chain2aln_prep, chain2aln) and phase 8's
-one-launch search (backward_search, which no aligner stage calls); each
+one-launch search (backward_search, which no aligner stage calls),
+phase 18's dry run (occ4_sharded, sa_lookup_sharded, collect_intv_sharded,
+whose ``replaces`` is fmindex_tpu.py's sharded fetch) and phase 18's
+index build with ``BWAMEM_TPU_DEVICE_SA=1`` (suffix_array, route "torch":
+its ``launches`` are the build's sort rounds, ``plain_ms`` the host SA-IS,
+``library_ms`` one ``torch.sort`` of as many int64 keys); each
 count is set to 0 just before and read just after.  Every entry also carries ``bound_ms``, the least time the card could
 take (this run's bytes at 3.35 TB/s or its integer operations at the int32
 rate, whichever is larger, named in ``bound_by``), ``library_ms``, null
-throughout: no single PyTorch call computes any of these functions, and
+for every CUDA kernel: no single PyTorch call computes any of their
+functions, and
 ``batch_ms`` and ``batch_launches``: the kernel's device time summed over
 the profiled PE batches of phases 4 (the default route: the extension
 waves) and 15 (the fused route: every other kernel of the aligner), and
@@ -2628,8 +2659,401 @@ def phase_cli(dev, index, codes, runs, card):
     if any(launched.get(k, 0) <= 0 for k in FUSED_KERNELS):
         raise AssertionError("wire: the default aligner did not take the "
                              "fused path")
+    return out  # phase 18 (e) reads d's inputs and host.sam, then removes d
+
+
+MESH_ROUTES = (("fused", dict(device_pipeline=True)),
+               ("staged", dict(device_pipeline=False, device_stages=ALL_STAGES)))
+SHARDED_REPLACES = {"occ4_sharded": "bwamem_tpu/ops/fmindex_tpu.py:309",
+                    "sa_lookup_sharded": "bwamem_tpu/ops/fmindex_tpu.py:67",
+                    "collect_intv_sharded": "bwamem_tpu/ops/fmindex_tpu.py:67"}
+
+
+def _reset_sharded():
+    from bwamem_tpu_torch.ops import fmindex as fmops
+    from bwamem_tpu_torch.ops import sa as saops
+    from bwamem_tpu_torch.ops import seed as seedops
+
+    _reset_counts()
+    for name in ("occ4_sharded", "sa_lookup_sharded"):
+        fmops.LAUNCHES[name] = 0
+    seedops.LAUNCHES["collect_intv_sharded"] = 0
+    for name in saops.LAUNCHES:
+        saops.LAUNCHES[name] = 0
+
+
+def _sharded_launched() -> dict:
+    from bwamem_tpu_torch.ops import fmindex as fmops
+    from bwamem_tpu_torch.ops import seed as seedops
+
+    return {"occ4_sharded": fmops.LAUNCHES["occ4_sharded"],
+            "sa_lookup_sharded": fmops.LAUNCHES["sa_lookup_sharded"],
+            "collect_intv_sharded": seedops.LAUNCHES["collect_intv_sharded"]}
+
+
+def _mesh_runs(dev, index, runs, card):
+    """Phase 18 (a): phase 4's batches through BwaMemAligner(mesh=...) on
+    the real cards and on a virtual (2, 2) mesh of cuda:0, fused and staged;
+    every record equal to the host route's, each route's kernels launched."""
+    from bwamem_tpu_torch import BwaMemAligner
+    from bwamem_tpu_torch.parallel.mesh import make_mesh
+
+    meshes = (("cards", make_mesh()),
+              ("virtual (2, 2) of cuda:0", make_mesh(devices=[dev] * 4,
+                                                     idx_shards=2)))
+    rates = {}
+    for mname, mesh in meshes:
+        for rname, kw in MESH_ROUTES:
+            for mode in ("pe", "se"):
+                batch, ref = runs[mode]["batch"], runs[mode]["ref"]
+                al = BwaMemAligner(index, mesh=mesh, **kw)
+                if mode == "pe":
+                    _pe_setup(al)
+                al.align_seqs(runs[mode]["warm"])
+                _reset_counts()
+                got, secs = _timed(al, batch, dev)
+                launched = _launched()
+                need = (FUSED_KERNELS if rname == "fused"
+                        else ROUTE_KERNELS["staged"] + ("ksw_extend",))
+                missing = [k for k in need if not launched[k]]
+                ok = _equal(got, ref)
+                rates[(mname, rname, mode)] = len(batch) / secs
+                print(f"  mesh {mname} {mesh.shape}, {rname} {mode}: "
+                      f"{len(batch)} reads in {secs:.3f} s, "
+                      f"{len(batch) / secs:.1f} reads/s [{card}]; records "
+                      f"equal to the host route's {ok}/{len(batch)}; "
+                      f"launches {dict((k, launched[k]) for k in need)}")
+                if ok != len(batch) or missing:
+                    raise AssertionError(f"mesh {mname} {rname} {mode}: "
+                                         f"records {ok}/{len(batch)}, kernels "
+                                         f"not launched {missing}")
+    return rates
+
+
+def _shard_timing(dev, fm, reads, shard_counts=(2, 4)):
+    """Phase 18 (b): the sharded kernels (occ4 on 2^20 random rows, the SA
+    walk on the batch's SA rows from a cold L2, collect_intv on the batch)
+    on tables split over 2 and 4 shards on cuda:0, against the unsharded
+    kernels in the same run (bit-equal) and their plain versions on a
+    sample (exact); returns per sharded kernel its entry's numbers."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine.state import device_fm
+    from bwamem_tpu_torch.ops import fmindex as fmops
+    from bwamem_tpu_torch.ops import seed as seedops
+
+    dfm = device_fm(fm, dev)
+    flags = torch.zeros(1, dtype=torch.int32, device=dev)
+    params = seedops.SeedParams.from_opt(MemOptions())
+    q, ql = seedops.pad_reads(reads, dev)
+    work = torch.zeros((len(reads), 5), dtype=torch.int32, device=dev)
+    base = seedops.seed_sa(dfm, q, ql, params, work=work)
+    rows = base.ks
+    calls = int(work[:, 2].sum())
+    k = torch.from_numpy(np.random.default_rng(SEED + 18).integers(
+        -1, fm.seq_len + 1, 1 << 20)).to(dev)
+    B, M = len(reads), seedops.M_SLOTS
+
+    def seed_out():
+        return (torch.zeros((B, M, 5), dtype=torch.int64, device=dev),
+                *(torch.zeros(B, dtype=torch.int32, device=dev) for _ in range(2)),
+                torch.zeros(B, dtype=torch.int64, device=dev))
+
+    def kernels(tab):
+        occ = torch.empty((k.numel(), 4), dtype=torch.int32, device=dev)
+        pos = torch.empty_like(rows)
+        so = seed_out()
+        return dict(
+            occ4=(lambda: fmops.occ4_launch(tab, k, occ, flags), occ),
+            sa_lookup=(lambda: fmops.sa_lookup_launch(tab, rows, pos, flags), pos),
+            collect_intv=(lambda: seedops.collect_intv_launch(
+                tab, q, ql, params, M, seedops.K_MAX, *so, flags), so[0]))
+
+    timed = {}
+    ref = kernels(dfm)
+    for name, (fn, _) in ref.items():
+        timer = _cold_ms if name == "sa_lookup" else _event_ms
+        timed[(name, 1)] = timer(fn, 7, dev)
+    steps = _walk_lengths(dfm, rows.clone())
+    sample = list(range(0, B, max(1, B // SEED_SAMPLE)))[:SEED_SAMPLE]
+    qs, qls = q[sample], ql[sample]
+    res = {}
+    for n in shard_counts:
+        sfm = fmops.ShardedFMIndex.from_host(fm, [dev] * n)
+        got = kernels(sfm)
+        for name, (fn, _) in got.items():
+            timer = _cold_ms if name == "sa_lookup" else _event_ms
+            timed[(name, n)] = timer(fn, 7, dev)
+        for name in got:
+            if not torch.equal(got[name][1], ref[name][1]):
+                raise AssertionError(f"{n}-shard {name} differs from the "
+                                     "unsharded kernel")
+        # the sharded kernels against their plain versions (the owner
+        # gathers) on the same inputs: every occ4 row and SA row, and the
+        # sample's reads for collect_intv
+        kp = k[: 1 << 16]
+        err = {"occ4": _diff(fmops.occ4_cuda(sfm, kp), fmops.occ4_torch(sfm, kp)),
+               "sa_lookup": _diff(fmops.sa_lookup_cuda(sfm, rows),
+                                  fmops.sa_lookup_torch(sfm, rows))}
+        kern = seedops.collect_intv_cuda(sfm, qs, qls, params)
+        plain, plain_ms = _once_ms(lambda: seedops.collect_intv_torch(
+            sfm, qs, qls, params), dev)
+        err["collect_intv"] = max(_diff(a, b) for a, b in zip(kern, plain))
+        plain_t = {"occ4": _event_ms(lambda: fmops.occ4_torch(sfm, k), 2, dev),
+                   "sa_lookup": _event_ms(lambda: fmops.sa_lookup_torch(sfm, rows),
+                                          1, dev),
+                   "collect_intv": plain_ms}
+        if int(flags.item()) or any(err.values()):
+            raise AssertionError(f"{n} shards: flags {int(flags.item())}, "
+                                 f"max|kernel-plain| {err}")
+        print(f"  {n} shards of the 64 Mbp tables on cuda:0: occ4 on 2^20 rows "
+              f"{timed[('occ4', n)]:.4f} ms (unsharded {timed[('occ4', 1)]:.4f}), "
+              f"SA walk of {rows.numel()} rows from a cold L2 "
+              f"{timed[('sa_lookup', n)]:.4f} ms (unsharded "
+              f"{timed[('sa_lookup', 1)]:.4f}), collect_intv on {B} reads "
+              f"{timed[('collect_intv', n)]:.4f} ms (unsharded "
+              f"{timed[('collect_intv', 1)]:.4f}); bit-equal to the unsharded "
+              f"kernels; max|kernel-plain| {err} (plain: occ4 "
+              f"{plain_t['occ4']:.2f} ms, walk {plain_t['sa_lookup']:.2f} ms, "
+              f"collect_intv on {len(sample)} reads {plain_ms:.2f} ms)")
+        if n == shard_counts[0]:
+            n_steps = float(steps.sum())
+            bounds = {
+                "occ4": _line_bound(dfm, 24 * k.numel(), k.numel()),
+                "sa_lookup": _line_bound(dfm, 16 * rows.numel()
+                                         + 8 * rows.numel(), n_steps,
+                                         10 * n_steps),
+                "collect_intv": _line_bound(
+                    dfm, q.numel() + 20 * B + 40 * base.flat.shape[0],
+                    2 * calls, 20 * calls)}
+            for name in got:
+                res[f"{name}_sharded"] = dict(
+                    shards=n, ms=timed[(name, n)], unsharded_ms=timed[(name, 1)],
+                    plain_ms=plain_t[name], err=err[name],
+                    ms_by="cold events" if name == "sa_lookup" else "events",
+                    **bounds[name])
+        for name in got:
+            res[f"{name}_sharded"][f"ms_{n}_shards"] = timed[(name, n)]
+        del sfm
+    return res
+
+
+def _dist_child(spec: str) -> int:
+    """One process of phase 18 (c): joins the gloo group, aligns its half
+    of phase 4's PE batch on cuda:0, gathers and merges every process's
+    records and prints their digest."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch import BwaMemAligner, BwaMemIndex
+    from bwamem_tpu_torch.parallel import distributed as dist
+    from bwamem_tpu_torch.utils.synth import simulate_pairs
+
+    spec = json.loads(spec)
+    pid = dist.init_distributed(spec["coord"], 2, spec["pid"])[0]
+    codes, img, _ = _synthetic_index(ECOLI_LEN)
+    index = BwaMemIndex(img)
+    rng = np.random.default_rng(SEED + 1)  # phase_main_path's reads
+    warm = simulate_pairs(codes, rng, 8)
+    reads = simulate_pairs(codes, rng, N_PAIRS)
+    al = BwaMemAligner(index, device=torch.device("cuda", 0))
+    _pe_setup(al)
+    al.align_seqs(warm)
+    lo, recs = dist.align_shard(al, reads, pid, 2)
+    recs = [[vars(a) for a in r] for r in recs]
+    merged = dist.merge_shards(dist.gather_shards(lo, recs), len(reads))
+    dist.shutdown()
+    index.close()
+    print(json.dumps(dict(pid=pid, lo=lo, n=len(recs), digest=hashlib.sha256(
+        json.dumps(merged).encode()).hexdigest())))
+    return 0
+
+
+def _dist_run(runs):
+    """Phase 18 (c): two processes joined by torch.distributed (gloo,
+    localhost), each aligning its half of phase 4's PE batch on cuda:0; the
+    merge must equal one process's records."""
+    import hashlib
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker",
+         json.dumps(dict(coord=f"127.0.0.1:{port}", pid=i))],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+        for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"a distributed process exited "
+                                     f"{p.returncode}: {e[-3000:]}")
+            outs.append(json.loads(o.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            p.kill()
+    want = hashlib.sha256(json.dumps(
+        [[vars(a) for a in r] for r in runs["pe"]["ref"]]).encode()).hexdigest()
+    ok = all(o["digest"] == want for o in outs)
+    print(f"  2 processes (gloo on localhost, both on cuda:0): shards at "
+          f"{[o['lo'] for o in outs]} of {[o['n'] for o in outs]} reads; the "
+          f"merged records equal one process's (the host route's): {ok}; "
+          f"{time.perf_counter() - t0:.1f} s with start-up")
+    if not ok:
+        raise AssertionError("the distributed merge differs from one process")
+
+
+def _device_sa(dev, codes, card):
+    """Phase 18 (d): D11, the device SA build, on the 4.6 Mbp and 64 Mbp
+    genomes against the host SA-IS, and the 4.6 Mbp index built with
+    BWAMEM_TPU_DEVICE_SA=1 against the host-built image."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch.index import image, native_sais
+    from bwamem_tpu_torch.index.build import build_index
+    from bwamem_tpu_torch.ops import sa as saops
+    from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
+
+    codes20, _, _ = _synthetic_index(CHR20_LEN)
+    res = {}
+    for tag, c in (("4.6 Mbp", codes), ("64 Mbp", codes20)):
+        rounds = saops.LAUNCHES["sort_rounds"]
+        got, ms = _once_ms(lambda: saops.suffix_array_device(c, dev), dev)
+        rounds = saops.LAUNCHES["sort_rounds"] - rounds
+        t0 = time.perf_counter()
+        want = native_sais.suffix_array(c)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        err = int(np.abs(got - want).max()) if len(got) == len(want) else -1
+        n = len(c) + 1
+        keys = torch.randint(0, 1 << 62, (n,), device=dev)
+        lib_ms = _event_ms(lambda: torch.sort(keys, stable=True), 3, dev)
+        bound = _bound(len(c) + 8 * n, 0)
+        bound["library_ms"] = lib_ms
+        print(f"  {tag}: device SA of {n} suffixes in {ms / 1e3:.3f} s "
+              f"({rounds} sort rounds), host SA-IS {host_ms / 1e3:.3f} s; "
+              f"equal byte for byte {err == 0}; one torch.sort of {n} int64 "
+              f"keys {lib_ms:.3f} ms [{card}]")
+        if err:
+            raise AssertionError(f"{tag}: the device SA differs from SA-IS")
+        res[tag] = dict(ms=ms, host_ms=host_ms, rounds=rounds, err=err,
+                        bound=bound)
+    del codes20
+    _reset_sharded()
+    os.environ["BWAMEM_TPU_DEVICE_SA"] = "1"
+    try:
+        t0 = time.perf_counter()
+        idx = build_index(Fasta([FastaContig("chr", "", codes)]), sa_intv=8)
+        secs = time.perf_counter() - t0
+    finally:
+        del os.environ["BWAMEM_TPU_DEVICE_SA"]
+    launches = dict(saops.LAUNCHES)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        path = os.path.join(d, "dev.img")
+        image.write_image(path, idx)
+        same = _same_file(path, _synthetic_index(ECOLI_LEN)[1])
+    print(f"  4.6 Mbp index built with BWAMEM_TPU_DEVICE_SA=1 in {secs:.2f} s "
+          f"({launches}); its image equal to the host-built one byte for "
+          f"byte: {same}")
+    if not same or not launches["suffix_array"]:
+        raise AssertionError("the device-SA index differs from the host one")
+    res["launches"] = launches["sort_rounds"]
+    return res
+
+
+def _cli_devices(card):
+    """Phase 18 (e): ``mem --devices 1`` on phase 17's FASTQ equal to its
+    ``--device cpu`` SAM; ``--devices 2`` refused on a one-card machine.
+    Removes phase 17's directory."""
+    import shutil
+
+    import torch
+
+    d = os.path.join(ROOT, "build", "smoke", "cli")
+    pe = ["mem", "ref.fa.img", "r1.fq", "r2.fq"]
+    secs, _ = _cli(d, [*pe, "--devices", "1"], "devices1.sam")
+    same = _same_file(os.path.join(d, "devices1.sam"), os.path.join(d, "host.sam"))
+    print(f"  mem --devices 1 on {CLI_PAIRS} pairs: {secs:.2f} s [{card}]; "
+          f"SAM equal to --device cpu's byte for byte: {same}")
+    if not same:
+        raise AssertionError("mem --devices 1 differs from the host route")
+    n = torch.cuda.device_count()
+    res = subprocess.run([sys.executable, "-m", "bwamem_tpu_torch", *pe,
+                          "--devices", str(n + 1)], cwd=d, capture_output=True,
+                         text=True, env={**os.environ, "PYTHONPATH": ROOT},
+                         timeout=300)
+    print(f"  mem --devices {n + 1} on {n} card(s): exit {res.returncode}, "
+          f"{res.stderr.strip().splitlines()[-1] if res.stderr else ''}")
+    if res.returncode != 2 or res.stdout:
+        raise AssertionError(f"--devices {n + 1} was not refused")
     shutil.rmtree(d, ignore_errors=True)
-    return out
+
+
+def phase_devices(dev, index, codes, runs, card):
+    """Phase 18: several devices.  (a) the mesh aligner, (b) the dry run on
+    four virtual devices and the sharded kernels timed, (c) two processes
+    joined by torch.distributed, (d) the device SA build, (e) mem
+    --devices."""
+    from bwamem_tpu_torch import BwaMemIndex
+    from bwamem_tpu_torch.parallel.dryrun import dryrun_multichip
+    from bwamem_tpu_torch.utils.synth import simulate_pairs
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    rates = _mesh_runs(dev, index, runs, card)
+    t1 = time.perf_counter()
+    _reset_sharded()
+    out = dryrun_multichip([dev] * 4, shard_counts=(2, 4))
+    launched = _sharded_launched()
+    big = out.pop("big")
+    print(f"  dryrun_multichip on 4 virtual devices (cuda:0): mesh "
+          f"{out['mesh']}, {out['reads']} PE reads, {out['records']} records "
+          f"equal to the single-device route's; the stage stack on "
+          f"{out['full_stack']['mesh']} ({out['full_stack']['records']} records "
+          f"equal); sharded occ4 = host oracle on {out['occ_queries']} rows; "
+          f"{big['seq_len']} rows (> 2^31): seed+SA of {big['reads']} reads "
+          f"({big['flagged']} flagged by M), {big['intervals']} intervals and "
+          f"{big['rbegs']} positions = host oracle; bit-equal on "
+          f"{big['shard_counts']} shards; sharded launches {launched}; "
+          f"{time.perf_counter() - t1:.1f} s")
+    missing = [k for k, v in launched.items() if not v]
+    if missing:
+        raise AssertionError(f"the dry run did not launch {missing}")
+    del big
+    t2 = time.perf_counter()
+    codes20, img20, _ = _synthetic_index(CHR20_LEN)
+    idx20 = BwaMemIndex(img20)
+    rng = np.random.default_rng(SEED + 1)  # phase 8's batch
+    simulate_pairs(codes20, rng, 8)
+    reads20 = simulate_pairs(codes20, rng, CHR20_PAIRS)
+    from bwamem_tpu_torch.utils.encoding import seq_to_codes_batch
+
+    sharded = _shard_timing(dev, idx20._require().fm, seq_to_codes_batch(reads20))
+    idx20.close()
+    del codes20
+    for name in sharded:
+        sharded[name]["launches"] = launched[name]
+    t3 = time.perf_counter()
+    _dist_run(runs)
+    t4 = time.perf_counter()
+    sa = _device_sa(dev, codes, card)
+    t5 = time.perf_counter()
+    _cli_devices(card)
+    print(f"  phase 18 seconds: mesh {t1 - t0:.1f}, dry run {t2 - t1:.1f}, "
+          f"sharded timing {t3 - t2:.1f}, distributed {t4 - t3:.1f}, device "
+          f"SA {t5 - t4:.1f}, CLI {time.perf_counter() - t5:.1f}")
+    return dict(rates=rates, sharded=sharded, sa=sa)
 
 
 def _redesign(name: str, res: dict) -> dict:
@@ -2658,6 +3082,9 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--traced-batch":
         sys.path.insert(0, ROOT)
         return traced_batch_child(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--dist-worker":
+        sys.path.insert(0, ROOT)
+        return _dist_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
               file=sys.stderr)
@@ -2740,7 +3167,20 @@ def main() -> int:
     print("[17] the command line on the card: python -m bwamem_tpu_torch "
           "index / mem, every route against the host route's SAM")
     phase_cli(dev, index, codes, runs, card)
+
+    print("[18] several devices: the mesh aligner (the cards, a virtual (2, 2) "
+          "mesh of cuda:0), the dry run with idx-sharded tables, two gloo "
+          "processes, the device SA build, mem --devices")
+    multi = phase_devices(dev, index, codes, runs, card)
     index.close()
+    print(f"  main-path kernel times of this run (PERF.md section 6 holds "
+          f"their earlier runs): ksw_extend {ksw['ms']:.4f} ms, sa_lookup "
+          f"{big['sa']['cold_ms']:.4f} ms cold, collect_intv "
+          f"{seed_k['collect_intv']['ms']:.4f} ms, sample_ks "
+          f"{seed_k['sample_ks']['ms']:.4f} ms, chain {chain_k['chain']['ms']:.4f} "
+          f"ms, chain_emit {chain_k['chain_emit']['ms']:.4f} ms, chain2aln_prep "
+          f"{fused_k['chain2aln_prep']['ms']:.4f} ms, chain2aln "
+          f"{fused_k['chain2aln']['ms']:.4f} ms [{card}]")
 
     fm_src = "bwamem_tpu_torch/csrc/fmindex.cu"
     traces = (runs["pe"]["batch_kernels"], fused_run["batch_kernels"])
@@ -2828,6 +3268,30 @@ def main() -> int:
          **_redesign(name, fused_k[name])}
         for name in ("chain2aln_prep", "chain2aln")
     ]
+    kernels += [
+        {"name": name, "route": "cuda",
+         "source": ("bwamem_tpu_torch/csrc/seed.cu" if name.startswith("collect")
+                    else fm_src),
+         "replaces": SHARDED_REPLACES[name], "launches": r["launches"],
+         "max_abs_err": r["err"], "ms": r["ms"], "ms_by": r["ms_by"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "shards": r["shards"], "unsharded_ms": r["unsharded_ms"],
+         **{k: v for k, v in r.items() if k.startswith("ms_")}}
+        for name, r in multi["sharded"].items()
+    ]
+    d11 = multi["sa"]["4.6 Mbp"]
+    kernels.append(
+        {"name": "suffix_array", "route": "torch",
+         "source": "bwamem_tpu_torch/ops/sa.py",
+         "replaces": "bwamem_tpu/ops/sa_tpu.py:32",
+         "launches": multi["sa"]["launches"], "launches_are": "sort rounds",
+         "max_abs_err": max(r["err"] for k, r in multi["sa"].items()
+                            if k != "launches"),
+         "ms": d11["ms"], "ms_by": "events", "plain_ms": d11["host_ms"],
+         "plain_is": "the host C++ SA-IS", **d11["bound"],
+         "ms_64mbp": multi["sa"]["64 Mbp"]["ms"],
+         "plain_ms_64mbp": multi["sa"]["64 Mbp"]["host_ms"]})
     for k in kernels:
         k.update(_batch(k["name"], traces))
     print(json.dumps({"kernels": kernels}))

@@ -1418,3 +1418,103 @@ def test_cuda_threads_with_own_aligners(tail_genome, route):
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors
     assert got[0] == want and got[1] == want
+
+
+# ---------------------------------------------------------- several devices
+
+@pytest.fixture(scope="module")
+def small_fm():
+    from bwamem_tpu_torch.engine.fmindex import FMIndex
+    from bwamem_tpu_torch.index.build import build_index
+    from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
+
+    rng = np.random.default_rng(3)
+    codes = rng.integers(0, 4, 200_000).astype(np.uint8)
+    codes[150_000:150_500] = codes[1_000:1_500]
+    fm = FMIndex(build_index(Fasta([FastaContig("c", "", codes)]), sa_intv=8))
+    reads = [codes[i: i + 150].copy() for i in range(0, 190_000, 1_900)]
+    return fm, reads
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("n_shards", (1, 2, 3, 8))
+def test_cuda_sharded_kernels_match_plain(small_fm, n_shards):
+    """The sharded instantiations of occ4, the SA walk and collect_intv
+    (shards as separate allocations on cuda:0) against their plain versions
+    (the owner gathers) and the unsharded kernels; tolerance 0."""
+    fm, reads = small_fm
+    sfm = fmops.ShardedFMIndex.from_host(fm, ["cuda"] * n_shards)
+    cpu = fmops.ShardedFMIndex.from_host(fm, ["cpu"] * n_shards)
+    dfm = fmops.DeviceFMIndex.from_host(fm, "cuda")
+    rng = np.random.default_rng(n_shards)
+    ks = torch.from_numpy(rng.integers(-1, fm.seq_len + 1, 20_000))
+    rows = torch.from_numpy(rng.integers(0, fm.seq_len + 1, 20_000))
+    before = dict(fmops.LAUNCHES)
+    occ = fmops.occ4_sharded(sfm, ks.cuda())
+    assert torch.equal(occ.cpu(), fmops.occ4_torch(cpu, ks))
+    assert torch.equal(occ, fmops.occ4(dfm, ks.cuda()))
+    pos = fmops.sa_lookup_sharded(sfm, rows.cuda())
+    assert torch.equal(pos.cpu(), fmops.sa_lookup_torch(cpu, rows))
+    assert fmops.LAUNCHES["occ4_sharded"] == before["occ4_sharded"] + 1
+    assert fmops.LAUNCHES["sa_lookup_sharded"] == before["sa_lookup_sharded"] + 1
+    p = so.SeedParams.from_opt(_opt())
+    q, ql = so.pad_reads(reads, "cuda")
+    got, gpos = so.seed_sa_walk(sfm, q, ql, p)
+    want, wpos = so.seed_sa_walk(dfm, q, ql, p)
+    plain, ppos = so.seed_sa_walk(cpu, q.cpu(), ql.cpu(), p)
+    for a, b, c in zip((*got.intervals, got.flat, got.ks, gpos),
+                       (*want.intervals, want.flat, want.ks, wpos),
+                       (*plain.intervals, plain.flat, plain.ks, ppos)):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+def _opt():
+    from bwamem_tpu_torch.api.options import MemOptions
+
+    return MemOptions()
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("route", ("fused", "waves", "staged"))
+def test_cuda_mesh_aligner_on_a_virtual_mesh(tail_genome, route):
+    """BwaMemAligner(mesh=...) on cuda:0 twice (and on the real cards)
+    gives the host whole-batch route's records."""
+    from bwamem_tpu_torch import BwaMemAligner
+    from bwamem_tpu_torch.parallel.mesh import make_mesh
+
+    index, reads = tail_genome
+    kw = {"fused": dict(device_pipeline=True), "waves": WAVES,
+          "staged": dict(WAVES, device_stages=("seed", "sa_lookup", "chain"))}
+
+    def run(**k):
+        al = BwaMemAligner(index, **k)
+        al.align_pairs()
+        return [[vars(a) for a in r] for r in al.align_seqs(reads)]
+
+    want = run(device="cpu")
+    for mesh in (make_mesh(devices=["cuda:0"] * 2), make_mesh()):
+        assert run(mesh=mesh, **kw[route]) == want
+
+
+@pytest.mark.cuda
+@needs_card
+def test_cuda_device_sa_equals_sais_and_builds_the_same_index(monkeypatch):
+    from bwamem_tpu_torch.index import native_sais
+    from bwamem_tpu_torch.index.build import build_index
+    from bwamem_tpu_torch.ops.sa import suffix_array_device
+    from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
+    from bwamem_tpu_torch.utils.synth import synthetic_genome
+
+    g = synthetic_genome(300_000, np.random.default_rng(2))
+    codes = np.where(g > 3, 0, g).astype(np.uint8)
+    assert np.array_equal(suffix_array_device(codes, "cuda"),
+                          native_sais.suffix_array(codes))
+    fa = Fasta([FastaContig("c", "", g)])
+    host = build_index(fa)
+    monkeypatch.setenv("BWAMEM_TPU_DEVICE_SA", "1")
+    dev = build_index(fa)
+    assert host.bwt.primary == dev.bwt.primary
+    assert np.array_equal(host.bwt.bwt, dev.bwt.bwt)
+    assert np.array_equal(host.bwt.sa, dev.bwt.sa)

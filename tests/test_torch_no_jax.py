@@ -130,6 +130,38 @@ def _offenders(pattern):
     return offenders
 
 
+_PARALLEL = r"""
+import sys
+import torch
+torch.set_num_threads(1)
+from bwamem_tpu_torch.ops import sa
+from bwamem_tpu_torch.parallel import (dataparallel, distributed, dryrun, mesh,
+                                       pipeline)
+out = dryrun.dryrun_multichip(["cpu"] * 2, big_len=128 * 1024, n_pairs=2,
+                              n_sub=2, min_seed_len=10)
+assert out["mesh"] == {"data": 1, "idx": 2}, out
+import numpy as np
+assert len(sa.suffix_array_device(np.zeros(5, np.uint8), "cpu")) == 6
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "bwamem_tpu")))
+"""
+
+
+def test_parallel_loads_no_jax():
+    """The sub-package ``parallel`` (mesh, data-parallel steps, the mesh
+    pipeline, torch.distributed, the dry run) and the device SA builder run
+    in a fresh interpreter with nothing of JAX or bwamem_tpu loaded."""
+    assert {os.path.basename(p) for p in _sources()
+            if os.sep + "parallel" + os.sep in p} >= {
+        "mesh.py", "dataparallel.py", "pipeline.py", "distributed.py",
+        "dryrun.py"}
+    res = subprocess.run([sys.executable, "-c", _PARALLEL], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
 def test_no_port_module_imports_jax():
     """Statically: no ``.py`` under bwamem_tpu_torch/, nor chip_smoke.py,
     imports JAX, at any indentation."""
