@@ -69,6 +69,7 @@
 #include <cuda_runtime.h>
 
 #include "extend.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -529,9 +530,7 @@ __global__ void band_width_kernel(const int32_t* __restrict__ qlen,
 // bases, allowed past the default 48 KB.
 cudaError_t allow_loop_smem(int Q, size_t* bytes) {
   *bytes = sizeof(int32_t) * kWarps * slice_words(Q);
-  return cudaFuncSetAttribute(chain2aln_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*bytes));
+  return bwamem::raise_smem_limit(chain2aln_kernel, *bytes);
 }
 
 }  // namespace

@@ -41,6 +41,7 @@
 #include <cuda_runtime.h>
 
 #include "extend.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -118,12 +119,10 @@ __global__ void __launch_bounds__(kThreads) ksw_extend_kernel(
 }
 
 // The kernel's dynamic shared memory a block for queries of up to Qw bases,
-// allowed past the default 48 KB.
+// allowed past the default 48 KB (the limit only rises: smem_limit.cuh).
 cudaError_t allow_smem(int Qw, size_t* bytes) {
   *bytes = sizeof(int32_t) * kGroups * static_cast<size_t>(slice_words(Qw));
-  return cudaFuncSetAttribute(ksw_extend_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*bytes));
+  return bwamem::raise_smem_limit(ksw_extend_kernel, *bytes);
 }
 
 }  // namespace

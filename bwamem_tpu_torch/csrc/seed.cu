@@ -64,6 +64,7 @@
 #include <cuda_runtime.h>
 
 #include "fmindex.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -597,11 +598,11 @@ unsigned seed_blocks(int B) {
 }
 
 // Lets a kernel take `bytes` of dynamic shared memory a block, past the
-// default 48 KB, with the SM's carveout at its shared-memory maximum.
+// default 48 KB (the limit only rises: smem_limit.cuh), with the SM's
+// carveout at its shared-memory maximum.
 template <class Kernel>
 cudaError_t allow_smem(Kernel k, size_t bytes) {
-  const cudaError_t rc = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  const cudaError_t rc = bwamem::raise_smem_limit(k, bytes);
   if (rc != cudaSuccess) return rc;
   return cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);

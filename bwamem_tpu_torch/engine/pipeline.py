@@ -41,7 +41,10 @@ assembly is the host C++ tail's (``engine.native_pipeline``, called by the
 aligner on ``align_regs_raw``'s rows), or the Python oracle's
 (``reg2sam_records``, ``gen_alt_xa``) on ``align_regs_batch``'s regions.
 ``native_seed_sa`` and ``native_pipeline_ok`` feed and gate the aligner's
-whole-batch host route, as in the reference.
+whole-batch host route, as in the reference.  ``align1_regs``
+(mem_align1_core: one read to its deduplicated regions) and ``align_se``
+(one read to its records) are the reference's per-read host oracle; they
+take no device, and no route of the aligner calls them.
 """
 from __future__ import annotations
 
@@ -58,11 +61,11 @@ from ..utils.timers import TIMERS
 from . import exec_ctx, native_chain, native_fm
 from .chain import chain_flt, flt_chained_seeds, mem_chain
 from .exec_ctx import ExecConfig
-from .extend import AlnReg
+from .extend import AlnReg, chain2aln
 from .extend_batch import chain2aln_batch
-from .finalize import Aln, reg2aln, sort_dedup_patch
+from .finalize import Aln, mark_primary_se, reg2aln, sort_dedup_patch
 from .fmindex import FMIndex
-from .seed import SmemIntv
+from .seed import SmemIntv, collect_intv
 from .seed_device import host_rows, seed_batch
 from .state import device_contigs, device_fm
 
@@ -82,6 +85,28 @@ def _flag_alt_regs(bns, regs: List[AlnReg]) -> List[AlnReg]:
         if r.rid >= 0 and anns[r.rid].is_alt:
             r.is_alt = 1
     return regs
+
+
+def align1_regs(opt: MemOptions, eng: Engine, query: np.ndarray) -> List[AlnReg]:
+    """[EXT] mem_align1_core: read codes -> deduped alignment regions."""
+    intervals = collect_intv(opt, eng.fm, query)
+    return _regs_from_intervals(opt, eng, query, intervals, None)
+
+
+def _regs_from_intervals(opt, eng, query, intervals, rbegs_per_intv):
+    from .chain import flt_chained_seeds
+
+    qlen = len(query)
+    chains = mem_chain(
+        opt, eng.fm, eng.idx.bns, qlen, intervals, rbegs_per_intv
+    )
+    chains = chain_flt(opt, chains)
+    flt_chained_seeds(opt, eng.idx, qlen, query, chains)
+    regs: List[AlnReg] = []
+    for c in chains:
+        chain2aln(opt, eng.idx, qlen, query, c, regs)
+    regs = sort_dedup_patch(opt, eng.idx, query, regs)
+    return _flag_alt_regs(eng.idx.bns, regs)
 
 
 class SaStats:
@@ -582,3 +607,15 @@ def _fix_flags(p: Aln, m: Optional[Aln]) -> None:
         p.cigar = []
     p.flag |= 0x10 if p.is_rev else 0
     p.flag |= 0x20 if (m is not None and m.is_rev) else 0
+
+
+def align_se(opt: MemOptions, eng: Engine, query: np.ndarray, read_id: int = 0) -> List[Aln]:
+    """Full single-end alignment of one read (codes in {0..4})."""
+    from ..api.options import MEM_F_PRIMARY5
+    from .finalize import reorder_primary5
+
+    regs = align1_regs(opt, eng, query)
+    mark_primary_se(opt, regs, read_id)
+    if opt.flag & MEM_F_PRIMARY5:
+        reorder_primary5(opt.T, regs)
+    return reg2sam_records(opt, eng, query, regs)

@@ -188,8 +188,39 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    the 4.6 Mbp index built with ``BWAMEM_TPU_DEVICE_SA=1`` equal to the
    host-built image byte for byte; (e) ``mem --devices 1`` on phase 17's
    FASTQ equal to its ``--device cpu`` SAM byte for byte, and ``--devices
-   2`` refused (exit 2).  Then the main-path kernel times of this run, in
-   one line, to set beside PERF.md section 6.
+   2`` refused (exit 2);
+19. bench.py's third configuration, "midlen": 3,000 pairs of 300 bp reads
+   (insert 700, fixed PE statistics 700 +- 70, as
+   bwamem_tpu_torch/benchmarks/bench.py draws and sets them) on phase 4's
+   4.6 Mbp genome (no new index) through the fused, staged and default
+   routes, every record equal to the host whole-batch route's; the fused
+   share (at least 95 %; below it the share and the reads that left by
+   cause are printed before the run fails), FUSED_STATS by cause,
+   SEED_STATS' K and M flags and the K slots the reads needed,
+   CHAIN_STATS, reads/s of one call a route, the largest wave's Q and T and
+   the wave kernel's scalar-path jobs; the fused batch and the default
+   route's batch once more under torch.profiler in one fresh process (each
+   path kernel's device time summed over the batch; the wave kernel's over
+   the default route's waves); every kernel of the path against its plain
+   version on the card on this batch (the plain chain-to-region version on
+   64 of its reads), with the K slots the reads needed and the
+   chain-to-region kernel's band cells and DP rows; one ``{"midlen": ...}``
+   JSON line;
+20. GRCh38-sized coordinates: (a) a ``synthetic_fmindex`` of 6.2e9 rows
+   (GRCh38's 2 l_pac), sa_intv 32, on the card (its bytes printed): the
+   seed+SA step on 32 random reads equal to the host oracle, with an
+   interval bound and an SA position past 2^32 asserted; the SA walk of
+   those rows, occ4 and bwt_extend on seeding-shaped work (each step
+   against the host FMIndex) timed warm and cold (CUDA events queued
+   behind a busy-wait of the card) beside their bounds;
+   (b) ``utils.big_ref``: a random one-contig pac of 3.1 Gbp on the card
+   (775 MB), 256 reads of 150 and 300 bases drawn from it with
+   substitutions and an indel (forward ones past 2^31, reverse ones past
+   2^32) seeded at their known positions: chain_kernel, chain_emit_kernel
+   and the chain-to-region kernels against their plain versions on the
+   card (the chain-to-region one on 64 reads) and the host oracle (16
+   reads); one ``{"grch38_domain": ...}`` JSON line.  Then the main-path
+   kernel times of this run, in one line, to set beside PERF.md section 6.
 
 The launch counts in the ``kernels`` line come from the runs that drive
 each kernel: phase 4's PE batch (ksw_extend), phase 7's PE batch
@@ -690,31 +721,40 @@ def _traced_batch(tag, aligner, reads, dev, launches):
 
 
 def _fresh_traced_batch(tag, route: dict, mode: str, launches: dict):
-    """``_traced_batch`` of phase 4's ecoli batch (``mode`` "pe" or "se")
-    through ``route`` (the aligner's keywords) in a fresh process: once a
+    """``_fresh_traced_batches`` of one route."""
+    return _fresh_traced_batches(mode, [dict(tag=tag, route=route,
+                                             launches=launches)])[0]
+
+
+def _fresh_traced_batches(mode: str, runs: list):
+    """``_traced_batch`` of phase 4's ecoli batch (``mode`` "pe" or "se"),
+    or phase 19's 300-base pairs (``mode`` "midlen"), through each run's
+    ``route`` (the aligner's keywords) in turn, in a fresh process: once a
     trace of a process has come back empty, that process's later traces
     of this batch have held every kernel but its first,
-    collect_intv_kernel, six times running, while a fresh process's hold
-    them all.  The
+    collect_intv_kernel, six times running, and late in a run traces of
+    the wave route have held one wave fewer than it launched, while a
+    fresh process's hold them all.  The
     child builds nothing (kernels, host libraries and the image are in
     build/), makes the same reads from the same seeds, and must launch what
-    ``launches`` says in its own counted run before it traces a rerun.
-    Returns busy seconds, wall seconds and the per-kernel sums."""
-    spec = json.dumps(dict(tag=tag, route=route, mode=mode, launches=launches))
+    each run's ``launches`` says in its own counted run before it traces a
+    rerun.  Returns per run busy seconds, wall seconds and the per-kernel
+    sums."""
+    spec = json.dumps(dict(mode=mode, runs=runs))
     res = subprocess.run([sys.executable, os.path.abspath(__file__),
                           "--traced-batch", spec], capture_output=True,
                          text=True, timeout=600)
     for line in res.stdout.splitlines()[:-1]:
         print(line)
     if res.returncode != 0:
-        raise AssertionError(f"{tag}: the traced rerun in a fresh process "
-                             f"failed: {res.stderr[-2000:]}")
-    out = json.loads(res.stdout.splitlines()[-1])
-    return out["busy"], out["wall"], {k: tuple(v) for k, v in out["per"].items()}
+        raise AssertionError(f"{runs[0]['tag']}: the traced rerun in a fresh "
+                             f"process failed: {res.stderr[-2000:]}")
+    return [(r["busy"], r["wall"], {k: tuple(v) for k, v in r["per"].items()})
+            for r in json.loads(res.stdout.splitlines()[-1])]
 
 
 def traced_batch_child(spec: str) -> int:
-    """The child of ``_fresh_traced_batch``: one JSON line, last."""
+    """The child of ``_fresh_traced_batches``: one JSON line, last."""
     import numpy as np
     import torch
 
@@ -725,28 +765,36 @@ def traced_batch_child(spec: str) -> int:
     dev = torch.device("cuda", 0)
     codes, img, _ = _synthetic_index(ECOLI_LEN)
     index = BwaMemIndex(img)
-    rng = np.random.default_rng(SEED + 1)  # phase_main_path's reads
-    warm = simulate_pairs(codes, rng, 8)
-    reads = simulate_pairs(codes, rng, N_PAIRS)
+    if spec["mode"] == "midlen":  # phase_midlen's reads
+        warm, reads = _midlen_reads(codes)
+    else:
+        rng = np.random.default_rng(SEED + 1)  # phase_main_path's reads
+        warm = simulate_pairs(codes, rng, 8)
+        reads = simulate_pairs(codes, rng, N_PAIRS)
     if spec["mode"] == "se":
         reads = reads[:N_SE]
-    port = BwaMemAligner(index, device=dev,
-                         **{"device_pipeline": False, **spec["route"]})
-    if spec["mode"] == "pe":
-        _pe_setup(port)
-    port.align_seqs(warm)
-    _reset_counts()
-    port.align_seqs(reads)
-    torch.cuda.synchronize(dev)
-    counted = {k: _launched()[k] for k in spec["launches"]}
-    if counted != spec["launches"]:
-        raise AssertionError(f"the fresh process launched {counted}, the "
-                             f"run {spec['launches']}")
-    busy, wall, per = _traced_batch(spec["tag"], port, reads, dev,
-                                    spec["launches"])
+    out = []
+    for run in spec["runs"]:
+        port = BwaMemAligner(index, device=dev,
+                             **{"device_pipeline": False, **run["route"]})
+        if spec["mode"] == "pe":
+            _pe_setup(port)
+        elif spec["mode"] == "midlen":
+            _midlen_setup(port)
+        port.align_seqs(warm)
+        _reset_counts()
+        port.align_seqs(reads)
+        torch.cuda.synchronize(dev)
+        counted = {k: _launched()[k] for k in run["launches"]}
+        if counted != run["launches"]:
+            raise AssertionError(f"the fresh process launched {counted}, the "
+                                 f"run {run['launches']}")
+        busy, wall, per = _traced_batch(run["tag"], port, reads, dev,
+                                        run["launches"])
+        out.append(dict(busy=busy, wall=wall, per={
+            k: v for k, v in per.items() if k in KERNEL_FN}))
     index.close()
-    print(json.dumps(dict(busy=busy, wall=wall, per={
-        k: v for k, v in per.items() if k in KERNEL_FN})))
+    print(json.dumps(out))
     return 0
 
 
@@ -2216,6 +2264,40 @@ def phase_chain2aln_kernels(dev, index, batch):
     }
 
 
+def _check_fused(tag, res, reads, min_share=0.95):
+    """The fused path's kernels ran in ``res``'s run, every read was on the
+    fused path or the staged one once, at least ``min_share`` on the fused
+    path (below it, the share and the reads that left by cause are printed
+    first), every read that left was flagged, the seeding checks hold, and
+    no extension wave ran when no read left.  Returns the fused share."""
+    fs, la, n = res["fused_stats"], res["fused_launches"], len(reads)
+    if any(v <= 0 for v in la.values()):
+        raise AssertionError(f"{tag}: the chain-to-region kernels did not run")
+    if fs["device_reads"] + fs["host_reads"] != n:
+        raise AssertionError(f"{tag}: reads {fs['device_reads']} + "
+                             f"{fs['host_reads']}, not {n}")
+    share = fs["device_reads"] / n
+    if share < min_share:
+        print(f"  {tag}: fused share {share:.4f} below {min_share}: reads that "
+              f"left by cause: seeded on the host {fs['host_seeded']} (K "
+              f"{res['seed_stats']['k_overflows']}, M "
+              f"{res['seed_stats']['m_overflows']}), flagged by C "
+              f"{fs['c_overflows']}, fcs {fs['fcs_reads']}, past the loop "
+              f"kernel's length {fs['long_reads']}")
+        raise AssertionError(f"{tag}: only {fs['device_reads']} of {n} reads "
+                             "on the fused path")
+    _check_seeded(tag, res, reads, min_share)
+    if any(v <= 0 for v in res["chain_launches"].values()):
+        raise AssertionError(f"{tag}: the chain kernels did not run")
+    if fs["host_reads"] != (fs["host_seeded"] + fs["c_overflows"]
+                            + fs["fcs_reads"] + fs["long_reads"]):
+        raise AssertionError(f"{tag}: a read left the fused path unflagged")
+    if fs["host_reads"] == 0 and (res["waves"] or res["launches"]):
+        raise AssertionError(f"{tag}: {res['waves']} extension waves though "
+                             "no read left the fused path")
+    return share
+
+
 def phase_fused(dev, index, runs, chain_run, big):
     """Phase 15: phase 4's batches and phase 8's chr20 batch through the
     fused device path."""
@@ -2231,24 +2313,8 @@ def phase_fused(dev, index, runs, chain_run, big):
         port.align_seqs(r["warm"])
         res = _port_run(tag, port, r["batch"], r["ref"], r["t_host"], dev,
                         fused=True)
-        fs, la, n = res["fused_stats"], res["fused_launches"], len(r["batch"])
-        if any(v <= 0 for v in la.values()):
-            raise AssertionError(f"{tag}: the chain-to-region kernels did not run")
-        _check_seeded(tag, res, r["batch"])
-        if any(v <= 0 for v in res["chain_launches"].values()):
-            raise AssertionError(f"{tag}: the chain kernels did not run")
-        if fs["device_reads"] + fs["host_reads"] != n:
-            raise AssertionError(f"{tag}: reads {fs['device_reads']} + "
-                                 f"{fs['host_reads']}, not {n}")
-        if fs["device_reads"] < 0.95 * n:
-            raise AssertionError(f"{tag}: only {fs['device_reads']} of {n} reads "
-                                 "on the fused path")
-        if fs["host_reads"] != (fs["host_seeded"] + fs["c_overflows"]
-                                + fs["fcs_reads"] + fs["long_reads"]):
-            raise AssertionError(f"{tag}: a read left the fused path unflagged")
-        if fs["host_reads"] == 0 and (res["waves"] or res["launches"]):
-            raise AssertionError(f"{tag}: {res['waves']} extension waves though "
-                                 "no read left the fused path")
+        fs, la = res["fused_stats"], res["fused_launches"]
+        _check_fused(tag, res, r["batch"])
         st = res["stages"]
         print(f"  {tag}: device_pipeline {st['device_pipeline']:.4f} s, "
               f"native_tail {st['native_tail']:.4f} s, untimed rest "
@@ -3056,6 +3122,543 @@ def phase_devices(dev, index, codes, runs, card):
     return dict(rates=rates, sharded=sharded, sa=sa)
 
 
+MIDLEN_PAIRS = 3000
+MIDLEN_LEN = 300
+MIDLEN_ISIZE = 700
+# the reads of phase 19's batch the plain chain-to-region version runs on
+# (a heavy 300-base read takes it seconds on the card); every other plain
+# version runs on the whole batch
+MIDLEN_PLAIN_SAMPLE = 64
+MIDLEN_ROUTES = (("fused", dict(device_pipeline=True)),
+                 ("staged", dict(WAVES, device_stages=ALL_STAGES)),
+                 ("default", WAVES))
+
+
+def _midlen_reads(codes):
+    """bench.py's "midlen" reads on the 4.6 Mbp genome, drawn as
+    benchmarks/bench.py draws them: 8 warm-up pairs, then 3,000 pairs of
+    300 bases, insert 700."""
+    import numpy as np
+
+    from bwamem_tpu_torch.utils.synth import simulate_pairs
+
+    rng = np.random.default_rng(SEED + 1)
+    kw = dict(read_len=MIDLEN_LEN, isize_mean=MIDLEN_ISIZE)
+    return (simulate_pairs(codes, rng, 8, **kw),
+            simulate_pairs(codes, rng, MIDLEN_PAIRS, **kw))
+
+
+def _midlen_setup(aligner):
+    """Pairs with the bench's fixed statistics, insert 700 +- 70."""
+    from bwamem_tpu_torch import BwaMemPairEndStats
+
+    aligner.align_pairs()
+    aligner.set_proper_pair_end_stats(
+        BwaMemPairEndStats.of(MIDLEN_ISIZE, MIDLEN_ISIZE // 10))
+
+
+def _midlen_kernels(dev, index, batch, wave):
+    """Phase 19's kernel checks on the midlen batch, each kernel against its
+    plain version on the card: collect_intv (with its work table) and
+    sample_ks by ``seed_sa``, the SA walk of their rows, chain and
+    chain_emit on the batch's device seed table, the prep kernel's windows
+    and seed order against ``chain_windows``, chain2aln on
+    MIDLEN_PLAIN_SAMPLE reads (and its sample's regions against the whole
+    batch's), and the wave kernel on the default route's largest ``wave``.
+    Returns per kernel its largest difference, the K slots the reads
+    needed, the chain-to-region work and the plain versions' sizes."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine import pipeline
+    from bwamem_tpu_torch.engine.exec_ctx import ExecConfig
+    from bwamem_tpu_torch.engine.pipeline_device import ref_t_cap
+    from bwamem_tpu_torch.engine.state import (device_contigs, device_fm,
+                                               device_ref, device_scoring)
+    from bwamem_tpu_torch.ops import chain as co
+    from bwamem_tpu_torch.ops import extend as ext
+    from bwamem_tpu_torch.ops import fmindex as fmops
+    from bwamem_tpu_torch.ops import pipeline_fused as fo
+    from bwamem_tpu_torch.ops import seed as so
+    from bwamem_tpu_torch.utils.encoding import seq_to_codes_batch
+
+    opt = MemOptions()
+    eng = index._require()
+    reads = seq_to_codes_batch(batch)
+    B = len(reads)
+    err, plain_ms = {}, {}
+    # seeding and the walks of its SA rows
+    dfm = device_fm(eng.fm, dev)
+    params = so.SeedParams.from_opt(opt)
+    qseq, qlen = so.pad_reads(reads, dev)
+    work = torch.zeros((B, 5), dtype=torch.int32, device=dev)
+    pwork = torch.zeros_like(work)
+    got = so.seed_sa(dfm, qseq, qlen, params, K=so.K_MAX, work=work)
+    plain, plain_ms["collect_intv"] = _once_ms(lambda: so.seed_sa_torch(
+        dfm, qseq, qlen, params, K=so.K_MAX, work=pwork), dev)
+    iv, piv, ok = got.intervals, plain.intervals, ~got.intervals.ovf
+    err["collect_intv"] = max(_diff(iv.ovf, piv.ovf), _diff(iv.n[ok], piv.n[ok]),
+                              _diff(iv.rows[ok], piv.rows[ok]),
+                              _diff(iv.nks, piv.nks), _diff(work, pwork))
+    err["sample_ks"] = max(_diff(got.flat, plain.flat), _diff(got.ks, plain.ks))
+    rbegs, plain_ms["sa_lookup"] = _once_ms(
+        lambda: fmops.sa_lookup_torch(dfm, plain.ks), dev)
+    err["sa_lookup"] = _diff(fmops.sa_lookup(dfm, got.ks), rbegs)
+    w = work.cpu().numpy()
+    k_slots = dict(k_needed_mean=float(w[:, 4].mean()),
+                   k_needed_max=int(w[:, 4].max()),
+                   k_flags=int((w[:, 3] == 1).sum()),
+                   m_flags=int((w[:, 3] == 2).sum()))
+    # chaining, on the table the aligner's chain stage gets
+    qlens = np.asarray([len(r) for r in reads], dtype=np.int32)
+    tab, _, _, _ = pipeline._device_table(opt, eng, reads, qlens, ExecConfig(
+        device=dev, device_seed=True, device_sa_lookup=True, device_chain=True))
+    ctg = device_contigs(eng.idx.bns, dev)
+    cparams = co.ChainParams.from_opt(opt)
+    chains = co.chain_cuda(ctg, tab, cparams)
+    pchains, plain_ms["chain"] = _once_ms(
+        lambda: co.chain_torch(ctg, tab, cparams), dev)
+    err["chain"] = err["chain_emit"] = max(
+        _diff(g, p) for g, p in zip(chains, pchains))
+    # chain to regions: the fused path's operands
+    ref = device_ref(eng.idx, dev)
+    run = ~chains.ovf
+    eparams = fo.ExtendParams.from_opt(opt)
+    mat = device_scoring(opt, dev).mat
+    t_cap = ref_t_cap(opt, int(qlens.max()))
+    whole = fo.chain2aln_cuda(ctg, ref, chains, qseq, qlen, run, eparams, mat,
+                              t_cap)
+    chains_p, lay, _, ql, _ = fo.prepare(ctg, ref, chains, qseq, qlen, run)
+    rmax = torch.empty((chains_p.chain_rows.shape[0], 2), dtype=torch.int64,
+                       device=dev)
+    srt = torch.empty(chains_p.seed_rows.shape[0], dtype=torch.int32, device=dev)
+    flags = torch.zeros(1, dtype=torch.int32, device=dev)
+    fo.chain2aln_prep_launch(ctg, chains_p, lay, ql, eparams, rmax, srt, flags)
+    fo.raise_flags(int(flags.item()))
+    err["chain2aln_prep"] = _prep_err(ctg, chains_p, lay, ql, eparams, rmax, srt)
+    rng = np.random.default_rng(SEED + 19)
+    pick = sorted(rng.choice(B, min(MIDLEN_PLAIN_SAMPLE, B), replace=False).tolist())
+    idx = torch.tensor(pick, device=dev)
+    sub = (ctg, ref, _chains_of(chains, idx), qseq[idx], qlen[idx], run[idx],
+           eparams, mat, t_cap)
+    part = fo.chain2aln_cuda(*sub)
+    ppart, plain_ms["chain2aln"] = _once_ms(lambda: fo.chain2aln_torch(*sub),
+                                            dev)
+    every = _region_rows(whole)
+    err["chain2aln"] = max(
+        max(_diff(getattr(part, k), getattr(ppart, k))
+            for k in ("reg_c", "reg_i", "nregs", "seed_off", "work")),
+        sum(a != every[i] for a, i in zip(_region_rows(part), pick)))
+    wk = whole.work.cpu().numpy()
+    c2a = {k: int(wk[:, col].sum()) for k, col in (
+        ("cells", fo.W_CELLS), ("rows", fo.W_ROWS), ("tasks", fo.W_TASKS),
+        ("jobs", fo.W_JOBS))}
+    # the wave kernel on the default route's largest wave
+    sc = device_scoring(opt, dev)
+    args = (*_wave_tensors(wave, dev), sc.mat, sc.o_del, sc.e_del, sc.o_ins,
+            sc.e_ins, sc.zdrop, sc.max_sc)
+    pw, plain_ms["ksw_extend"] = _once_ms(lambda: ext.ksw_extend_torch(*args),
+                                          dev)
+    err["ksw_extend"] = _max_err(ext.ksw_extend_cuda(*args), pw)
+    print(f"  midlen kernels against their plain versions on the card "
+          f"(max|kernel-plain|): " + ", ".join(f"{k} {v}" for k, v in err.items())
+          + f"; plain versions on {B} reads (chain2aln on {len(pick)}), ms "
+          "once: " + ", ".join(f"{k} {v:.1f}" for k, v in plain_ms.items()))
+    print(f"  midlen: K slots needed mean {k_slots['k_needed_mean']:.2f}, max "
+          f"{k_slots['k_needed_max']} (flagged at K = {so.K_MAX}: "
+          f"{k_slots['k_flags']}, at M = {so.M_SLOTS}: {k_slots['m_flags']}); "
+          f"chain2aln {c2a['cells']} band cells, {c2a['rows']} DP rows, "
+          f"{c2a['tasks']} tasks, {c2a['jobs']} jobs")
+    if any(err.values()):
+        raise AssertionError(f"midlen: a kernel disagrees with its plain "
+                             f"version: {err}")
+    return dict(err=err, plain_ms=plain_ms, k_slots=k_slots, work=c2a,
+                plain_reads=dict(chain2aln=len(pick), others=B))
+
+
+def phase_midlen(dev, index, codes, card):
+    """Phase 19: bench.py's "midlen" configuration (6,000 reads of 300
+    bases in pairs, insert 700, on the ecoli genome of phase 4) through the
+    fused, staged and default routes, each record-equal to the host
+    whole-batch route's; the fused share by cause; reads/s a route; each
+    path kernel's device time over a profiled batch (the fused route's and,
+    for the wave kernel, the default route's, in a fresh process); and
+    every kernel of the path against its plain version on this batch."""
+    from bwamem_tpu_torch import BwaMemAligner
+    from bwamem_tpu_torch.engine.extend_batch import STATS
+    from bwamem_tpu_torch.engine.pipeline import SA_STATS
+    from bwamem_tpu_torch.ops import extend as ext
+
+    warm, batch = _midlen_reads(codes)
+    n = len(batch)
+    host = _host_aligner(index)
+    _midlen_setup(host)
+    host.align_seqs(warm)
+    ref, t_host = _timed(host, batch, dev)
+    routes = {"host": dict(seconds=t_host, reads_per_s=n / t_host,
+                           records_equal=n)}
+    res_of = {}
+    for route, kw in MIDLEN_ROUTES:
+        tag = f"midlen {route}"
+        port = BwaMemAligner(index, device=dev, **kw)
+        _midlen_setup(port)
+        port.align_seqs(warm)
+        scalar0 = ext.SCALAR_JOBS
+        res = _port_run(tag, port, batch, ref, t_host, dev,
+                        fused=route == "fused")
+        res["scalar_jobs"] = ext.SCALAR_JOBS - scalar0
+        if route == "fused":
+            res["share"] = _check_fused(tag, res, batch)
+        else:
+            wave = STATS.largest_wave
+            res["wave"] = wave
+            res["device_scalar_jobs"] = STATS.device_scalar_jobs
+            if route == "staged":
+                _check_seeded(tag, res, batch)
+                _check_chained(tag, res, batch)
+                if res["sa_launches"] <= 0 or SA_STATS.host_sa_rows:
+                    raise AssertionError(f"{tag}: SA walks did not all run on "
+                                         "the card")
+            print(f"  {tag}: largest wave {len(wave[0])} jobs, Q "
+                  f"{max(len(q) for q, _ in wave[0])}, T "
+                  f"{max(len(t) for _, t in wave[0])}; jobs on the wave "
+                  f"kernel's scalar path {res['scalar_jobs']} "
+                  f"(STATS.device_scalar_jobs {res['device_scalar_jobs']})")
+        routes[route] = dict(seconds=res["seconds"],
+                             reads_per_s=n / res["seconds"], records_equal=n,
+                             stages=res["stages"])
+        print(f"  {tag}: {n / res['seconds']:.1f} reads/s ({res['seconds']:.3f} "
+              f"s; the host route {n / t_host:.1f}) [{card}]")
+        res_of[route] = res
+    fused, default = res_of["fused"], res_of["default"]
+    (busy, wall, per), (_, _, per_waves) = _fresh_traced_batches("midlen", [
+        dict(tag="midlen fused", route=dict(device_pipeline=True), launches={
+            **fused["seed_launches"], **fused["chain_launches"],
+            **fused["fused_launches"], "sa_lookup": fused["sa_launches"]}),
+        dict(tag="midlen default", route=WAVES,
+             launches={"ksw_extend": default["launches"]})])
+    per["ksw_extend"] = per_waves["ksw_extend"]
+    print(f"  midlen fused and default: again under torch.profiler, in a fresh "
+          f"process: the fused batch's card busy {busy:.4f} s of {wall:.2f} s, "
+          f"idle share {1 - busy / wall:.4f}; kernels summed over the batch "
+          f"(ksw_extend over the default route's waves): " + _per_kernel(per))
+    checks = _midlen_kernels(dev, index, batch, default["wave"])
+    kernels = {}
+    for name, e in checks["err"].items():
+        ms, nl = per.get(name, (0.0, 0))
+        kernels[name] = dict(max_abs_err=e, batch_ms=ms, batch_launches=nl,
+                             batch_ms_by="profiler")
+        if nl <= 0:
+            raise AssertionError(f"midlen: {name} was not launched")
+    fs, ss = fused["fused_stats"], fused["seed_stats"]
+    cs = res_of["staged"]["chain_stats"]
+    wave = default["wave"]
+    out = dict(
+        card=card, pairs=MIDLEN_PAIRS, reads=n, read_len=MIDLEN_LEN,
+        insert=MIDLEN_ISIZE, routes=routes, fused_share=fused["share"],
+        fused_stats={k: fs[k] for k in (
+            "device_reads", "host_reads", "host_seeded", "c_overflows",
+            "fcs_reads", "long_reads", "tasks", "pruned", "jobs",
+            "ref_s_overflows", "ref_c_overflows", "ref_r_overflows",
+            "ref_t_overflows")},
+        seed_stats={k: ss[k] for k in (
+            "device_reads", "host_reads", "k_overflows", "m_overflows",
+            "ref_k_overflows")},
+        k_slots=checks["k_slots"],
+        chain_stats={k: cs[k] for k in (
+            "device_reads", "host_reads", "c_overflows", "ref_s_overflows",
+            "ref_c_overflows")},
+        largest_wave=dict(jobs=len(wave[0]),
+                          Q=max(len(q) for q, _ in wave[0]),
+                          T=max(len(t) for _, t in wave[0])),
+        scalar_jobs=default["scalar_jobs"], chain2aln_work=checks["work"],
+        idle_share=1 - busy / wall, kernels=kernels,
+        plain_ms=checks["plain_ms"], plain_reads=checks["plain_reads"])
+    print(f"  midlen: fused share {fused['share']:.4f}; reads that left the "
+          f"fused path: seeded on the host {fs['host_seeded']} (K "
+          f"{ss['k_overflows']}, M {ss['m_overflows']}), C "
+          f"{fs['c_overflows']}, fcs {fs['fcs_reads']}, long "
+          f"{fs['long_reads']} [{card}]")
+    print(json.dumps({"midlen": out}))
+    return out
+
+
+GRCH38_ROWS = 6_200_000_000  # GRCh38's 2 l_pac: 48,437,500 blocks of 128
+GRCH38_SA_INTV = 32
+GRCH38_L_PAC = 3_100_000_000  # one strand of GRCh38
+GRCH38_SEED_READS = 32
+GRCH38_RANK_READS = 512
+GRCH38_CHAIN_READS = 256
+GRCH38_PLAIN_READS = 64
+GRCH38_ORACLE_READS = 16
+DOMAIN = 1 << 32  # what phase 20's rows and positions must reach
+
+
+def _grch38_seeding(dev, card):
+    """Phase 20 (a): seeding and SA walks on a synthetic_fmindex of
+    GRCh38's 6.2e9 rows, sa_intv 32, against the host oracle; the rank
+    kernels and the walk timed warm and cold beside their bounds."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine.state import device_fm
+    from bwamem_tpu_torch.ops import fmindex as fmops
+    from bwamem_tpu_torch.parallel.dryrun import _seed_device, _seed_host
+    from bwamem_tpu_torch.utils.synth import synthetic_fmindex
+
+    rng = np.random.default_rng(SEED + 38)
+    t0 = time.perf_counter()
+    fm = synthetic_fmindex(GRCH38_ROWS, rng, sa_intv=GRCH38_SA_INTV)
+    t1 = time.perf_counter()
+    dfm = device_fm(fm, dev)
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    nbytes = dict(lines=dfm.lines.numel() * 4, sa=dfm.sa.numel() * 8)
+    print(f"  synthetic FM index of {GRCH38_ROWS} rows (sa_intv "
+          f"{GRCH38_SA_INTV}) on the host in {t1 - t0:.1f} s; on the card in "
+          f"{t2 - t1:.1f} s: {dfm.lines.shape[0]} lines ({nbytes['lines'] / 1e9:.3f} "
+          f"GB), {dfm.sa.numel()} SA samples ({nbytes['sa'] / 1e9:.3f} GB) "
+          f"[{card}]")
+    # seed+SA on the card against the host oracle (the dry run's step 3)
+    opt = MemOptions(min_seed_len=14)
+    reads = [rng.integers(0, 4, 64).astype(np.uint8)
+             for _ in range(GRCH38_SEED_READS)]
+    reads.append(np.full(24, 4, dtype=np.uint8))  # all-N edge
+    got, ovf, raw = _seed_device(opt, dfm, reads)
+    want = _seed_host(opt, fm, reads)
+    n_intv = n_rb = bad = checked = 0
+    top_bound = top_pos = -1
+    for i, (g, w) in enumerate(zip(got, want)):
+        if ovf[i]:  # past the M-slot budget: the aligner seeds it on the host
+            continue
+        checked += 1
+        bad += ([x for x, _ in g] != [x for x, _ in w] or not all(
+            np.array_equal(a, b) for (_, a), (_, b) in zip(g, w)))
+        n_intv += len(w)
+        n_rb += sum(len(b) for _, b in w)
+        for (x0, x1, s, _, _), pos in g:
+            top_bound = max(top_bound, x0 + s - 1, x1 + s - 1)
+            if len(pos):
+                top_pos = max(top_pos, int(pos.max()))
+    print(f"  seed+SA on the card, {len(reads)} reads of 64 bases (min_seed_len "
+          f"14), {checked} not flagged by M: {n_intv} intervals, {n_rb} SA "
+          f"positions; reads differing from the host oracle {bad}; the largest "
+          f"interval bound {top_bound} (2^32 = {DOMAIN}), the largest SA "
+          f"position {top_pos}")
+    if bad or not n_rb:
+        raise AssertionError("GRCh38 domain: seed+SA differs from the host oracle")
+    if top_bound < DOMAIN or top_pos < DOMAIN:
+        raise AssertionError("GRCh38 domain: no interval bound or SA position "
+                             "reached 2^32")
+    # the SA walk of those rows: warm (repeated) and cold, plain, bound
+    k = raw[5]
+    out = torch.empty_like(k)
+    flags = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def walk():
+        fmops.sa_lookup_launch(dfm, k, out, flags)
+
+    # CUDA events around a launch of a few tens of µs time the host's call,
+    # and this late in the run the profiler's traces have come back empty:
+    # each call is timed by events queued behind a busy-wait of the card
+    walk_ms = _queued_ms(walk, 20, dev)
+    walk_cold = _queued_ms(walk, 11, dev, cold=True)
+    plain, walk_plain = _once_ms(lambda: fmops.sa_lookup_torch(dfm, k), dev)
+    fmops._raise_flags("sa_lookup", flags)
+    e_walk = max(_diff(out, plain), _diff(out, raw[6]))
+    steps = _walk_lengths(dfm, k)
+    mean, longest = float(steps.sum()) / max(k.numel(), 1), int(steps.max())
+    walk_bound = _line_bound(dfm, 16 * k.numel() + 8 * k.numel(),
+                             mean * k.numel(), 10 * mean * k.numel())
+    print(f"  SA walk of those {k.numel()} rows ({mean:.3f} LF steps a walk, "
+          f"longest {longest}): kernel {walk_ms:.4f} ms warm, {walk_cold:.4f} "
+          f"ms cold (queued events), plain PyTorch {walk_plain:.4f} ms (once); "
+          f"bound "
+          f"{walk_bound['bound_ms']:.6f} ms ({walk_bound['bound_by']}); "
+          f"max|kernel-plain| {e_walk} [{card}]")
+    if e_walk:
+        raise AssertionError("GRCh38 domain: the SA walk disagrees")
+    # occ4 and bwt_extend on seeding-shaped work, each step against the
+    # host FMIndex (phase 8's drive: random reads die after ~16 bases here)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    rank_reads = [bases[rng.integers(0, 4, 150)].tobytes()
+                  for _ in range(GRCH38_RANK_READS)]
+    launches, err, _ = _rank_drive(dev, fm, rank_reads)
+    # then timed warm and cold: occ4 on 2^20 random rows, bwt_extend on
+    # 2^16 bi-intervals six forward steps into random reads
+    rows = rng.integers(-1, fm.seq_len + 1, 1 << 20)
+    codes = rng.integers(0, 4, (1 << 16, 7))
+    x0, x1, sz = fm.set_intv(codes[:, 0])
+    ar = np.arange(len(codes))
+    for i in range(1, 7):
+        e0, e1, es = fm.extend(x0, x1, sz, False)
+        j = 3 - codes[:, i]
+        x0, x1, sz = e0[ar, j], e1[ar, j], es[ar, j]
+    q = torch.from_numpy(rows).to(dev)
+    cnt = torch.empty((len(q), 4), dtype=torch.int32, device=dev)
+    xs = [torch.from_numpy(np.asarray(a, np.int64)).to(dev) for a in (x0, x1, sz)]
+    outs = [torch.empty((len(ar), 4), dtype=dt, device=dev)
+            for dt in (torch.int64, torch.int64, torch.int32)]
+    cases = {
+        "occ4": (len(q), lambda: fmops.occ4_launch(dfm, q, cnt, flags),
+                 lambda: fmops.occ4_torch(dfm, q), lambda: [cnt],
+                 _line_bound(dfm, 24 * len(q), len(q))),
+        "bwt_extend": (len(ar), lambda: fmops.extend_launch(
+            dfm, *xs, False, *outs, flags),
+                       lambda: fmops.extend_torch(dfm, *xs, False),
+                       lambda: outs,
+                       _line_bound(dfm, 104 * len(ar), 2 * len(ar),
+                                   20 * len(ar))),
+    }
+    timing = {}
+    for name, (n_q, kernel, plain_fn, got, bound) in cases.items():
+        ms = _queued_ms(kernel, 20, dev)
+        cold_ms = _queued_ms(kernel, 11, dev, cold=True)
+        plain, plain_ms = _once_ms(plain_fn, dev)
+        plain = [plain] if name == "occ4" else plain
+        e = max(_diff(g, p) for g, p in zip(got(), plain))
+        fmops._raise_flags(name, flags)
+        timing[name] = dict(ms=ms, cold_ms=cold_ms, ms_by="queued events",
+                            plain_ms=plain_ms, max_abs_err=e, queries=n_q,
+                            bound_ms=bound["bound_ms"],
+                            bound_by=bound["bound_by"])
+        print(f"  {name} on {n_q} queries at {GRCH38_ROWS} rows: kernel "
+              f"{ms:.4f} ms warm, {cold_ms:.4f} ms cold (queued events), "
+              f"plain PyTorch "
+              f"{plain_ms:.4f} ms (once); bound {bound['bound_ms']:.6f} ms "
+              f"({bound['bound_by']}); max|kernel-plain| {e} [{card}]")
+        if e:
+            raise AssertionError(f"GRCh38 domain: {name} disagrees")
+    timing["sa_lookup"] = dict(ms=walk_ms, cold_ms=walk_cold,
+                               ms_by="queued events", plain_ms=walk_plain,
+                               max_abs_err=e_walk, rows=k.numel(),
+                               mean_steps=mean, longest=longest,
+                               bound_ms=walk_bound["bound_ms"],
+                               bound_by=walk_bound["bound_by"])
+    return dict(rows=GRCH38_ROWS, sa_intv=GRCH38_SA_INTV, card_bytes=nbytes,
+                host_build_s=t1 - t0, reads=len(reads), checked=checked,
+                intervals=n_intv, positions=n_rb, max_interval_bound=top_bound,
+                max_sa_position=top_pos, rank_launches=launches,
+                rank_err=err, kernels=timing)
+
+
+def _grch38_chains(dev, card):
+    """Phase 20 (b): the chain and chain-to-region kernels on reads of a
+    random one-contig pac of 3.1 Gbp (its reverse strand past 2^32), seeded
+    at their known positions (``utils.big_ref``): against the plain
+    versions on the card and the host oracle."""
+    import numpy as np
+    import torch
+
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine.pipeline_device import ref_t_cap
+    from bwamem_tpu_torch.engine.state import (device_contigs, device_ref,
+                                               device_scoring)
+    from bwamem_tpu_torch.ops import chain as co
+    from bwamem_tpu_torch.ops import pipeline_fused as fo
+    from bwamem_tpu_torch.ops import seed as so
+    from bwamem_tpu_torch.utils import big_ref
+
+    rng = np.random.default_rng(SEED + 39)
+    t0 = time.perf_counter()
+    plan = big_ref.plan(GRCH38_L_PAC, rng, GRCH38_CHAIN_READS)
+    idx = big_ref.big_index(GRCH38_L_PAC, rng, plan)
+    big = big_ref.draw(idx, plan, rng)
+    t1 = time.perf_counter()
+    opt = MemOptions()
+    ctg = device_contigs(idx.bns, dev)
+    ref = device_ref(idx, dev)
+    tab = big_ref.seed_table(big, dev)
+    torch.cuda.synchronize(dev)
+    print(f"  pac of {GRCH38_L_PAC} random bases ({ref.pac.numel() / 1e6:.1f} MB "
+          f"on the card), {len(big.reads)} reads (150 and 300 bases) and their "
+          f"seeds in {t1 - t0:.1f} s; the pac copied in "
+          f"{time.perf_counter() - t1:.1f} s")
+    params = co.ChainParams.from_opt(opt)
+    _reset_counts()
+    chains = co.chain(ctg, tab, params)
+    qseq, qlen = so.pad_reads(big.reads, dev)
+    run = ~chains.ovf
+    eparams = fo.ExtendParams.from_opt(opt)
+    mat = device_scoring(opt, dev).mat
+    t_cap = ref_t_cap(opt, max(len(r) for r in big.reads))
+    regs = fo.chain2aln(ctg, ref, chains, qseq, qlen, run, eparams, mat, t_cap)
+    launched = {k: v for k, v in _launched().items() if v}
+    if set(launched) != {"chain", "chain_emit", "chain2aln_prep", "chain2aln"}:
+        raise AssertionError(f"GRCh38 domain: launches {launched}")
+    e_chain = max(_diff(g, p) for g, p in zip(chains, co.chain_torch(
+        ctg, tab, params)))
+    # the plain chain-to-region version on a sample of the reads
+    pick = torch.arange(GRCH38_PLAIN_READS, device=dev)
+    sub = (ctg, ref, _chains_of(chains, pick), qseq[pick], qlen[pick],
+           run[pick], eparams, mat, t_cap)
+    got = fo.chain2aln_cuda(*sub)
+    plain, plain_ms = _once_ms(lambda: fo.chain2aln_torch(*sub), dev)
+    e_c2a = max(_diff(getattr(got, k), getattr(plain, k))
+                for k in ("reg_c", "reg_i", "nregs", "seed_off", "work"))
+    rows_all = _region_rows(regs)
+    e_sub = sum(a != b for a, b in zip(_region_rows(got),
+                                       rows_all[:GRCH38_PLAIN_READS]))
+    # the host oracle on the first reads
+    lists, (ovf, _, _) = co.chain_lists(chains)
+    which = range(GRCH38_ORACLE_READS)
+    want = big_ref.oracle_regions(opt, idx, big, which)
+    e_or_chain = sum([_chain_key(c, True) for c in lists[i]]
+                     != [_chain_key(c, True) for c in w[0]]
+                     for i, w in zip(which, want))
+    e_or_regs = sum(rows_all[i] != _reg_tuples([w[1]])[0]
+                    for i, w in zip(which, want))
+    rbegs = tab.rbegs.cpu().numpy()
+    fwd = rbegs[rbegs < GRCH38_L_PAC]
+    rbs = [r[0] for rs in rows_all for r in rs]
+    print(f"  chain on {len(big.reads)} reads ({len(rbegs)} seeds; the largest "
+          f"forward position {int(fwd.max())} (2^31 = {DOMAIN // 2}), the largest "
+          f"position {int(rbegs.max())} (2^32 = {DOMAIN}); {int(ovf.sum())} "
+          f"flagged by C), {int(chains.n_chain.sum())} chains; chain2aln "
+          f"{int(regs.nregs.sum())} regions, the largest rb {max(rbs)}; launches "
+          f"{launched}")
+    print(f"  max|kernel-plain| chain {e_chain}, chain2aln {e_c2a} (plain on "
+          f"{GRCH38_PLAIN_READS} reads, {plain_ms:.1f} ms once), reads whose "
+          f"regions differ between that sample and the whole batch {e_sub}; "
+          f"reads differing from the host oracle (chain_flt(mem_chain), "
+          f"chain2aln; {GRCH38_ORACLE_READS} reads): chains {e_or_chain}, "
+          f"regions {e_or_regs} [{card}]")
+    if e_chain or e_c2a or e_sub or e_or_chain or e_or_regs:
+        raise AssertionError("GRCh38 domain: a chain or chain-to-region kernel "
+                             "disagrees with its references")
+    if (int(fwd.max()) < DOMAIN // 2 or int(rbegs.max()) < DOMAIN
+            or max(rbs) < DOMAIN):
+        raise AssertionError("GRCh38 domain: the reads did not reach 2^31 "
+                             "forward and 2^32 on the reverse strand")
+    return dict(l_pac=GRCH38_L_PAC, pac_bytes=ref.pac.numel(),
+                reads=len(big.reads), seeds=len(rbegs),
+                max_forward_position=int(fwd.max()),
+                max_position=int(rbegs.max()), max_region_rb=max(rbs),
+                chains=int(chains.n_chain.sum()), regions=int(regs.nregs.sum()),
+                launches=launched, chain_err=e_chain, chain2aln_err=e_c2a,
+                plain_reads=GRCH38_PLAIN_READS,
+                oracle_reads=GRCH38_ORACLE_READS)
+
+
+def phase_grch38(dev, card):
+    """Phase 20: GRCh38-sized coordinates past 2^32 (see the two parts)."""
+    import gc
+
+    import torch
+
+    seeding = _grch38_seeding(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    chains = _grch38_chains(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(card=card, seeding=seeding, chains=chains)
+    print(json.dumps({"grch38_domain": out}))
+    return out
+
+
 def _redesign(name: str, res: dict) -> dict:
     """A redesigned kernel's slowest job (the wave kernel), row (the SA
     walk), chain (the prep kernel) or read alone, as this run timed it."""
@@ -3076,6 +3679,11 @@ def _batch(name: str, traces) -> dict:
     return {"batch_ms": ms, "batch_launches": n}
 
 
+def _head(t_run: float, text: str):
+    """A phase's heading, with the run's seconds so far."""
+    print(f"{text} (at {time.perf_counter() - t_run:.1f} s)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3094,6 +3702,7 @@ def main() -> int:
     from bwamem_tpu_torch.engine import exec_ctx
     from bwamem_tpu_torch.ops import extend as ext
 
+    t_run = time.perf_counter()
     exec_ctx.KEEP_LARGEST = True  # the timing phases reuse the largest batches
     dev = torch.device("cuda", 0)
     card = _card_line()
@@ -3101,11 +3710,11 @@ def main() -> int:
           f"{torch.version.cuda}, python {sys.version.split()[0]}")
     phase_build()
 
-    print("[3] kernel vs plain PyTorch (card) vs host C++ ksw_extend2, "
+    _head(t_run, "[3] kernel vs plain PyTorch (card) vs host C++ ksw_extend2, "
           "tolerance 0 (int32, exact)")
     err3 = phase_kernel_vs_plain(dev, ext.ksw_extend_cuda)
 
-    print("[4] main path: BwaMemAligner(device='cuda', device_pipeline=False) "
+    _head(t_run, "[4] main path: BwaMemAligner(device='cuda', device_pipeline=False) "
           "vs the host oracle")
     t0 = time.perf_counter()
     codes, img, build_s = _synthetic_index(ECOLI_LEN)
@@ -3114,65 +3723,75 @@ def main() -> int:
           f"(build {build_s:.1f} s)")
     runs = phase_main_path(dev, index, codes)
 
-    print("[5] kernel timing on the largest PE wave")
+    _head(t_run, "[5] kernel timing on the largest PE wave")
     ksw = phase_timing(dev, runs["pe"]["wave"])
 
-    print("[6] FM kernels vs plain PyTorch (card) vs host FMIndex, tolerance 0 "
+    _head(t_run, "[6] FM kernels vs plain PyTorch (card) vs host FMIndex, tolerance 0 "
           "(integers, exact)")
     fm = index._require().fm
     fm_err = phase_fm_kernels(dev, fm)
 
-    print("[7] device SA stage: BwaMemAligner(device='cuda', "
+    _head(t_run, "[7] device SA stage: BwaMemAligner(device='cuda', "
           "device_stages=('sa_lookup',)) vs the host oracle")
     sa = phase_device_sa(dev, index, fm, runs)
 
-    print("[8] chr20 scale: 64 Mbp genome, seeding, SA walks and extension on "
+    _head(t_run, "[8] chr20 scale: 64 Mbp genome, seeding, SA walks and extension on "
           "the card")
     big = phase_chr20(dev)
 
-    print("[9] op probe (port of benchmarks/mosaic_probe.py)")
+    _head(t_run, "[9] op probe (port of benchmarks/mosaic_probe.py)")
     probe = phase_probe(dev)
 
-    print("[10] seeding kernels vs plain PyTorch (card) vs host oracle, "
+    _head(t_run, "[10] seeding kernels vs plain PyTorch (card) vs host oracle, "
           "tolerance 0 (integers, exact)")
     seed_k = phase_seed_kernels(dev, fm, codes, runs["pe"]["batch"])
 
-    print("[11] device seed stage: BwaMemAligner(device='cuda', "
+    _head(t_run, "[11] device seed stage: BwaMemAligner(device='cuda', "
           "device_stages=('seed', 'sa_lookup') / ('seed',)) vs the host oracle")
     seed_run = phase_device_seed(dev, index, runs)
 
-    print("[12] chain kernels vs plain PyTorch (card) vs host C++ vs host "
+    _head(t_run, "[12] chain kernels vs plain PyTorch (card) vs host C++ vs host "
           "oracle, tolerance 0 (integers and bit-equal doubles, exact)")
     chain_k = phase_chain_kernels(dev, index, runs["pe"]["batch"])
 
-    print("[13] device chain stage: BwaMemAligner(device='cuda', "
+    _head(t_run, "[13] device chain stage: BwaMemAligner(device='cuda', "
           "device_stages=('seed', 'sa_lookup', 'chain') / ('chain',)) vs the "
           "host oracle")
     chain_run = phase_device_chain(dev, index, runs)
 
-    print("[14] chain-to-region kernels vs plain PyTorch (card) vs host wave "
+    _head(t_run, "[14] chain-to-region kernels vs plain PyTorch (card) vs host wave "
           "runner vs host oracle, tolerance 0 (integers and bit-equal doubles, "
           "exact)")
     fused_k = phase_chain2aln_kernels(dev, index, runs["pe"]["batch"])
 
-    print("[15] fused device path: BwaMemAligner(device='cuda', "
+    _head(t_run, "[15] fused device path: BwaMemAligner(device='cuda', "
           "device_pipeline=True) vs the host oracle")
     fused_run = phase_fused(dev, index, runs, chain_run, big)
 
-    print("[16] the C++ tail: the host whole-batch, default, staged and fused "
+    _head(t_run, "[16] the C++ tail: the host whole-batch, default, staged and fused "
           "routes vs the host route and the Python route")
     phase_native_tail(dev, index, runs, big, card, fused_run)
     big["index"].close()
 
-    print("[17] the command line on the card: python -m bwamem_tpu_torch "
+    _head(t_run, "[17] the command line on the card: python -m bwamem_tpu_torch "
           "index / mem, every route against the host route's SAM")
     phase_cli(dev, index, codes, runs, card)
 
-    print("[18] several devices: the mesh aligner (the cards, a virtual (2, 2) "
+    _head(t_run, "[18] several devices: the mesh aligner (the cards, a virtual (2, 2) "
           "mesh of cuda:0), the dry run with idx-sharded tables, two gloo "
           "processes, the device SA build, mem --devices")
     multi = phase_devices(dev, index, codes, runs, card)
+
+    _head(t_run, "[19] midlen: 300 bp pairs (insert 700) through the fused, staged "
+          "and default routes vs the host route; every path kernel vs its "
+          "plain version on the batch")
+    phase_midlen(dev, index, codes, card)
     index.close()
+
+    _head(t_run, "[20] GRCh38-sized coordinates: seeding and SA walks at 6.2e9 rows, "
+          "chain and chain-to-region kernels at reference positions past 2^32")
+    phase_grch38(dev, card)
+    _head(t_run, "  phases 1-20 done")
     print(f"  main-path kernel times of this run (PERF.md section 6 holds "
           f"their earlier runs): ksw_extend {ksw['ms']:.4f} ms, sa_lookup "
           f"{big['sa']['cold_ms']:.4f} ms cold, collect_intv "

@@ -1,7 +1,9 @@
 """The port's own copies of the host layer against bwamem_tpu's originals,
 layer by layer on seeded inputs, exactly: index files and images byte for
 byte, seeding intervals, chains, extension regions, deduplicated regions,
-paired records, and the golden reads of the rotavirus image; with the host
+paired records, the per-read entry (``align1_regs``, ``_regs_from_intervals``,
+``align_se``, also line for line), and the golden reads of the rotavirus
+image; with the host
 C++ natives and without them.  The FASTQ reader, the SAM emitter and the
 wire codec are the JAX package's modules byte for byte.  The host C++ sources are the reference's
 byte for byte, but for pipeline.cpp's one difference, the split of
@@ -215,6 +217,45 @@ def test_chain2aln_and_sort_dedup_patch_match(engines, reads):
                 opt, eng.idx, q, regs))))
         got.append(per_read)
     assert got[0] == got[1] and all(raw for raw, _ in got[0])
+
+
+@pytest.mark.parametrize("name", ("align1_regs", "_regs_from_intervals",
+                                  "align_se"))
+def test_per_read_entry_is_the_reference_text(name):
+    """engine/pipeline.py's per-read entry is the reference's, line for
+    line."""
+    import inspect
+
+    assert (inspect.getsource(getattr(p_pipeline, name))
+            == inspect.getsource(getattr(j_pipeline, name)))
+
+
+@pytest.mark.parametrize("natives", (True, False), ids=("natives", "python"))
+def test_per_read_entry_matches(engines, reads, monkeypatch, natives):
+    """``align1_regs``, ``_regs_from_intervals`` with each interval's SA
+    positions given, and ``align_se``: regions and records of either
+    package, and the per-read regions equal the deduplicated regions of the
+    chain and extension steps above."""
+    _natives(monkeypatch, natives)
+    got = []
+    for pkg, eng, opt in engines:
+        per_read = []
+        for i, q in enumerate(reads[:6]):
+            regs = _fields(pkg.pipeline.align1_regs(opt, eng, q))
+            ivs = pkg.seed.collect_intv(opt, eng.fm, q)
+            rbegs = [eng.fm.sa_lookup(np.asarray(pkg.chain.sample_ks(
+                p, opt.max_occ), np.int64)) for p in ivs]
+            assert _fields(pkg.pipeline._regs_from_intervals(
+                opt, eng, q, ivs, rbegs)) == regs
+            raw = []
+            for c in _chains(pkg, eng, opt, q):
+                pkg.extend.chain2aln(opt, eng.idx, len(q), q, c, raw)
+            assert _fields(pkg.finalize.sort_dedup_patch(
+                opt, eng.idx, q, raw)) == regs
+            per_read.append((regs, _fields(pkg.pipeline.align_se(opt, eng, q,
+                                                                 i))))
+        got.append(per_read)
+    assert got[0] == got[1] and all(r for r, _ in got[0])
 
 
 @pytest.mark.parametrize("natives", (True, False), ids=("natives", "python"))

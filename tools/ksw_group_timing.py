@@ -5,7 +5,7 @@ groups of 32, 16 and 8 lanes a job, on one NVIDIA card.
     python3 tools/ksw_group_timing.py
 
 The package builds one width, extend.cu's ``kGroup``.  This script builds
-the other two from copies of csrc/extend.cu and csrc/extend.cuh under
+the other two from copies of csrc/extend.cu and the csrc headers under
 build/ksw_groups/, with that one constant changed, by the same nvcc flags
 as utils/cudabuild.py, and prints each build's register report.  It aligns
 chip_smoke.py's ecoli PE batch (6,000 pairs of the 4.6 Mbp synthetic genome,
@@ -40,7 +40,9 @@ def _build(width: int, shipped: int) -> str:
 
     out = os.path.join(ROOT, "build", "ksw_groups", f"g{width}")
     os.makedirs(out, exist_ok=True)
-    shutil.copy(os.path.join(cudabuild.CSRC, "extend.cuh"), out)
+    for header in os.listdir(cudabuild.CSRC):  # extend.cu's includes
+        if header.endswith(".cuh"):
+            shutil.copy(os.path.join(cudabuild.CSRC, header), out)
     with open(os.path.join(cudabuild.CSRC, "extend.cu")) as f:
         src = f.read()
     if src.count(LINE.format(shipped)) != 1:
