@@ -382,12 +382,17 @@ class BwaMemAligner:
         the first read (SE) or pair (PE), the input of the hash
         tie-breaks, for a caller that aligns one shard of a larger batch
         (``parallel.distributed.align_shard``)."""
-        seqs = [func(s) for s in sequences]
-        fast = self._align_seqs_fast(seqs, id_base)
-        if fast is not None:
-            return fast
-        raw = self._align_codes_raw(seq_to_codes_batch(seqs), id_base)
-        return [[_aln_to_record(p, m) for p, m in per_read] for per_read in raw]
+        with _metrics.batch_scope():
+            with TIMERS.stage("encode"):
+                seqs = [func(s) for s in sequences]
+            fast = self._align_seqs_fast(seqs, id_base)
+            if fast is not None:
+                return fast
+            with TIMERS.stage("encode"):
+                reads = seq_to_codes_batch(seqs)
+            raw = self._align_codes_raw(reads, id_base)
+            return [[_aln_to_record(p, m) for p, m in per_read]
+                    for per_read in raw]
 
     def _align_seqs_fast(self, seqs: List[bytes], id_base: int = 0):
         """Vectorized record assembly over the C++ tail's flat arrays (the
@@ -407,14 +412,15 @@ class BwaMemAligner:
         self._index.ref_index()
         try:
             eng = self._index._require()
-            reads = seq_to_codes_batch(seqs)
-            with _metrics.batch_scope():
-                arrays = self._native_arrays(eng, opt, reads, is_pe,
-                                             id_base=id_base)
+            with TIMERS.stage("encode"):
+                reads = seq_to_codes_batch(seqs)
+            arrays = self._native_arrays(eng, opt, reads, is_pe,
+                                         id_base=id_base)
+            with TIMERS.stage("records"):
                 out = _records_fast(len(reads), *arrays, is_pe=is_pe)
-                _metrics.count("batches")
-                _metrics.count("reads", len(reads))
-                _metrics.count("records", sum(len(r) for r in out))
+            _metrics.count("batches")
+            _metrics.count("reads", len(reads))
+            _metrics.count("records", sum(len(r) for r in out))
             return out
         finally:
             self._index.de_ref_index()

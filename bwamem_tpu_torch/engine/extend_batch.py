@@ -13,7 +13,6 @@ it).
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import List
 
@@ -24,6 +23,7 @@ from ..ops import extend as ext
 from ..ops.extend import ksw_extend_batch_np
 from ..utils import metrics as _metrics
 from ..utils.cudabuild import tally
+from ..utils.timers import TIMERS
 from . import exec_ctx, native_ksw
 from .chain import Chain
 from .exec_ctx import ExecConfig
@@ -34,11 +34,11 @@ from .state import device_scoring
 
 class WaveStats:
     """Counts of extension jobs and waves by where they ran (and of the
-    device jobs, those that the kernel ran on its scalar path), the host-clock
-    seconds spent in each kind of wave (a device wave's include packing, the
-    copies and the kernel), and, only under ``exec_ctx.KEEP_LARGEST``, the
-    largest device wave's inputs (so a benchmark can time the kernel on
-    it)."""
+    device jobs, those that the kernel ran on its scalar path) and, only
+    under ``exec_ctx.KEEP_LARGEST``, the largest device wave's inputs (so a
+    benchmark can time the kernel on it).  Each wave's seconds are the
+    ``TIMERS`` stage ``extend_wave`` (a device wave's include packing, the
+    copies and the kernel)."""
 
     def __init__(self):
         self.reset()
@@ -49,8 +49,6 @@ class WaveStats:
         self.host_extend_jobs = 0
         self.device_extend_waves = 0
         self.host_extend_waves = 0
-        self.device_wave_seconds = 0.0
-        self.host_wave_seconds = 0.0
         self.largest_wave = None  # (jobs, h0s, ws, bonuses)
 
     def device_share(self) -> float:
@@ -201,26 +199,24 @@ def _host_wave(opt, jobs, bonuses, ws, h0s):
 def _run_kernel(opt, jobs, bonuses, ws, h0s, exec_cfg: ExecConfig, scoring):
     """One batched ksw_extend2 wave; jobs = list of (qseq, tseq)."""
     n = len(jobs)
-    t0 = time.perf_counter()
     _metrics.count("extend_waves")
     _metrics.count("extend_jobs", n)
-    if n < exec_cfg.min_device_jobs:
-        out = _host_wave(opt, jobs, bonuses, ws, h0s)
-        STATS.host_extend_waves += 1
-        STATS.host_extend_jobs += n
-        STATS.host_wave_seconds += time.perf_counter() - t0
-        return out
-    scalar = tally()["extend_scalar"]
-    run = ext.ksw_extend_batch_mesh if exec_cfg.mesh is not None else \
-        ksw_extend_batch_np
-    out = run([q for q, _ in jobs], [t for _, t in jobs], scoring, list(h0s),
-              list(ws), list(bonuses))
+    with TIMERS.stage("extend_wave"):
+        if n < exec_cfg.min_device_jobs:
+            out = _host_wave(opt, jobs, bonuses, ws, h0s)
+            STATS.host_extend_waves += 1
+            STATS.host_extend_jobs += n
+            return out
+        scalar = tally()["extend_scalar"]
+        run = ext.ksw_extend_batch_mesh if exec_cfg.mesh is not None else \
+            ksw_extend_batch_np
+        out = run([q for q, _ in jobs], [t for _, t in jobs], scoring,
+                  list(h0s), list(ws), list(bonuses))
     STATS.device_scalar_jobs += tally()["extend_scalar"] - scalar
     _metrics.count("device_extend_waves")
     _metrics.count("device_extend_jobs", n)
     STATS.device_extend_waves += 1
     STATS.device_extend_jobs += n
-    STATS.device_wave_seconds += time.perf_counter() - t0
     if exec_ctx.KEEP_LARGEST and (STATS.largest_wave is None
                                   or n > len(STATS.largest_wave[0])):
         STATS.largest_wave = (list(jobs), list(h0s), list(ws), list(bonuses))

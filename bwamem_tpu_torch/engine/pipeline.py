@@ -361,12 +361,12 @@ def by_reads(fn, reads, exec_cfg: ExecConfig):
 def _chains(opt, eng, reads, exec_cfg: ExecConfig):
     """Seeding, SA walks, mem_chain + chain_flt and mem_flt_chained_seeds:
     per read its chains.  With a mesh and a device stage, each mesh
-    device's sub-batch in its own thread (``by_reads``), timed as the one
-    stage ``mesh_chains``."""
+    device's sub-batch in its own thread (``by_reads``), inside the stage
+    ``mesh_chains``; each shard thread's stages are top-level on it."""
     if exec_cfg.mesh is not None and (exec_cfg.device_seed
                                       or exec_cfg.device_sa_lookup
                                       or exec_cfg.device_chain):
-        with TIMERS.stage("mesh_chains"), TIMERS.paused():
+        with TIMERS.stage("mesh_chains"):
             parts = by_reads(lambda sub, cfg: _chains(opt, eng, sub, cfg),
                              reads, exec_cfg)
         return [c for part in parts for c in part]
@@ -468,7 +468,7 @@ def align_regs_raw(opt, eng, reads: List[np.ndarray], exec_cfg: ExecConfig):
     if exec_cfg.device_pipeline:
         from .pipeline_device import regs_rows_fused
 
-        with TIMERS.stage("device_pipeline"), TIMERS.paused():
+        with TIMERS.stage("device_pipeline"):
             return regs_rows_fused(opt, eng, reads, exec_cfg)
     if _fused_core_ok(eng, reads, exec_cfg):
         from . import native_core

@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import List
 
 import numpy as np
@@ -43,6 +42,7 @@ from ..ops import chain as chainops
 from ..ops import pipeline_fused as fusedops
 from ..utils import metrics as _metrics
 from ..utils.cudabuild import tally
+from ..utils.timers import TIMERS
 from . import exec_ctx
 from .chain import (MEM_HSP_COEF, MEM_MINSC_COEF, MEM_SEEDSW_COEF,
                     flt_chained_seeds)
@@ -66,8 +66,11 @@ class FusedStats:
     than the loop kernel runs; a read counts under its first cause in that
     order), the kernels launched, the
     tasks extended and pruned and the extension jobs run by the loop kernel,
-    host-clock seconds by step, the reads the JAX package's budgets would
-    have flagged (S, then C, then R, then the window; each read once), and,
+    host-clock seconds by step (summed from the ``TIMERS`` spans:
+    ``seed_sa`` is ``seed`` and ``sa_lookup``, then ``chain``,
+    ``chain2aln``, ``decode``, ``staged``), the reads the JAX package's
+    budgets would have flagged (S, then C, then R, then the window; each
+    read once), and,
     only under ``exec_ctx.KEEP_LARGEST``, the largest batch's operands (so a
     benchmark can time the kernels on them)."""
 
@@ -143,22 +146,25 @@ def _staged(opt, eng, reads, qlens, which, seeded_on_host, tab, host, host_tab,
     for reads seeded on the host, from the host's table."""
     chains_of = {}
     card = which[~seeded_on_host[which]]
-    if card.size:
-        for i, chains in zip(card, _host_chains(
-                opt, eng, qlens[card], np.arange(card.size),
-                *gather_reads(tab, card))):
-            chains_of[int(i)] = chains
-    if host is not None and host.size:
-        rows_h, off_h, n_h, *rest = host_tab
-        for i, chains in zip(host, _host_chains(
-                opt, eng, qlens[host], np.arange(host.size), rows_h, off_h, n_h,
-                *rest)):
-            chains_of[int(i)] = chains
+    with TIMERS.stage("chain"):
+        if card.size:
+            for i, chains in zip(card, _host_chains(
+                    opt, eng, qlens[card], np.arange(card.size),
+                    *gather_reads(tab, card))):
+                chains_of[int(i)] = chains
+        if host is not None and host.size:
+            rows_h, off_h, n_h, *rest = host_tab
+            for i, chains in zip(host, _host_chains(
+                    opt, eng, qlens[host], np.arange(host.size), rows_h, off_h,
+                    n_h, *rest)):
+                chains_of[int(i)] = chains
     sub = [reads[i] for i in which]
     chains_list = [chains_of[int(i)] for i in which]
-    for query, chains in zip(sub, chains_list):
-        flt_chained_seeds(opt, eng.idx, len(query), query, chains)
-    return chain2aln_batch(opt, eng.idx, sub, chains_list, exec_cfg)
+    with TIMERS.stage("flt"):
+        for query, chains in zip(sub, chains_list):
+            flt_chained_seeds(opt, eng.idx, len(query), query, chains)
+    with TIMERS.stage("extend"):
+        return chain2aln_batch(opt, eng.idx, sub, chains_list, exec_cfg)
 
 
 def regs_batch_fused(opt: MemOptions, eng, reads: List[np.ndarray],
@@ -193,47 +199,52 @@ def regs_rows_fused(opt: MemOptions, eng, reads: List[np.ndarray],
     cfg = dataclasses.replace(exec_cfg, device_seed=True, device_sa_lookup=True,
                               device_chain=True)
     qlens = np.asarray([len(r) for r in reads], dtype=np.int32)
-    clock = time.perf_counter
-    t0 = clock()
     tab, host, host_tab, seeds = _device_table(opt, eng, reads, qlens, cfg)
-    t1 = clock()
+    st.seconds["seed_sa"] += TIMERS.take("seed") + TIMERS.take("sa_lookup")
     before = tally()["chain"] + tally()["chain2aln"]
-    ctg = device_contigs(eng.idx.bns, dev)
-    chains = chainops.chain(ctg, tab, chainops.ChainParams.from_opt(opt))
-    t2 = clock()
-    noop = {q: fcs_noop(opt, q) for q in set(qlens.tolist())}
-    fcs_ok = np.asarray([noop[q] for q in qlens.tolist()], dtype=bool)
-    fits = qlens <= fusedops.kernel_max_qlen(torch.tensor(opt.mat), dev)
-    run = torch.from_numpy(fcs_ok & fits & ~seeds.on_host).to(dev) & ~chains.ovf
-    args = (ctg, device_ref(eng.idx, dev), chains, seeds.qseq, seeds.qlen, run,
-            fusedops.ExtendParams.from_opt(opt), device_scoring(opt, dev).mat,
-            ref_t_cap(opt, max(int(qlens.max()), longest)))
-    regs = fusedops.chain2aln(*args)
-    rows = regs.compact()[:, list(ROW_ORDER)]
-    flat = torch.cat([regs.nregs.long(), chains.ovf.long(), chains.seed_cnt,
-                      chains.nslots.long(), regs.work[:, :4].t().reshape(-1),
-                      rows.reshape(-1)]).cpu().numpy()
-    t3 = clock()
-    st.launches += tally()["chain"] + tally()["chain2aln"] - before
-    if exec_ctx.KEEP_LARGEST and (
-            st.largest_batch is None
-            or chains.seed_rows.shape[0] > st.largest_batch[2].seed_rows.shape[0]):
-        st.largest_batch = args
-    meta = flat[:8 * n].reshape(8, n)
-    nregs, ovf, seed_cnt, nslots = meta[0], meta[1] != 0, meta[2], meta[3]
-    tasks, pruned, jobs, ref_t = meta[4:8]
-    rows = flat[8 * n:].reshape(-1, 11)
-    n_reg = nregs
-    t4 = clock()
+    with TIMERS.stage("chain"):
+        ctg = device_contigs(eng.idx.bns, dev)
+        chains = chainops.chain(ctg, tab, chainops.ChainParams.from_opt(opt))
+    st.seconds["chain"] += TIMERS.take("chain")
+    with TIMERS.stage("chain2aln"):
+        noop = {q: fcs_noop(opt, q) for q in set(qlens.tolist())}
+        fcs_ok = np.asarray([noop[q] for q in qlens.tolist()], dtype=bool)
+        fits = qlens <= fusedops.kernel_max_qlen(torch.tensor(opt.mat), dev)
+        run = (torch.from_numpy(fcs_ok & fits & ~seeds.on_host).to(dev)
+               & ~chains.ovf)
+        args = (ctg, device_ref(eng.idx, dev), chains, seeds.qseq, seeds.qlen,
+                run, fusedops.ExtendParams.from_opt(opt),
+                device_scoring(opt, dev).mat,
+                ref_t_cap(opt, max(int(qlens.max()), longest)))
+        regs = fusedops.chain2aln(*args)
+        rows = regs.compact()[:, list(ROW_ORDER)]
+        flat = torch.cat([regs.nregs.long(), chains.ovf.long(),
+                          chains.seed_cnt, chains.nslots.long(),
+                          regs.work[:, :4].t().reshape(-1), rows.reshape(-1)])
+        with TIMERS.stage("copy_back"):
+            flat = flat.cpu().numpy()
+    st.seconds["chain2aln"] += TIMERS.take("chain2aln")
+    with TIMERS.stage("decode"):
+        st.launches += tally()["chain"] + tally()["chain2aln"] - before
+        if exec_ctx.KEEP_LARGEST and (
+                st.largest_batch is None
+                or chains.seed_rows.shape[0]
+                > st.largest_batch[2].seed_rows.shape[0]):
+            st.largest_batch = args
+        meta = flat[:8 * n].reshape(8, n)
+        nregs, ovf, seed_cnt, nslots = meta[0], meta[1] != 0, meta[2], meta[3]
+        tasks, pruned, jobs, ref_t = meta[4:8]
+        rows = flat[8 * n:].reshape(-1, 11)
+        n_reg = nregs
+    st.seconds["decode"] += TIMERS.take("decode")
     staged = np.flatnonzero(seeds.on_host | ovf | ~fcs_ok | ~fits)
     if staged.size:
         _metrics.count("device_fused_pipeline_fallbacks", int(staged.size))
-        rows, n_reg = _splice(rows, nregs, staged, *regs_to_rows(_staged(
-            opt, eng, reads, qlens, staged, seeds.on_host, tab, host, host_tab,
-            exec_cfg)))
-    t5 = clock()
-    for name, dt in zip(st.seconds, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
-        st.seconds[name] += dt
+        with TIMERS.stage("staged"):
+            rows, n_reg = _splice(rows, nregs, staged, *regs_to_rows(_staged(
+                opt, eng, reads, qlens, staged, seeds.on_host, tab, host,
+                host_tab, exec_cfg)))
+        st.seconds["staged"] += TIMERS.take("staged")
     st.host_reads += staged.size
     st.device_reads += n - staged.size
     st.host_seeded += int(seeds.on_host.sum())

@@ -39,6 +39,7 @@ from ..ops import fmindex as fmops
 from ..ops import seed as seedops
 from ..utils import metrics as _metrics
 from ..utils.cudabuild import tally
+from ..utils.timers import TIMERS
 from . import native_fm
 from .seed_batch import collect_intv_batch
 from .state import device_fm
@@ -136,7 +137,9 @@ def seed_batch(opt, fm, reads: List[np.ndarray], device,
     counts = torch.cat([work[:, :3].sum(dim=0, dtype=torch.int64), torch.stack(
         [(cause == 1).sum(), (cause == 2).sum(), (peak > seedops.K_SLOTS).sum()])])
     B = len(reads)
-    meta = torch.cat([iv.n.long(), iv.ovf.long(), counts]).cpu().numpy()
+    meta = torch.cat([iv.n.long(), iv.ovf.long(), counts])
+    with TIMERS.stage("copy_back"):
+        meta = meta.cpu().numpy()
     n_dev, on_host, calls = meta[:B], meta[B: 2 * B] != 0, meta[2 * B:].tolist()
     SEED_STATS.launches += tally()["seed"] - before
     SEED_STATS.smem1a_calls += calls[0]

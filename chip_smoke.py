@@ -562,6 +562,12 @@ def _pe_setup(aligner):
     aligner.set_proper_pair_end_stats(BwaMemPairEndStats.of(350, 35))
 
 
+def _top_level(stages: dict) -> dict:
+    """The top-level stages of a ``TIMERS.snapshot()``: a nested path
+    subdivides its parent, and ``gc`` lies inside the others."""
+    return {k: v for k, v in stages.items() if "." not in k and k != "gc"}
+
+
 def _port_run(tag, port, batch, ref, t_host, dev, fused=False):
     """One timed batch through the port, counts set to 0 just before and
     read just after; the records held against ``ref``.  Returns the
@@ -631,12 +637,13 @@ def _port_run(tag, port, batch, ref, t_host, dev, fused=False):
                   f"{k} {v}" for k, v in fused_launches.items())
               + "; seconds inside device_pipeline: " + ", ".join(
                   f"{k} {v:.4f}" for k, v in fs.seconds.items()))
-    rest = t_port - sum(stages.values())
+    rest = t_port - sum(_top_level(stages).values())
+    waves = sum(v for k, v in stages.items()
+                if k.rsplit(".", 1)[-1] == "extend_wave")
     print(f"  {tag}: port seconds by stage: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items())
-        + f", untimed rest {rest:.3f}; inside extend: device waves "
-        f"{STATS.device_wave_seconds:.3f} (pack, copies, kernel), host "
-        f"waves {STATS.host_wave_seconds:.3f}")
+        + f", untimed rest {rest:.3f}; extension waves {waves:.3f} (host "
+        "and card; a card wave's include packing, copies and the kernel)")
     if ok != len(batch):
         raise AssertionError(f"{tag}: records differ from the host oracle's")
     if aligned < 0.95 * len(batch):
@@ -2316,11 +2323,11 @@ def phase_fused(dev, index, runs, chain_run, big):
         fs, la = res["fused_stats"], res["fused_launches"]
         _check_fused(tag, res, r["batch"])
         st = res["stages"]
+        rest = res["seconds"] - sum(_top_level(st).values())
         print(f"  {tag}: device_pipeline {st['device_pipeline']:.4f} s, "
               f"native_tail {st['native_tail']:.4f} s, untimed rest "
-              f"{res['seconds'] - sum(st.values()):.3f} s; {res['waves']} "
-              f"extension waves (all from the {fs['host_reads']} reads on the "
-              "staged path)")
+              f"{rest:.3f} s; {res['waves']} extension waves (all from the "
+              f"{fs['host_reads']} reads on the staged path)")
         if tag == "pe+fused":
             ref_st = chain_run["runs"]["pe+seed+sa+chain"]["stages"]
             print(f"  {tag}: phase 13's staged run of the same batch: " + ", ".join(
@@ -2428,7 +2435,7 @@ def phase_native_tail(dev, index, runs, big, card, fused_trace):
             st, launched = TIMERS.snapshot(), _launched()
             py, t_py = _python_route(a, r["batch"])
             ok_host, ok_py = _equal(got, r["ref"]), _equal(got, py)
-            rest = secs - sum(st.values())
+            rest = secs - sum(_top_level(st).values())
             print(f"  {tag}: {n} reads, records equal to the host whole-batch "
                   f"route's {ok_host}/{n}, to the Python route's {ok_py}/{n}; "
                   f"{n / secs:.1f} reads/s ({secs:.3f} s) [{card}]")
@@ -2553,7 +2560,7 @@ def _cli_shares(tag, secs, dumps, card) -> dict:
         return k.startswith("cli_") or k == "records"
 
     last = dumps[-1]
-    st, n_reads = last["stage_seconds"], last["counters"]["reads"]
+    st, n_reads = _top_level(last["stage_seconds"]), last["counters"]["reads"]
     cli = {k: v for k, v in st.items() if own(k)}
     aligner = sum(v for k, v in st.items() if not own(k))
     rest = secs - aligner - sum(cli.values())
@@ -2568,7 +2575,8 @@ def _cli_shares(tag, secs, dumps, card) -> dict:
     done, before = [], (0, 0.0)
     for dump in dumps[:-1]:
         r = dump["counters"]["reads"]
-        a = sum(v for k, v in dump["stage_seconds"].items() if not own(k))
+        a = sum(v for k, v in _top_level(dump["stage_seconds"]).items()
+                if not own(k))
         done.append((r - before[0], a - before[1]))
         before = (r, a)
     print(f"  {tag}: by batch, reads and the aligner's stages: " + "; ".join(

@@ -131,3 +131,31 @@ def test_trace_writes_chrome_trace(index, tmp_path, monkeypatch):
         with open(f) as fh:
             events = json.load(fh)["traceEvents"]
         assert any(e.get("ph") == "X" for e in events)
+
+
+def test_trace_carries_the_batch_spans(index, tmp_path, monkeypatch):
+    """A traced batch's file holds its spans as complete events on the
+    profiler's timeline: ``native_tail`` and ``records`` fall inside the
+    extent of the profiler's own events, on the thread that ran them."""
+    import threading
+
+    trace_dir = tmp_path / "trace"
+    monkeypatch.setenv("BWAMEM_TPU_TRACE", str(trace_dir))
+    a = BwaMemAligner(index, device="cpu", device_pipeline=True)
+    a.align_pairs()
+    a.align_seqs(_batch(4))
+    (f,) = glob.glob(str(trace_dir / "batch-*.json"))
+    with open(f) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "bwamem_tpu_torch.span"]
+    own = [e for e in events if e.get("ph") == "X" and e not in spans]
+    lo = min(e["ts"] for e in own)
+    hi = max(e["ts"] + e["dur"] for e in own)
+    names = {e["name"] for e in spans}
+    assert {"encode", "device_pipeline", "device_pipeline.chain2aln.copy_back",
+            "native_tail", "records"} <= names
+    assert len({e["args"]["batch"] for e in spans}) == 1
+    for e in spans:
+        if e["name"] in ("native_tail", "records"):
+            assert lo <= e["ts"] and e["ts"] + e["dur"] <= hi
+            assert e["tid"] == threading.get_native_id()
