@@ -38,9 +38,21 @@ those in the reference's binary layout (``api/wire.py``).  Each batch of
 ``align_seqs``/``align_seqs_raw`` runs under ``utils.metrics.batch_scope``
 (the ``BWAMEM_TPU_METRICS`` dump and the ``BWAMEM_TPU_TRACE`` profile) and
 counts ``batches``, ``reads`` and ``records``.
+
+Both record assemblies run in the ``records`` stage with the cyclic collector
+paused (``utils.gcpause``; counted as ``records_gc_paused`` or, where
+another thread holds the pause or the caller turned the collector off,
+``records_gc_shared``).  A batch's records are hundreds of thousands of
+containers that live until the assembly returns: with the collector on they
+were promoted while being built and paid for full passes over the whole
+process (~2 a 66,666-read batch), none of which could free a record.  The
+pause is safe: the records hold no reference cycles (reference counting
+frees a batch), and the collector's counts run on, so cyclic garbage made
+meanwhile is collected by its first pass after the build.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Callable, Iterable, List, Optional, TypeVar
 
 import numpy as np
@@ -55,6 +67,7 @@ from ..engine.pipeline import (align_regs_batch, align_regs_raw,
                                reg2sam_records)
 from ..utils import metrics as _metrics
 from ..utils.encoding import seq_to_codes_batch
+from ..utils.gcpause import collector_paused
 from ..utils.timers import TIMERS
 from .alignment import BAM_CIGAR_CHARS, BwaMemAlignment
 from .exceptions import InvalidInputException
@@ -130,6 +143,17 @@ def _aln_to_record(p: Aln, m: Optional[Aln]) -> BwaMemAlignment:
     )
 
 
+@contextmanager
+def _records_stage():
+    """The ``records`` stage, its build under ``collector_paused``: counted
+    as ``records_gc_paused`` where it took the pause, else as
+    ``records_gc_shared`` (the module docstring says why)."""
+    with TIMERS.stage("records"), collector_paused() as paused:
+        _metrics.count("records_gc_paused" if paused
+                       else "records_gc_shared")
+        yield
+
+
 def _records_fast(
     n_reads: int, rows: np.ndarray, cig: np.ndarray, sbuf: bytes, is_pe: bool
 ) -> List[List[BwaMemAlignment]]:
@@ -137,7 +161,9 @@ def _records_fast(
 
     Produces exactly what _aln_to_record(records_from_arrays(...)) would —
     the fmt_BAMish semantics (flag 0x10000->0x100 mapping, outie tlen,
-    jnibwa.c:43-97) computed column-wise instead of per object."""
+    jnibwa.c:43-97) computed column-wise instead of per object.  Its callers
+    run it with the collector paused (``_records_stage``): it makes no
+    reference cycles, so no pass during the build could free anything."""
     out: List[List[BwaMemAlignment]] = [[] for _ in range(n_reads)]
     nr = rows.shape[0]
     if nr == 0:
@@ -416,7 +442,7 @@ class BwaMemAligner:
                 reads = seq_to_codes_batch(seqs)
             arrays = self._native_arrays(eng, opt, reads, is_pe,
                                          id_base=id_base)
-            with TIMERS.stage("records"):
+            with _records_stage():
                 out = _records_fast(len(reads), *arrays, is_pe=is_pe)
             _metrics.count("batches")
             _metrics.count("reads", len(reads))
@@ -516,7 +542,7 @@ class BwaMemAligner:
                                      id_stride=id_stride)
         if arrays is None:
             return None
-        with TIMERS.stage("records"):
+        with _records_stage():
             return native_pipeline.records_from_arrays(len(reads), *arrays)
 
     def _align_se(self, eng, opt, reads, id_base: int = 0, id_stride: int = 1):

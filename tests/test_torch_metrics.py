@@ -111,7 +111,8 @@ def test_engine_counters(index):
     metrics.reset()
     host.align_seqs(seqs)
     assert set(metrics.snapshot()["counters"]) == {"batches", "reads",
-                                                   "records"}
+                                                   "records",
+                                                   "records_gc_paused"}
 
 
 def test_trace_writes_chrome_trace(index, tmp_path, monkeypatch):
