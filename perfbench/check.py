@@ -74,8 +74,14 @@ def pe_stats(traffic: dict):
     return pes
 
 
-def reference_index(cfg: dict, genome: np.ndarray, device) -> RefIndex:
-    return RefIndex([(cfg["genome"]["contig"], genome)], device=device)
+def reference_index(genome, device) -> RefIndex:
+    """The reference's index of every contig, in the configuration's order,
+    its ALT contigs flagged from the configuration (``genome.alt``), as
+    bwa's ``bns_restore`` flags those its ``.alt`` names."""
+    ref = RefIndex(genome.contigs, device=device)
+    for a in ref.anns:
+        a.is_alt = int(a.name in genome.alt)
+    return ref
 
 
 def compare(sample: Sample, pool, ref: RefIndex, traffic: dict,

@@ -40,7 +40,7 @@ def control_reading(cell: dict, seed: int, batches: int, device: str) -> dict:
 
     cfg, tr = cell["config"], cell["traffic"]
     cache = os.path.join(cell["root"], "perfbench", ".cache", cfg["name"])
-    genome = genome_mod.genome_codes(cfg, cache)
+    genome = genome_mod.load(cfg, cache)
     pool = traffic_mod.make_pool(tr, genome, seed)
     per = 2 if tr["paired"] else 1
     sample = check.Sample(tr["sample"], seed, tr["paired"])
@@ -48,7 +48,7 @@ def control_reading(cell: dict, seed: int, batches: int, device: str) -> dict:
     for b in range(batches):
         for slot, u in sample.draw(len(pool[b % len(pool)]) // per):
             drawn[slot] = (b % len(pool), u)
-    ref = check.reference_index(cfg, genome, device)
+    ref = check.reference_index(genome, device)
     eng, pes = Engine(ref), check.pe_stats(tr)
     for slot, (pool_no, u) in drawn.items():
         codes = list(pool[pool_no].codes[per * u: per * (u + 1)])

@@ -9,6 +9,19 @@ divergence), segmental duplications (1 % divergence), tandem repeats,
 homopolymer runs and N gaps.  A configuration fixes its length and its own
 seed, so the genome never depends on a run's ``--seed``; it is made once in
 a checkout and cached beside the index image.
+
+A configuration's ``genome`` takes one of two forms:
+
+* one contig: ``{"contig", "length", "seed"}``, cached as ``genome.npy``;
+* a reference assembly: ``{"contigs": [...]}``, in the FASTA's and the
+  image's order, each entry either a primary contig ``{"name", "length",
+  "seed"}``, made by ``synthetic_genome`` as above, or an ALT haplotype
+  ``{"name", "alt_of": {"contig", "start", "end"}, "snv", "indel",
+  "seed"}``: a copy of that region of an earlier primary contig with
+  substitutions at rate ``snv`` and indels of 1-10 bases at rate
+  ``indel``, drawn from its own seed, so that reads map to both copies and
+  set off bwa's ALT-aware mapping.  Contig ``i`` is cached as
+  ``contig.<i>.npy``.
 """
 from __future__ import annotations
 
@@ -17,19 +30,88 @@ import os
 import numpy as np
 
 
-def genome_codes(cfg: dict, cache_dir: str) -> np.ndarray:
-    """The configuration's genome (codes 0-3, 4 = N), from the cache or made
-    and cached."""
+class Genome:
+    """A configuration's contigs (codes 0-3, 4 = N) in the FASTA's order,
+    and the names of those that are ALT haplotypes."""
+
+    def __init__(self, contigs, alt=()):
+        self.contigs = list(contigs)
+        self.alt = frozenset(alt)
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        for n, codes in self.contigs:
+            if n == name:
+                return codes
+        raise KeyError(f"no contig {name!r} in the configuration")
+
+
+def load(cfg: dict, cache_dir: str) -> Genome:
+    """The configuration's genome, from the cache or made and cached."""
     g = cfg["genome"]
-    path = os.path.join(cache_dir, "genome.npy")
+    if "contigs" not in g:
+        return Genome([(g["contig"], genome_codes(cfg, cache_dir))])
+    made = {}
+    for i, c in enumerate(g["contigs"]):
+        made[c["name"]] = _cached(os.path.join(cache_dir, f"contig.{i}.npy"),
+                                  lambda: _contig(c, made))
+    return Genome(made.items(), [c["name"] for c in g["contigs"]
+                                 if "alt_of" in c])
+
+
+def _contig(c: dict, made: dict) -> np.ndarray:
+    """A primary contig, or an ALT haplotype of one made before it."""
+    rng = np.random.default_rng(c["seed"])
+    if "alt_of" not in c:
+        return synthetic_genome(c["length"], rng)
+    src = c["alt_of"]
+    if src["contig"] not in made:
+        raise ValueError(f"ALT contig {c['name']!r}: {src['contig']!r} is "
+                         "not an earlier contig of the list")
+    return alt_haplotype(made[src["contig"]][src["start"]:src["end"]],
+                         c["snv"], c["indel"], rng)
+
+
+def genome_codes(cfg: dict, cache_dir: str) -> np.ndarray:
+    """The one-contig form's genome (codes 0-3, 4 = N), from the cache or
+    made and cached."""
+    g = cfg["genome"]
+    return _cached(os.path.join(cache_dir, "genome.npy"),
+                   lambda: synthetic_genome(g["length"],
+                                            np.random.default_rng(g["seed"])))
+
+
+def _cached(path: str, make) -> np.ndarray:
     if os.path.exists(path):
         return np.load(path)
-    codes = synthetic_genome(g["length"], np.random.default_rng(g["seed"]))
-    os.makedirs(cache_dir, exist_ok=True)
+    codes = make()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp.npy"
     np.save(tmp, codes)
     os.replace(tmp, path)
     return codes
+
+
+def alt_haplotype(region: np.ndarray, snv: float, indel: float,
+                  rng: np.random.Generator) -> np.ndarray:
+    """A diverged copy of ``region``: each base (not N) substituted with
+    probability ``snv``; before each base, with probability ``indel``, an
+    indel of 1-10 bases, an insertion of random bases or a deletion of the
+    bases that follow, one or the other with equal odds."""
+    out = region.copy()
+    hit = (rng.random(len(out)) < snv) & (out <= 3)
+    out[hit] = (out[hit] + rng.integers(1, 4, int(hit.sum()),
+                                        dtype=np.uint8)) % 4
+    at = np.flatnonzero(rng.random(len(out)) < indel)
+    size = rng.integers(1, 11, len(at))
+    ins = rng.random(len(at)) < 0.5
+    keep = np.ones(len(out), dtype=bool)
+    for p, n in zip(at[~ins].tolist(), size[~ins].tolist()):
+        keep[p:p + n] = False
+    where = np.repeat(at[ins], size[ins])
+    bases = rng.integers(0, 4, len(where), dtype=np.uint8)
+    out = np.insert(out, where, bases)
+    keep = np.insert(keep, where, True)
+    return out[keep]
 
 
 def synthetic_genome(

@@ -10,9 +10,10 @@ configuration's ``file``), ``perfbench/traffic/<traffic>.json`` and
 
 1. set-up, timed from the process's start as ``setup_s``: the program
    imported with the configuration's ``threads`` (as ``bwa mem -t``), the
-   CUDA context made, the configuration's genome and the program's index
-   image loaded (made and cached under ``perfbench/.cache/<config>/`` by
-   the first run in a checkout), the aligner opened, the run's batches
+   CUDA context made, the configuration's genome (its contigs, and which
+   are ALT haplotypes) and the program's index image loaded (made and
+   cached under ``perfbench/.cache/<config>/`` by the first run in a
+   checkout), the aligner opened, the run's batches
    ordered by ``--seed``, a slice of them aligned on the staged route and
    ``warmup_batches`` whole batches on the default one, so that every
    kernel is built and loaded before the window.  Where the run profiles,
@@ -106,18 +107,29 @@ def _say(*parts) -> None:
 
 def _open_index(cfg: dict, genome, cache: str):
     """The program's index image of the genome: made by the port's
-    ``build_index`` at the configuration's ``sa_intv`` the first time, then
-    loaded, as a deployment loads a bwa image."""
+    ``build_index`` at the configuration's ``sa_intv`` the first time, one
+    FASTA contig a contig in the configuration's order, with the ALT
+    contigs named in ``ref.alt`` beside it (as ``hs38DH.fa.alt`` lies beside
+    its FASTA) and flagged by the port's ``read_alt_into``, as bwa's
+    ``bns_restore`` flags them; then loaded, as a deployment loads a bwa
+    image."""
     from bwamem_tpu_torch import BwaMemIndex
     from bwamem_tpu_torch.index import image
     from bwamem_tpu_torch.index.build import build_index
+    from bwamem_tpu_torch.index.bwtfile import read_alt_into
     from bwamem_tpu_torch.utils.fasta import Fasta, FastaContig
 
     path = os.path.join(cache, "ref.img")
     if not os.path.exists(path):
-        idx = build_index(Fasta([FastaContig(cfg["genome"]["contig"], "",
-                                             genome)]),
+        idx = build_index(Fasta([FastaContig(name, "", codes)
+                                 for name, codes in genome.contigs]),
                           sa_intv=cfg["index"]["sa_intv"])
+        if genome.alt:
+            alt = os.path.join(cache, "ref.alt")
+            with open(alt, "w") as f:
+                f.writelines(f"{name}\n" for name, _ in genome.contigs
+                             if name in genome.alt)
+            read_alt_into(alt, idx.bns)
         tmp = f"{path}.{os.getpid()}.tmp"
         image.write_image(tmp, idx)
         os.replace(tmp, path)
@@ -172,7 +184,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     t = mark("cuda_context", t)
     cfg, tr = cell["config"], cell["traffic"]
     cache = os.path.join(cell["root"], "perfbench", ".cache", cfg["name"])
-    genome = genome_mod.genome_codes(cfg, cache)
+    genome = genome_mod.load(cfg, cache)
     t = mark("genome", t)
     index = _open_index(cfg, genome, cache)
     t = mark("index_image", t)
@@ -286,7 +298,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     if on_card:
         torch.cuda.empty_cache()
     tc = time.perf_counter()
-    ref = check.reference_index(cfg, genome, device)
+    ref = check.reference_index(genome, device)
     cmp = check.compare(sample, pool, ref, tr)
     _say(f"reference: {time.perf_counter() - tc:.3f} s for "
          f"{cmp['reads']} sampled reads")

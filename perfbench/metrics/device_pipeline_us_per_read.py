@@ -1,6 +1,7 @@
 """device_pipeline_us_per_read (program span): the program's
 ``device_pipeline`` stage (the fused path's host glue, launches, copies
-and the staged sub-batch; its inner stages are paused), per read."""
+and the staged sub-batch), per read: the stage's own total, which holds
+the stages nested in it (recorded under ``device_pipeline.<stage>``)."""
 
 
 def read(ctx):

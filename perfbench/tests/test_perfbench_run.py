@@ -92,8 +92,8 @@ def test_the_work_count_is_fixed_and_cached(root):
 
     cell = harness.load_cell("tiny.pe", root)
     cache = os.path.join(root, "perfbench", ".cache", "tiny")
-    genome = genome_mod.genome_codes(cell["config"], cache)
-    ref = check.reference_index(cell["config"], genome, "cpu")
+    genome = genome_mod.load(cell["config"], cache)
+    ref = check.reference_index(genome, "cpu")
     first = work.count(ref, cell["traffic"], genome)
     assert first == work.count(ref, cell["traffic"], genome)
     assert first["reads"] == 8 and first["extends"] > 0

@@ -32,7 +32,15 @@ A traffic file holds:
   (and one more under the profiler), after ``warmup_staged_reads`` reads of
   the first batch on the staged route;
 * ``sample``: pairs (or reads) of the window checked against the plain
-  reference, drawn uniformly from all that the window answered.
+  reference, drawn uniformly from all that the window answered;
+* ``regions`` (optional): ``[{"contig", "start", "end", "weight"}]``, where
+  the reads come from, as a capture panel or a targeted run gives them:
+  each pair (or, in single-end traffic, each pair whose mates are taken as
+  single reads) first picks a region with probability proportional to its
+  weight, then draws its insert and start inside it, so that it never
+  crosses the region's end.  Without ``regions`` the reads come from the
+  whole of a genome of one contig, drawn as before; a genome of several
+  contigs needs them.
 """
 from __future__ import annotations
 
@@ -63,21 +71,63 @@ def reads_per_batch(traffic: dict) -> int:
     return n - n % 2
 
 
-def simulate(genome: np.ndarray, rng: np.random.Generator, n_pairs: int,
+class Regions:
+    """A traffic's ``regions`` laid end to end in one array: region ``k``
+    is ``text[offset[k]:offset[k] + length[k]]``."""
+
+    def __init__(self, regions: list, genome, traffic: dict):
+        parts = []
+        for r in regions:
+            contig = genome[r["contig"]]
+            if not 0 <= r["start"] < r["end"] <= len(contig):
+                raise ValueError(f"region {r} lies outside its contig")
+            if r["end"] - r["start"] < 3 * traffic["insert_mean"] + 2:
+                raise ValueError(f"region {r} is shorter than an insert")
+            parts.append(contig[r["start"]:r["end"]])
+        self.text = np.concatenate(parts)
+        self.length = np.array([len(p) for p in parts], dtype=np.int64)
+        self.offset = np.cumsum(self.length) - self.length
+        w = np.array([r["weight"] for r in regions], dtype=np.float64)
+        self.p = w / w.sum()
+
+    def starts(self, rng: np.random.Generator,
+               isize: np.ndarray) -> np.ndarray:
+        """A start in ``text`` for each insert: a region picked by weight,
+        then a start inside it."""
+        k = rng.choice(len(self.p), len(isize), p=self.p)
+        return self.offset[k] + rng.integers(0, self.length[k] - isize - 1)
+
+
+def source(traffic: dict, genome):
+    """What the traffic draws from: the one contig's codes, or its
+    ``regions``."""
+    if "regions" in traffic:
+        return Regions(traffic["regions"], genome, traffic)
+    if len(genome.contigs) != 1:
+        raise ValueError("traffic over a genome of several contigs names "
+                         "its regions")
+    return genome.contigs[0][1]
+
+
+def simulate(src, rng: np.random.Generator, n_pairs: int,
              traffic: dict) -> np.ndarray:
-    """``n_pairs`` pairs as codes [2 * n_pairs, read_len], mates interleaved."""
+    """``n_pairs`` pairs as codes [2 * n_pairs, read_len], mates
+    interleaved, from ``source``'s codes or regions."""
     read_len = traffic["read_len"]
     mean, std = traffic["insert_mean"], traffic["insert_std"]
     span = np.arange(read_len)
     out = np.empty((n_pairs, 2, read_len), dtype=np.uint8)
+    regions = src if isinstance(src, Regions) else None
+    text = src if regions is None else regions.text
     filled = 0
     while filled < n_pairs:
         m = n_pairs - filled
         isize = np.clip(rng.normal(mean, std, m), read_len + 40,
                         3 * mean).astype(np.int64)
-        start = rng.integers(0, len(genome) - isize - 1)
-        r1 = genome[start[:, None] + span]
-        r2 = genome[(start + isize - read_len)[:, None] + span]
+        start = (rng.integers(0, len(text) - isize - 1) if regions is None
+                 else regions.starts(rng, isize))
+        r1 = text[start[:, None] + span]
+        r2 = text[(start + isize - read_len)[:, None] + span]
         ok = (r1 <= 3).all(axis=1) & (r2 <= 3).all(axis=1)
         k = int(ok.sum())
         out[filled:filled + k, 0] = r1[ok]
@@ -89,14 +139,15 @@ def simulate(genome: np.ndarray, rng: np.random.Generator, n_pairs: int,
     return np.where(hit, (out + shift) % 4, out).astype(np.uint8)
 
 
-def _drawn(traffic: dict, genome: np.ndarray, batches: int) -> List[np.ndarray]:
+def _drawn(traffic: dict, genome, batches: int) -> List[np.ndarray]:
     """The pool's first ``batches`` batches as ``reads_seed`` draws them."""
     rng = np.random.default_rng(traffic["reads_seed"])
     n_pairs = reads_per_batch(traffic) // 2
-    return [simulate(genome, rng, n_pairs, traffic) for _ in range(batches)]
+    src = source(traffic, genome)
+    return [simulate(src, rng, n_pairs, traffic) for _ in range(batches)]
 
 
-def make_pool(traffic: dict, genome: np.ndarray, seed: int) -> List[Batch]:
+def make_pool(traffic: dict, genome, seed: int) -> List[Batch]:
     """The run's distinct batches: the same reads in every run, drawn from
     ``reads_seed``; ``seed`` orders them: the batches, and the pairs (or
     reads) within each batch."""
@@ -109,7 +160,7 @@ def make_pool(traffic: dict, genome: np.ndarray, seed: int) -> List[Batch]:
     return [Batch(pool[i]) for i in order.permutation(len(pool))]
 
 
-def work_units(traffic: dict, genome: np.ndarray) -> np.ndarray:
+def work_units(traffic: dict, genome) -> np.ndarray:
     """The reads of the work sample, as codes (mates interleaved), the same
     in every run: the first ``work_sample`` pairs (or reads) of the pool's
     first batch as ``reads_seed`` draws it, a uniform sample of the reads
