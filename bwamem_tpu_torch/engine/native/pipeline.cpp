@@ -12,8 +12,8 @@
 // chain/extend core and the SW kernels by source so the hot routines stay
 // single-source (see ksw.cpp / align_core.cpp).
 //
-// This copy (bwamem_tpu_torch) differs from bwamem_tpu's in one place: the
-// body of bwamem_pipeline_batch is split at its phase boundary.  Everything
+// This copy (bwamem_tpu_torch) differs from bwamem_tpu's in two places.
+// The body of bwamem_pipeline_batch is split at its phase boundary: all
 // after phase 1's chain2aln (the Reg -> RegT copy, sort_dedup_patch,
 // flag_alt_regs, pestat, phase 2 and the record rows) is one function,
 // pipeline_tail, which bwamem_pipeline_batch calls after its own phase 1.
@@ -21,7 +21,9 @@
 // entries of the reference: it takes regions in bwamem_align_regs_batch's
 // 11-column row layout (align_core.cpp) and hands them to the same
 // pipeline_tail, so that regions made on the card go through the
-// reference's own dedup, pairing and record code.
+// reference's own dedup, pairing and record code.  And both entries
+// hand back what the batch's ALT-aware mapping did (counts_out, the AC_*
+// enum), tallied per thread; the records are the reference's either way.
 
 #include "ksw.cpp"        // ksw_global_one, gen_cigar2_one + C ABI twins
 #include "align_core.cpp" // Opts, Bns, Chain, build_chains, chain2aln
@@ -32,6 +34,8 @@
 #include <cstdio>
 #include <cstdlib>
 #include <string>
+#include <string_view>
+#include <unordered_set>
 #ifdef _OPENMP
 #include <omp.h>
 #endif
@@ -100,11 +104,28 @@ struct RecT {
   bool has_xa = false;
 };
 
+// What one batch's ALT-aware mapping did, handed back by both entries in
+// counts_out (AC_* order, native_pipeline.py mirrors it).  The regions, the
+// pair ends and the XA time are kept per thread in its Scratch and summed by
+// pipeline_tail; the two counts of records are read off the records.
+enum {
+  AC_REGIONS = 0,         // regions the extension returned (before dedup)
+  AC_ALT_REGIONS,         // ... of them on an ALT contig
+  AC_ALT_READS,           // reads with at least one of those
+  AC_ALT_SC_PRIMARIES,    // primary records with alt_sc > 0
+  AC_ALT_XA_ENTRIES,      // XA entries of the records that name an ALT contig
+  AC_ALT_PAIR_PRIMARY_ENDS,  // ends of a proper pair whose best ALT hit
+                             // stays primary (bwa's paired 0x800 branch)
+  AC_ALT_XA_NS,           // thread-ns of gen_alt_xa for reads with an ALT hit
+  AC_N
+};
+
 struct Scratch {
   std::vector<uint8_t> qtmp, rtmp, zbuf;
   std::vector<int64_t> ehbuf;
   std::vector<uint32_t> cig;
   std::vector<uint8_t> md;
+  int64_t alt[AC_N] = {};
 };
 
 // gen_cigar2 via the shared core, into scratch buffers
@@ -491,12 +512,35 @@ struct SubTimer {
   }
 };
 
+// Adds the steady clock's ns over its scope to *acc; reads no clock where
+// acc is null.
+struct NsTimer {
+  int64_t* acc;
+  std::chrono::steady_clock::time_point t0;
+  explicit NsTimer(int64_t* a) : acc(a) {
+    if (acc) t0 = std::chrono::steady_clock::now();
+  }
+  ~NsTimer() {
+    if (acc)
+      *acc += std::chrono::duration_cast<std::chrono::nanoseconds>(
+                  std::chrono::steady_clock::now() - t0)
+                  .count();
+  }
+};
+
+// whether any of a read's regions lies on an ALT contig
+static bool alt_hit(const std::vector<RegT>& regs) {
+  return std::any_of(regs.begin(), regs.end(),
+                     [](const RegT& r) { return r.is_alt != 0; });
+}
+
 // [EXT] mem_gen_alt (engine/pipeline.py::gen_alt_xa); xa[k] empty -> None
 static void gen_alt_xa(const FullOpt& o, const Bns& bns, const Names& nm,
                        std::vector<RegT>& regs, int64_t qlen,
                        const uint8_t* query, std::vector<std::string>& xa,
                        Scratch& s) {
   int64_t n = (int64_t)regs.size();
+  NsTimer timer(alt_hit(regs) ? &s.alt[AC_ALT_XA_NS] : nullptr);
   xa.assign(n, std::string());
   auto pri_idx = [&](int64_t i) -> int64_t {
     int64_t k = regs[i].secondary_all;
@@ -1177,6 +1221,14 @@ static bool try_pair_output(const FullOpt& o, const Bns& bns, const Names& nm,
       ai.has_xa = true;
     }
     h[i] = std::move(ai);
+    // the end's best ALT hit stayed primary after the ALT round: bwa
+    // 0.7.17's paired branch is recalled to write it as a 0x800 record,
+    // which neither this tail nor its oracle does (counted, not written)
+    if (n_pri[i] < (int64_t)regs2[i].size()) {
+      const RegT& p = regs2[i][n_pri[i]];
+      if (p.is_alt && p.secondary < 0 && p.score >= o.i(OI_T))
+        ++s.alt[AC_ALT_PAIR_PRIMARY_ENDS];
+    }
   }
   fix_flags(h[0], &h[1]);
   fix_flags(h[1], &h[0]);
@@ -1269,8 +1321,14 @@ static void pipeline_tail(
     std::vector<std::vector<Reg>>& raws, int32_t is_pe, const double* pes_in,
     int64_t id_base, int64_t id_stride, double* pes_out, bool prof,
     int64_t** rec_rows_out, int64_t* n_rec_out, uint32_t** cig_out,
-    int64_t* cig_len_out, char** str_out, int64_t* str_len_out) {
+    int64_t* cig_len_out, char** str_out, int64_t* str_len_out,
+    int64_t* counts_out) {
   const int64_t l_pac = bns.l_pac;
+  int64_t counts[AC_N] = {};
+  auto tally = [&](const Scratch& s) {
+#pragma omp critical(alt_tally)
+    for (int k = 0; k < AC_N; ++k) counts[k] += s.alt[k];
+  };
   auto t0 = std::chrono::steady_clock::now();
   auto lap = [&](const char* name) {
     if (!prof) return;
@@ -1299,7 +1357,14 @@ static void pipeline_tail(
       }
       sort_dedup_patch(o, bns, rbuf + roff[i], out, s);
       flag_alt_regs(bns, out);
+      int64_t n_alt = 0;
+      for (const Reg& r : raw)
+        n_alt += r.rid >= 0 && bns.is_alt && bns.is_alt[r.rid];
+      s.alt[AC_REGIONS] += (int64_t)raw.size();
+      s.alt[AC_ALT_REGIONS] += n_alt;
+      s.alt[AC_ALT_READS] += n_alt > 0;
     }
+    tally(s);
   }
 
   lap("dedup");
@@ -1347,6 +1412,7 @@ static void pipeline_tail(
         recs[2 * p] = std::move(out01[0]);
         recs[2 * p + 1] = std::move(out01[1]);
       }
+      tally(s);
     }
   } else {
 #pragma omp parallel
@@ -1359,6 +1425,7 @@ static void pipeline_tail(
         reg2sam_records(o, bns, nm, rlen[i], rbuf + roff[i], regs[i], 0,
                         nullptr, recs[i], s);
       }
+      tally(s);
     }
   }
 
@@ -1441,6 +1508,26 @@ static void pipeline_tail(
   *cig_len_out = cig_len;
   *str_out = str;
   *str_len_out = str_len;
+  if (counts_out == nullptr) return;
+  // what the records carry of the ALT path: primaries with an ALT shadow,
+  // and XA entries ("name,pos,cigar,NM;") that name an ALT contig
+  std::unordered_set<std::string_view> alt_names;
+  for (int64_t k = 0; k < bns.n; ++k)
+    if (bns.is_alt && bns.is_alt[k])
+      alt_names.emplace(nm.buf + nm.off[k], nm.off[k + 1] - nm.off[k]);
+  for (const auto& rl : recs)
+    for (const RecT& r : rl) {
+      counts[AC_ALT_SC_PRIMARIES] +=
+          r.alt_sc > 0 && !(r.flag & (0x100 | 0x800 | 0x10000));
+      std::string_view xa(r.xa);
+      while (!xa.empty()) {
+        std::string_view entry = xa.substr(0, xa.find(';'));
+        counts[AC_ALT_XA_ENTRIES] +=
+            alt_names.count(entry.substr(0, entry.find(',')));
+        xa.remove_prefix(std::min(entry.size() + 1, xa.size()));
+      }
+    }
+  std::memcpy(counts_out, counts, sizeof counts);
 }
 
 }  // namespace tail
@@ -1452,7 +1539,8 @@ extern "C" {
 // Seed intervals -> final alignment records, the mem_process_seqs
 // equivalent.  pes_in: NULL -> infer from the batch ([EXT] mem_pestat);
 // else 4x5 doubles (low, high, failed, avg, std).  Output buffers are
-// malloc'd here; caller frees via bwamem_buf_free.
+// malloc'd here; caller frees via bwamem_buf_free.  counts_out (NULL or
+// AC_N int64): the batch's ALT tallies (the AC_* enum).
 void bwamem_pipeline_batch(
     const uint8_t* ref_fwd, int64_t l_pac, int64_t n_anns,
     const int64_t* ann_off, const int64_t* ann_len, const int32_t* ann_is_alt,
@@ -1464,7 +1552,8 @@ void bwamem_pipeline_batch(
     int32_t is_pe, const double* pes_in, int64_t id_base, int64_t id_stride,
     double* pes_out,
     int64_t** rec_rows_out, int64_t* n_rec_out, uint32_t** cig_out,
-    int64_t* cig_len_out, char** str_out, int64_t* str_len_out) {
+    int64_t* cig_len_out, char** str_out, int64_t* str_len_out,
+    int64_t* counts_out) {
   using namespace tail;
   FullOpt o{opt_i, opt_f, mat};
   Bns bns{l_pac, n_anns, ann_off, ann_len, ann_is_alt, ref_fwd};
@@ -1559,7 +1648,8 @@ void bwamem_pipeline_batch(
   lap("chain+extend");
   pipeline_tail(o, bns, nm, n_reads, rbuf, roff, rlen, all_raws, is_pe,
                 pes_in, id_base, id_stride, pes_out, prof, rec_rows_out,
-                n_rec_out, cig_out, cig_len_out, str_out, str_len_out);
+                n_rec_out, cig_out, cig_len_out, str_out, str_len_out,
+                counts_out);
 }
 
 // The port's own entry, composed of two of the reference's: regions in
@@ -1577,7 +1667,8 @@ void bwamem_tail_batch(
     int32_t is_pe, const double* pes_in, int64_t id_base, int64_t id_stride,
     double* pes_out,
     int64_t** rec_rows_out, int64_t* n_rec_out, uint32_t** cig_out,
-    int64_t* cig_len_out, char** str_out, int64_t* str_len_out) {
+    int64_t* cig_len_out, char** str_out, int64_t* str_len_out,
+    int64_t* counts_out) {
   using namespace tail;
   FullOpt o{opt_i, opt_f, mat};
   Bns bns{l_pac, n_anns, ann_off, ann_len, ann_is_alt, ref_fwd};
@@ -1614,7 +1705,7 @@ void bwamem_tail_batch(
   }
   pipeline_tail(o, bns, nm, n_reads, rbuf, roff, rlen, raws, is_pe, pes_in,
                 id_base, id_stride, pes_out, prof, rec_rows_out, n_rec_out,
-                cig_out, cig_len_out, str_out, str_len_out);
+                cig_out, cig_len_out, str_out, str_len_out, counts_out);
 }
 
 }  // extern "C"

@@ -12,6 +12,14 @@ same tail from regions before dedup, in ``bwamem_align_regs_batch``'s row
 layout, so that regions made by any route (the card's fused path, the
 extension waves) meet the same C++ dedup, pairing and record code.
 
+Both entries also hand back what the batch's ALT-aware mapping did
+(``ALT_COUNTS``), which each call adds up where a window reads it: the
+regions the extension returned and those on an ALT contig to
+``FUSED_STATS.regions`` and ``FUSED_STATS.alt_regions``, the reads, records
+and ends to the ``utils.metrics`` counters of the same names, and the
+thread-seconds of XA generation for reads with an ALT hit to ``TIMERS`` as
+``alt_xa`` under the caller's open span (``native_tail.alt_xa``).
+
 Env: BWAMEM_TPU_NATIVE_TAIL=0 disables this path where ``available`` is
 asked (the oracle path runs); BWAMEM_TPU_DISABLE_NATIVE=1 disables all
 native code there.
@@ -26,9 +34,12 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..utils import metrics as _metrics
 from ..utils.nativebuild import compile_shared, lib_path, stale
+from ..utils.timers import TIMERS
 
 from .finalize import Aln
+from .pipeline_device import FUSED_STATS
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "native", "pipeline.cpp")
@@ -70,6 +81,14 @@ _RF_N = 23
 # region row fields (bwamem_align_regs_batch, align_core.cpp): rb re qb qe
 # rid score truesc w seedcov seedlen0 frac_rep_bits
 REG_COLS = 11
+# a batch's ALT tallies (AC_* enum in pipeline.cpp): the regions the
+# extension returned (before dedup) and those on an ALT contig; reads with
+# one of those; primary records with alt_sc > 0; XA entries of the records
+# that name an ALT contig; ends of a proper pair whose best ALT hit stays
+# primary after the ALT round (where bwa's paired branch is recalled to
+# write a 0x800 record); ns of XA generation for reads with an ALT hit
+ALT_COUNTS = ("regions", "alt_regions", "alt_reads", "alt_sc_primaries",
+              "alt_xa_entries", "alt_pair_primary_ends", "alt_xa_ns")
 
 # the reference, bns arrays and names; the reads; the options, is_pe,
 # pes_in, id_base, id_stride, pes_out; the six outputs
@@ -79,7 +98,7 @@ _TAIL = [_I64P, _F64P, _I8P,
          ctypes.c_int32, _F64P, ctypes.c_int64, ctypes.c_int64, _F64P,
          ctypes.POINTER(_I64P), _I64P,
          ctypes.POINTER(_U32P), _I64P,
-         ctypes.POINTER(_CHARP), _I64P]
+         ctypes.POINTER(_CHARP), _I64P, _I64P]
 
 
 def _ensure_built() -> bool:
@@ -181,6 +200,7 @@ def _call(entry, opt, idx, ref_fwd, reads, middle, is_pe, pes, id_base,
     cig_len = ctypes.c_int64()
     str_p = _CHARP()
     str_len = ctypes.c_int64()
+    counts = np.zeros(len(ALT_COUNTS), dtype=np.int64)
     entry(
         _p(ref_fwd, _U8P), bns.l_pac, len(bns.anns),
         _p(b.off, _I64P), _p(b.len, _I64P), _p(b.is_alt, _I32P),
@@ -193,8 +213,9 @@ def _call(entry, opt, idx, ref_fwd, reads, middle, is_pe, pes, id_base,
         id_base, id_stride, None,
         ctypes.byref(rows_p), ctypes.byref(n_rec),
         ctypes.byref(cig_p), ctypes.byref(cig_len),
-        ctypes.byref(str_p), ctypes.byref(str_len),
+        ctypes.byref(str_p), ctypes.byref(str_len), _p(counts, _I64P),
     )
+    _add_alt_counts(dict(zip(ALT_COUNTS, counts.tolist())))
     try:
         nr = int(n_rec.value)
         rows = np.ctypeslib.as_array(rows_p, shape=(max(nr, 1), _RF_N))[
@@ -209,6 +230,18 @@ def _call(entry, opt, idx, ref_fwd, reads, middle, is_pe, pes, id_base,
         _lib.bwamem_buf_free(rows_p)
         _lib.bwamem_buf_free(cig_p)
         _lib.bwamem_buf_free(str_p)
+
+
+def _add_alt_counts(c: dict) -> None:
+    """One batch's ALT tallies, added where a window reads them (the
+    module docstring says where)."""
+    FUSED_STATS.regions += c["regions"]
+    FUSED_STATS.alt_regions += c["alt_regions"]
+    for name in ("alt_reads", "alt_sc_primaries", "alt_xa_entries",
+                 "alt_pair_primary_ends"):
+        if c[name]:
+            _metrics.count(name, c[name])
+    TIMERS.add("alt_xa", c["alt_xa_ns"])
 
 
 def pipeline_batch_arrays(

@@ -487,8 +487,14 @@ def align_regs_batch(opt, eng, reads: List[np.ndarray],
                      exec_cfg: ExecConfig) -> List[List[AlnReg]]:
     """Reads (codes 0-4) -> deduplicated alignment regions per read:
     ``align_regs_raw``, then the Python dedup (sort_dedup_patch and the ALT
-    flags)."""
+    flags); the regions before dedup, and those on an ALT contig, counted in
+    ``FUSED_STATS`` as the C++ tail counts them on the other routes."""
+    from .pipeline_device import FUSED_STATS
+
     rows, n_reg = align_regs_raw(opt, eng, reads, exec_cfg)
+    is_alt = np.asarray([a.is_alt for a in eng.idx.bns.anns], dtype=bool)
+    FUSED_STATS.regions += len(rows)
+    FUSED_STATS.alt_regions += int(is_alt[rows[:, 4]].sum())
     with TIMERS.stage("dedup"):
         return [
             _flag_alt_regs(eng.idx.bns, sort_dedup_patch(opt, eng.idx, q, regs))

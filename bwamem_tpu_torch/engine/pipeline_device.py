@@ -70,7 +70,10 @@ class FusedStats:
     ``seed_sa`` is ``seed`` and ``sa_lookup``, then ``chain``,
     ``chain2aln``, ``decode``, ``staged``), the reads the JAX package's
     budgets would have flagged (S, then C, then R, then the window; each
-    read once), and,
+    read once), the regions the extension returned (before dedup) and
+    those of them on an ALT contig, on every route (fused and staged alike,
+    and the host routes: counted by the C++ tail, ``engine.native_pipeline``,
+    or by ``pipeline.align_regs_batch`` for the Python tail), and,
     only under ``exec_ctx.KEEP_LARGEST``, the largest batch's operands (so a
     benchmark can time the kernels on them)."""
 
@@ -92,6 +95,8 @@ class FusedStats:
         self.ref_c_overflows = 0
         self.ref_r_overflows = 0
         self.ref_t_overflows = 0
+        self.regions = 0
+        self.alt_regions = 0
         self.seconds = {"seed_sa": 0.0, "chain": 0.0, "chain2aln": 0.0,
                         "decode": 0.0, "staged": 0.0}
         self.largest_batch = None  # chain2aln's arguments

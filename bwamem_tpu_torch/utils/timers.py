@@ -14,6 +14,9 @@ work is a span (SURVEY.md section 5), cheap enough to stay on:
     generation (a ``gc.callbacks`` hook, installed while ``enabled``).  A
     pass also lies inside whatever span it interrupted: ``gc`` is not
     disjoint from the other top-level paths.
+  * ``TIMERS.add(name, ns)`` adds time measured elsewhere (thread-seconds
+    of a C++ call's threads) to a path under the open span, to the totals
+    alone.
   * Totals by path are always kept (``snapshot``, ``calls``); the spans
     themselves go into a bounded ring, oldest dropped and counted
     (``spans``, ``dropped``), each with its parent, its thread and the
@@ -131,6 +134,19 @@ class StageTimers:
                 self._calls[path] += 1
                 self._pushed += 1
                 self._ring.append(span)
+
+    def add(self, name: str, ns: int) -> None:
+        """``ns`` measured elsewhere (thread-ns summed over a C++ call's
+        threads, which make no one interval) added to the total of the path
+        ``name`` takes under this thread's open span, as one call; totals
+        only, not the ring.  Nothing where ``ns`` is 0."""
+        if not self._enabled or ns <= 0:
+            return
+        th = self._thread()
+        path = name if not th.stack else f"{th.stack[-1][1]}.{name}"
+        with self._lock:
+            self._ns[path] += ns
+            self._calls[path] += 1
 
     def _on_gc(self, phase: str, info: dict) -> None:
         t = time.perf_counter_ns()

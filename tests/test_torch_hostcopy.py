@@ -6,10 +6,11 @@ paired records, the per-read entry (``align1_regs``, ``_regs_from_intervals``,
 image; with the host
 C++ natives and without them.  The FASTQ reader, the SAM emitter and the
 wire codec are the JAX package's modules byte for byte.  The host C++ sources are the reference's
-byte for byte, but for pipeline.cpp's one difference, the split of
-``bwamem_pipeline_batch`` at its phase boundary (``SPLIT``), and its
-whole-batch entry, its core and the port's tail entry give the reference's
-records.  Objects of the two packages are never
+byte for byte, but for pipeline.cpp's two differences, the split of
+``bwamem_pipeline_batch`` at its phase boundary (``SPLIT``) and the ALT
+tallies its entries hand back (``ALT_TALLY``, lines added and none
+changed), and its whole-batch entry, its core and the port's tail entry
+give the reference's records.  Objects of the two packages are never
 ``==`` (their classes differ), so fields are compared.  Each package
 builds its own index from the same genome.
 """
@@ -356,7 +357,7 @@ def _contains(lines, part):
     return any(lines[i: i + n] == part for i in range(len(lines) - n + 1))
 
 
-# the copy's one difference: bwamem_pipeline_batch split at its phase
+# the copy's first difference: bwamem_pipeline_batch split at its phase
 # boundary.  Phase 1 keeps every block's regions before dedup for the tail
 # (these lines of the reference's phase 1 change); the Reg -> RegT copy,
 # sort_dedup_patch and flag_alt_regs move, unchanged, into pipeline_tail,
@@ -373,8 +374,43 @@ SPLIT = {
 }
 
 
+# the copy's second difference: the ALT tallies of a batch that both
+# entries hand back (counts_out).  Where the reference's text is held, they
+# are these additions alone, each made the number of times given: the
+# enum and a Scratch slot for them, gen_alt_xa's clock for reads with an
+# ALT hit, the count of paired ends whose best ALT hit stays primary, and
+# phase 2's per-thread sums.  The rest of them lies in the port's own
+# parts (pipeline_tail after the record rows, the entries' counts_out).
+ALT_TALLY = (
+    ("#include <string_view>\n#include <unordered_set>\n", 1),
+    ("// What one batch's ALT-aware mapping did", "struct Scratch {"),
+    ("  int64_t alt[AC_N] = {};\n", 1),
+    ("// Adds the steady clock's ns over its scope", "// [EXT] mem_gen_alt"),
+    ("  NsTimer timer(alt_hit(regs) ? &s.alt[AC_ALT_XA_NS] : nullptr);\n", 1),
+    ("    // the end's best ALT hit stayed primary",
+     "  }\n  fix_flags(h[0], &h[1]);"),
+    ("      tally(s);\n", 2),
+)
+
+
+def _without_alt_tally(port: str) -> str:
+    """The port's text with ``ALT_TALLY``'s additions taken out: a line
+    added the given number of times, or a block added once, from its first
+    line up to the reference's text that follows it."""
+    for add, then in ALT_TALLY:
+        if isinstance(then, int):
+            assert port.count(add) == then, add
+            port = port.replace(add, "")
+        else:
+            assert port.count(add) == 1, add
+            a = port.index(add)
+            port = port[:a] + port[port.index(then, a):]
+    return port
+
+
 def test_pipeline_cpp_differs_from_the_reference_only_by_the_split():
-    ref, port = _text(J_NATIVE, "pipeline.cpp"), _text(P_NATIVE, "pipeline.cpp")
+    ref = _text(J_NATIVE, "pipeline.cpp")
+    port = _without_alt_tally(_text(P_NATIVE, "pipeline.cpp"))
     note = port.index("//\n// This copy (bwamem_tpu_torch) differs")
     port_body = port[:note] + port[port.index("\n#include", note):]
     # everything before the entries is the reference's
