@@ -73,7 +73,11 @@ class FusedStats:
     read once), the regions the extension returned (before dedup) and
     those of them on an ALT contig, on every route (fused and staged alike,
     and the host routes: counted by the C++ tail, ``engine.native_pipeline``,
-    or by ``pipeline.align_regs_batch`` for the Python tail), and,
+    or by ``pipeline.align_regs_batch`` for the Python tail), the loop
+    kernel's chains and its ``SPLIT_COUNTS`` (``ops.pipeline_fused``: the
+    reads whose chains ran on many warps, those chains, the chains its
+    commits decided otherwise than their own runs and the band cells of own
+    extensions they discarded), and,
     only under ``exec_ctx.KEEP_LARGEST``, the largest batch's operands (so a
     benchmark can time the kernels on them)."""
 
@@ -97,6 +101,11 @@ class FusedStats:
         self.ref_t_overflows = 0
         self.regions = 0
         self.alt_regions = 0
+        self.chains = 0
+        self.split_reads = 0
+        self.split_chains = 0
+        self.split_reruns = 0
+        self.split_wasted_cells = 0
         self.seconds = {"seed_sa": 0.0, "chain": 0.0, "chain2aln": 0.0,
                         "decode": 0.0, "staged": 0.0}
         self.largest_batch = None  # chain2aln's arguments
@@ -223,7 +232,7 @@ def regs_rows_fused(opt: MemOptions, eng, reads: List[np.ndarray],
                 ref_t_cap(opt, max(int(qlens.max()), longest)))
         regs = fusedops.chain2aln(*args)
         rows = regs.compact()[:, list(ROW_ORDER)]
-        flat = torch.cat([regs.nregs.long(), chains.ovf.long(),
+        flat = torch.cat([regs.split, regs.nregs.long(), chains.ovf.long(),
                           chains.seed_cnt, chains.nslots.long(),
                           regs.work[:, :4].t().reshape(-1), rows.reshape(-1)])
         with TIMERS.stage("copy_back"):
@@ -236,6 +245,8 @@ def regs_rows_fused(opt: MemOptions, eng, reads: List[np.ndarray],
                 or chains.seed_rows.shape[0]
                 > st.largest_batch[2].seed_rows.shape[0]):
             st.largest_batch = args
+        k = len(fusedops.SPLIT_COUNTS)
+        split, flat = flat[:k], flat[k:]
         meta = flat[:8 * n].reshape(8, n)
         nregs, ovf, seed_cnt, nslots = meta[0], meta[1] != 0, meta[2], meta[3]
         tasks, pruned, jobs, ref_t = meta[4:8]
@@ -259,6 +270,10 @@ def regs_rows_fused(opt: MemOptions, eng, reads: List[np.ndarray],
     st.tasks += int(tasks.sum())
     st.pruned += int(pruned.sum())
     st.jobs += int(jobs.sum())
+    for name, v in zip(fusedops.SPLIT_COUNTS, split.tolist()):
+        setattr(st, name, getattr(st, name) + v)
+        if name != "chains":
+            _metrics.count(name, v)
     # what the JAX package's budgets would have flagged, each read once
     ref_s = seed_cnt > REF_S_SLOTS
     ref_c = ~ref_s & (nslots > REF_C_SLOTS)

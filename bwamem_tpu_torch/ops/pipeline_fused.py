@@ -13,11 +13,18 @@ on the device.
   lockstep, one task a read a wave, padded to the batch's largest counts;
   target windows are gathered base by base from the pac tensor; extensions
   run through ``ops.extend.ksw_extend_torch``.  It runs wherever its tensors
-  lie.
+  lie.  ``chain2aln_split_torch`` mirrors the loop kernel's chain items
+  (below) in the same waves; ``chain2aln_torch`` hands it a batch whose
+  split set holds a read.
 * ``chain2aln_cuda`` launches the hand-written Hopper kernels of
   ``csrc/chain2aln.cu`` (a prep kernel, one warp per chain, and the loop
   kernel, one warp per read, a target row's band across the lanes; warps
-  take reads heaviest first, in the order ``read_order`` gives).
+  take work items heaviest first, in the order ``work_items`` gives).  The
+  reads of ``split_reads``, those that would outlast the card's fair share
+  of the batch on one warp, run as chain items: each chain on a warp of its
+  own against its own regions, then the read committed in bwa's order, each
+  chain's decisions taken again against the read's regions with its own
+  extensions reused (the kernel's note says why that is exact).
 * ``chain2aln`` dispatches on the device of its inputs.
 
 Semantics are the host oracle's, engine/extend.py ``chain2aln``.  The three
@@ -34,6 +41,7 @@ an earlier stage and reads for which mem_flt_chained_seeds would act).
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -56,6 +64,22 @@ MAX_QLEN = (1 << 12) - 1
 MAX_H = 1 << 19
 # columns of Regions.work
 W_TASKS, W_PRUNED, W_JOBS, W_REF_T, W_CELLS, W_ROWS = range(6)
+# Regions.split's entries: the chains of the reads run; the reads that split
+# and their chains; the chains whose commit decided a seed otherwise than
+# their own runs, and the band cells of own extensions it discarded
+SPLIT_COUNTS = ("chains", "split_reads", "split_chains", "split_reruns",
+                "split_wasted_cells")
+# split_reads' line is the batch's estimate over this many times the resident
+# warps.  The estimate counts every seed, and an average read's chains prune
+# most of theirs (tasks were 31-49 % of seeds in batches of 66,666 GRCh38
+# reads), while a heavy read of many short chains extends nearly all (98 %);
+# at the resident warps alone the line missed the MHC reads' heaviest.  On
+# twelve such batches of two read sets (chr20 and chr6 with its MHC ALT
+# haplotypes; an H100), the loop's time at 4 was within 5 % of the best of
+# 1, 2, 4, 8 and 16 on every batch, while 2 left MHC batches up to 1.8x
+# slower, and a line from the batch's chains (which track its tasks within
+# 3 %) over the resident warps alone left one 1.5x slower.
+SPLIT_LINE = 4
 
 
 @dataclass(frozen=True)
@@ -87,13 +111,16 @@ class Regions(NamedTuple):
     seedlen0, rid), in the order the oracle appends them.  ``work`` [B, 6]
     int64 counts per read the tasks extended, the tasks pruned, the
     extension jobs, whether a task's window was longer than ``t_cap``, and
-    the band cells and target rows its extensions walked."""
+    the band cells and target rows its extensions walked: the decisions
+    that stand, whichever way the read ran.  ``split`` [5] int64 holds the
+    batch's ``SPLIT_COUNTS``."""
 
     reg_c: torch.Tensor
     reg_i: torch.Tensor
     nregs: torch.Tensor  # [B] int32
     seed_off: torch.Tensor  # [B] int64
     work: torch.Tensor
+    split: torch.Tensor
 
     def compact(self) -> torch.Tensor:
         """The real rows in read order, [Nr, 11] int64: rb, re, frac_rep
@@ -220,10 +247,23 @@ def _retry(ext, ql, tl, h0, prev, p: ExtendParams):
     return res, aw
 
 
+def _split_counts(chains: Chains, run) -> torch.Tensor:
+    """``Regions.split`` before any read splits: the chains of ``run``."""
+    counts = torch.zeros(len(SPLIT_COUNTS), dtype=torch.int64,
+                         device=chains.n_chain.device)
+    counts[0] = torch.where(run.bool(), chains.n_chain, 0).sum()
+    return counts
+
+
 def chain2aln_torch(ctg: DeviceContigs, ref: DeviceRef, chains: Chains, qseq,
                     qlen, run, params: ExtendParams, mat,
-                    t_cap: int = NO_T_CAP) -> Regions:
-    """mem_chain2aln for every read of ``run``, in lockstep waves."""
+                    t_cap: int = NO_T_CAP, split=None) -> Regions:
+    """mem_chain2aln for every read of ``run``, in lockstep waves.  Where
+    ``split`` ([B] bool) holds a read of ``run``, ``chain2aln_split_torch``
+    runs the batch instead, as the loop kernel's chain items run it."""
+    if split is not None and bool((split.bool() & run.bool()).any()):
+        return chain2aln_split_torch(ctg, ref, chains, qseq, qlen, run, params,
+                                     mat, t_cap, split)
     _check(ctg, ref, chains, qseq, qlen, run)
     p = params
     dev = chains.seed_rows.device
@@ -234,8 +274,9 @@ def chain2aln_torch(ctg: DeviceContigs, ref: DeviceRef, chains: Chains, qseq,
     reg_i = torch.zeros((Ns, 8), dtype=i32, device=dev)
     nreg = torch.zeros(B, dtype=i64, device=dev)
     work = torch.zeros((B, 6), dtype=i64, device=dev)
+    counts = _split_counts(chains, run)
     if not Ns:
-        return Regions(reg_c, reg_i, nreg.to(i32), lay.seed_off, work)
+        return Regions(reg_c, reg_i, nreg.to(i32), lay.seed_off, work, counts)
     r0, r1, perm, c_of = chain_windows(ctg, chains, lay, qlen, p)
     sr = chains.seed_rows
     ql64 = qlen.long()
@@ -393,7 +434,338 @@ def chain2aln_torch(ctg: DeviceContigs, ref: DeviceRef, chains: Chains, qseq,
              crow[:, 0]], dim=1).to(i32)
         nreg[cur] += 1
         tc[cur] += 1
-    return Regions(reg_c, reg_i, nreg.to(i32), lay.seed_off, work)
+    return Regions(reg_c, reg_i, nreg.to(i32), lay.seed_off, work, counts)
+
+
+
+class _Lockstep:
+    """``chain2aln_split_torch``'s state over one batch: the chains'
+    windows and seed order, the region table (a row for each seed row,
+    where a read's regions go, then as many scratch rows, where a chain
+    that runs alone writes its own from its first seed row on) with each
+    region's extension counts (jobs, cells, rows), and the ``alive`` flag
+    of each srt position."""
+
+    def __init__(self, ctg, ref, chains, lay, qseq, qlen, p, mat, t_cap):
+        dev = chains.seed_rows.device
+        Ns = chains.seed_rows.shape[0]
+        self.ref, self.chains, self.lay, self.qseq = ref, chains, lay, qseq
+        self.p, self.mat, self.t_cap, self.Ns = p, mat.to(torch.int32), t_cap, Ns
+        self.ql64 = qlen.long()
+        self.r0, self.r1, self.perm, self.c_of = chain_windows(
+            ctg, chains, lay, qlen, p)
+        # task t of a unit stands at seed row g = its first row + t: its
+        # chain's seeds from the end of srt down
+        g_all = torch.arange(Ns, device=dev)
+        cso = lay.chain_seed_off[self.c_of]
+        self.task_pos = 2 * cso + lay.ns[self.c_of] - 1 - g_all
+        self.chain_end = cso + lay.ns[self.c_of]  # by row: its chain's srt end
+        self.reg_c = torch.zeros((2 * Ns, 3), dtype=torch.int64, device=dev)
+        self.reg_i = torch.zeros((2 * Ns, 8), dtype=torch.int32, device=dev)
+        self.reg_w = torch.zeros((2 * Ns, 3), dtype=torch.int64, device=dev)
+        self.alive = torch.ones(Ns, dtype=torch.bool, device=dev)
+
+    def held(self, rb, qb, ln, ql, rows, valid):
+        """mem_chain2aln's containment test of each seed (rb, qb, ln [n, 1])
+        against the regions at table rows ``rows`` [n, R] where ``valid``:
+        [n] whether any holds it."""
+        pc, pi = self.reg_c[rows], self.reg_i[rows].long()
+        p_rb, p_re, p_qb, p_qe = pc[..., 0], pc[..., 1], pi[..., 0], pi[..., 1]
+        p_w, p_sl0 = pi[..., 4], pi[..., 6]
+        ok = (valid & (rb >= p_rb) & (rb + ln <= p_re) & (qb >= p_qb)
+              & (qb + ln <= p_qe)
+              & ~((ln - p_sl0).double() > 0.1 * ql.double()))
+        hit = torch.zeros_like(ok)
+        for qd, rd in ((qb - p_qb, rb - p_rb),
+                       (p_qe - (qb + ln), p_re - (rb + ln))):
+            w = torch.minimum(max_gap(torch.minimum(qd, rd), self.p), p_w)
+            hit |= (qd - rd < w) & (rd - qd < w)
+        return (ok & hit).any(dim=1)
+
+    def differs(self, pos, end, rb, qb, ln):
+        """Whether a live seed of the chain after srt position ``pos`` (up
+        to ``end``) argues for another alignment than the seed (rb, qb, ln);
+        all [n, 1]."""
+        dev = pos.device
+        M = int((end - pos - 1).max()) if pos.numel() else 0
+        if M <= 0:
+            return torch.zeros(pos.shape[0], dtype=torch.bool, device=dev)
+        p2 = pos + 1 + torch.arange(M, device=dev)
+        m = p2 < end
+        p2 = p2.clamp(max=self.Ns - 1)
+        t = self.perm[p2]
+        sr = self.chains.seed_rows
+        t_rb, t_qb, t_ln = sr[t, 0], sr[t, 1], sr[t, 2]
+        big = ~(t_ln.double() < ln.double() * 0.95)
+        c1 = ((qb <= t_qb) & (qb + ln - t_qb >= (ln >> 2))
+              & (t_qb - qb != t_rb - rb))
+        c2 = ((t_qb <= qb) & (t_qb + t_ln - qb >= (ln >> 2))
+              & (qb - t_qb != rb - t_rb))
+        return (m & self.alive[p2] & big & (c1 | c2)).any(dim=1)
+
+    def run(self, row, n, reg, nreg, cap, read, soft, own=None, own_ext=None):
+        """Units in lockstep, a task a unit a wave.  Unit u's tasks are the
+        seed rows ``row[u] ..`` ``+ n[u]`` (a read's chains, or one chain);
+        its regions and their counts go after the ``nreg[u]`` it has at table
+        row ``reg[u]``, at most ``cap[u]`` in all; ``read[u]`` is its read.
+        Where ``own[u]`` >= 0 the unit is one chain run again after its own
+        run, whose regions start at table row ``own[u]`` and whose decisions
+        ``own_ext`` holds by srt position: a seed both runs extend takes the
+        own run's region and counts.  Returns the units' region counts, their
+        work [U, 6], the units of ``soft`` that stopped on a seed outside
+        the window or at ``cap`` (any other unit raises there), the units
+        that decided a seed otherwise than their own runs, and the cells of
+        own extensions they pruned."""
+        p, sr, dev = self.p, self.chains.seed_rows, row.device
+        i32, i64 = torch.int32, torch.int64
+        U, L = row.shape[0], self.qseq.shape[1]
+        n, nreg = n.clone(), nreg.clone()
+        if own is None:
+            own = torch.full((U,), -1, dtype=i64, device=dev)
+        again = own >= 0
+        work = torch.zeros((U, 6), dtype=i64, device=dev)
+        failed = torch.zeros(U, dtype=torch.bool, device=dev)
+        changed = torch.zeros(U, dtype=torch.bool, device=dev)
+        wasted = torch.zeros(U, dtype=i64, device=dev)
+        tc = torch.zeros(U, dtype=i64, device=dev)
+        nxt = torch.zeros(U, dtype=i64, device=dev)  # the own run's next region
+
+        def was_extended(idx, pos):
+            if own_ext is None:
+                return torch.zeros(idx.numel(), dtype=torch.bool, device=dev)
+            return again[idx] & own_ext[pos]
+
+        def pruned(idx):
+            g = row[idx] + tc[idx]
+            pos = self.task_pos[g]
+            s = self.perm[pos]
+            rb, qb, ln = sr[s, 0, None], sr[s, 1, None], sr[s, 2, None]
+            R = int(nreg[idx].max())
+            if R == 0:
+                return torch.zeros(idx.numel(), dtype=torch.bool, device=dev)
+            rr = torch.arange(R, device=dev)
+            out = self.held(rb, qb, ln, self.ql64[read[idx], None],
+                            (reg[idx, None] + rr).clamp(max=2 * self.Ns - 1),
+                            rr < nreg[idx, None])
+            ci = out.nonzero().squeeze(1)
+            if ci.numel():
+                out[ci[self.differs(pos[ci, None], self.chain_end[g[ci], None],
+                                    rb[ci], qb[ci], ln[ci])]] = False
+            return out
+
+        def extend(idx, q_at, t_at, ql, tl, h0, prev, bonus):
+            """One side's jobs of the units ``idx``: query base j of a job is
+            ``qseq[read, q_at(j)]``, target base i is position ``t_at(i)``."""
+            jq = torch.arange(max(int(ql.max()), 1), device=dev)
+            jt = torch.arange(max(int(tl.max()), 1), device=dev)
+            qa = self.qseq[read[idx][:, None], q_at(jq).clamp(0, L - 1)]
+            ta = ref_codes(self.ref, t_at(jt))
+
+            def ext(sel, ql_, tl_, h0_, w_):
+                return ksw_extend_torch(
+                    qa[sel], ta[sel], ql_.to(i32), tl_.to(i32), h0_.to(i32),
+                    w_.to(i32), torch.full_like(ql_, bonus, dtype=i32),
+                    self.mat, p.o_del, p.e_del, p.o_ins, p.e_ins, p.zdrop,
+                    p.max_sc, count=True)
+
+            res, aw = _retry(ext, ql, tl, h0, prev, p)
+            return {k: v.long() for k, v in res.items()}, aw
+
+        while True:
+            # each unit's next task that is not pruned
+            cand = (tc < n).nonzero().squeeze(1)
+            while cand.numel():
+                dead = cand[pruned(cand)]
+                pos = self.task_pos[row[dead] + tc[dead]]
+                self.alive[pos] = False
+                lost = dead[was_extended(dead, pos)]
+                changed[lost] = True
+                wasted[lost] += self.reg_w[own[lost] + nxt[lost], 1]
+                nxt[lost] += 1
+                tc[dead] += 1
+                work[dead, W_PRUNED] += 1
+                cand = dead[tc[dead] < n[dead]]
+            cur = (tc < n).nonzero().squeeze(1)
+            if not cur.numel():
+                break
+            g = row[cur] + tc[cur]
+            s = self.perm[self.task_pos[g]]
+            c = self.c_of[g]
+            rb, qb, ln = sr[s, 0], sr[s, 1], sr[s, 2]
+            out = (rb < self.r0[c]) | (rb + ln > self.r1[c])
+            full = nreg[cur] >= cap[cur]
+            for bad, msg in ((out, "a seed lies outside its chain's window"),
+                             (full, "a region past the read's rows")):
+                if bool((bad & ~soft[cur]).any()):
+                    raise RuntimeError(f"chain2aln: {msg}")
+            stop = out | full
+            if bool(stop.any()):
+                failed[cur[stop]] = True
+                n[cur[stop]] = tc[cur[stop]]
+                keep = ~stop
+                cur, g, c, rb, qb, ln = (cur[keep], g[keep], c[keep], rb[keep],
+                                         qb[keep], ln[keep])
+                if not cur.numel():
+                    continue
+            work[cur, W_TASKS] += 1
+            work[cur, W_REF_T] |= (self.r1[c] - self.r0[c] > self.t_cap).long()
+            at = reg[cur] + nreg[cur]
+            # a seed both runs extend: the own run's region and counts
+            use = was_extended(cur, self.task_pos[g])
+            if bool(use.any()):
+                src = own[cur[use]] + nxt[cur[use]]
+                self.reg_c[at[use]] = self.reg_c[src]
+                self.reg_i[at[use]] = self.reg_i[src]
+                work[cur[use], W_JOBS] += self.reg_w[src, 0]
+                work[cur[use], W_CELLS] += self.reg_w[src, 1]
+                work[cur[use], W_ROWS] += self.reg_w[src, 2]
+                nxt[cur[use]] += 1
+            nreg[cur] += 1
+            tc[cur] += 1
+            changed[cur[again[cur] & ~use]] = True
+            keep = ~use
+            cur, c, at, rb, qb, ln = (cur[keep], c[keep], at[keep], rb[keep],
+                                      qb[keep], ln[keep])
+            if not cur.numel():
+                continue
+            ql = self.ql64[read[cur]]
+            m = cur.numel()
+            dw = torch.zeros((m, 3), dtype=i64, device=dev)  # jobs cells rows
+            aw0 = torch.full((m,), p.w, dtype=i64, device=dev)
+            aw1 = aw0.clone()
+            # left extension on the reversed prefix
+            score = ln * p.a
+            truesc, qb_f, rb_f = score.clone(), torch.zeros_like(qb), rb.clone()
+            li = (qb > 0).nonzero().squeeze(1)
+            if li.numel():
+                res, aw0[li] = extend(
+                    cur[li], lambda j: qb[li, None] - 1 - j,
+                    lambda i: rb[li, None] - 1 - i, qb[li],
+                    rb[li] - self.r0[c[li]], score[li],
+                    torch.full_like(li, -1), p.pen_clip5)
+                dw[li] += torch.stack([1 + (aw0[li] > p.w).long(), res["cells"],
+                                       res["rows"]], dim=1)
+                loc = ((res["gscore"] <= 0)
+                       | (res["gscore"] <= res["score"] - p.pen_clip5))
+                score[li] = res["score"]
+                qb_f[li] = torch.where(loc, qb[li] - res["qle"], 0)
+                rb_f[li] = rb[li] - torch.where(loc, res["tle"], res["gtle"])
+                truesc[li] = torch.where(loc, res["score"], res["gscore"])
+            # right extension
+            qe, re0 = qb + ln, rb + ln
+            qe_f, re_f = ql.clone(), re0.clone()
+            ri = (qe != ql).nonzero().squeeze(1)
+            if ri.numel():
+                sc0 = score[ri]
+                res, aw1[ri] = extend(
+                    cur[ri], lambda j: qe[ri, None] + j,
+                    lambda i: re0[ri, None] + i, ql[ri] - qe[ri],
+                    self.r1[c[ri]] - re0[ri], sc0, sc0, p.pen_clip3)
+                dw[ri] += torch.stack([1 + (aw1[ri] > p.w).long(), res["cells"],
+                                       res["rows"]], dim=1)
+                loc = ((res["gscore"] <= 0)
+                       | (res["gscore"] <= res["score"] - p.pen_clip3))
+                score[ri] = res["score"]
+                qe_f[ri] = torch.where(loc, qe[ri] + res["qle"], ql[ri])
+                re_f[ri] = re0[ri] + torch.where(loc, res["tle"], res["gtle"])
+                truesc[ri] += torch.where(loc, res["score"], res["gscore"]) - sc0
+            work[cur, W_JOBS] += dw[:, 0]
+            work[cur, W_CELLS] += dw[:, 1]
+            work[cur, W_ROWS] += dw[:, 2]
+            # seedcov over the chain's seeds, then the region
+            lay = self.lay
+            cs = lay.chain_seed_off[c, None] + torch.arange(
+                int(lay.ns[c].max()), device=dev)
+            inside = cs < (lay.chain_seed_off[c] + lay.ns[c])[:, None]
+            cs = cs.clamp(max=self.Ns - 1)
+            t_rb, t_qb, t_ln = sr[cs, 0], sr[cs, 1], sr[cs, 2]
+            inside &= ((t_qb >= qb_f[:, None]) & (t_qb + t_ln <= qe_f[:, None])
+                       & (t_rb >= rb_f[:, None]) & (t_rb + t_ln <= re_f[:, None]))
+            seedcov = torch.where(inside, t_ln, 0).sum(dim=1)
+            crow = self.chains.chain_rows[c]
+            self.reg_c[at] = torch.stack([rb_f, re_f, crow[:, 3]], dim=1)
+            self.reg_i[at] = torch.stack(
+                [qb_f, qe_f, score, truesc, torch.maximum(aw0, aw1), seedcov,
+                 ln, crow[:, 0]], dim=1).to(i32)
+            self.reg_w[at] = dw
+        return nreg, work, failed, changed, wasted
+
+
+def _add_work(row, w):
+    """A chain's work counts into its read's row: sums, but the window
+    mark is an or."""
+    ref_t = row[W_REF_T] | w[W_REF_T]
+    row += w
+    row[W_REF_T] = ref_t
+
+
+def chain2aln_split_torch(ctg: DeviceContigs, ref: DeviceRef, chains: Chains,
+                          qseq, qlen, run, params: ExtendParams, mat,
+                          t_cap: int = NO_T_CAP, split=None) -> Regions:
+    """``chain2aln_torch``'s results, with the reads of ``split`` ([B] bool,
+    as ``split_reads`` gives it) run as the loop kernel runs them: each of
+    their chains alone against its own regions, then the read committed
+    chain by chain in bwa's order, each chain's decisions taken again
+    against the read's earlier regions with its own run's extension of
+    every seed both runs extend.  The CPU mirror of the kernel's chain
+    items; the other reads run whole."""
+    _check(ctg, ref, chains, qseq, qlen, run)
+    dev = chains.seed_rows.device
+    i32, i64 = torch.int32, torch.int64
+    B, Ns = qlen.shape[0], chains.seed_rows.shape[0]
+    lay = _layout(chains)
+    ok = run.bool()
+    split = (torch.zeros(B, dtype=torch.bool, device=dev) if split is None
+             else split.bool() & ok)
+    counts = _split_counts(chains, run)
+    if not Ns:
+        z = torch.zeros(B, dtype=i64, device=dev)
+        return Regions(torch.zeros((0, 3), dtype=i64, device=dev),
+                       torch.zeros((0, 8), dtype=i32, device=dev), z.to(i32),
+                       lay.seed_off, torch.zeros((B, 6), dtype=i64, device=dev),
+                       counts)
+    st = _Lockstep(ctg, ref, chains, lay, qseq, qlen, params, mat, t_cap)
+    # whole reads, and each chain of a split read alone into its scratch rows
+    cs = split[lay.chain_read.long()].nonzero().squeeze(1)
+    ns = lay.ns[cs]
+    zB = torch.zeros(B, dtype=i64, device=dev)
+    nreg, work, failed, _, _ = st.run(
+        torch.cat([lay.seed_off, lay.chain_seed_off[cs]]),
+        torch.cat([torch.where(ok & ~split, chains.n_seed, 0), ns]),
+        torch.cat([lay.seed_off, Ns + lay.chain_seed_off[cs]]),
+        torch.cat([zB, torch.zeros_like(ns)]),
+        torch.cat([chains.n_seed, ns]),
+        torch.cat([torch.arange(B, device=dev), lay.chain_read[cs].long()]),
+        torch.cat([torch.zeros(B, dtype=torch.bool, device=dev),
+                   torch.ones_like(ns, dtype=torch.bool)]))
+    own_ok = torch.zeros(lay.ns.shape[0], dtype=torch.bool, device=dev)
+    own_ok[cs] = ~failed[B:]
+    own_ext = st.alive.clone()  # the own runs' decisions, by srt position
+    nreg, work = nreg[:B].clone(), work[:B].clone()
+    counts[1], counts[2] = split.sum(), cs.numel()
+    # commit the split reads: each chain run again after the read's earlier
+    # regions, taking its own run's extensions; a chain a read a round
+    rb = split.nonzero().squeeze(1)
+    nxt = lay.chain_off[rb].clone()
+    end = nxt + chains.n_chain[rb]
+    while rb.numel():
+        for ci in nxt.tolist():
+            so = int(lay.chain_seed_off[ci])
+            st.alive[so: so + int(lay.ns[ci])] = True
+        n2, w2, _, changed, wasted = st.run(
+            lay.chain_seed_off[nxt], lay.ns[nxt], lay.seed_off[rb], nreg[rb],
+            chains.n_seed[rb], rb, torch.zeros_like(rb, dtype=torch.bool),
+            torch.where(own_ok[nxt], Ns + lay.chain_seed_off[nxt], -1), own_ext)
+        nreg[rb] = n2
+        for k, b in enumerate(rb.tolist()):
+            _add_work(work[b], w2[k])
+        counts[3] += (changed | ~own_ok[nxt]).sum()
+        counts[4] += wasted.sum()
+        nxt += 1
+        more = nxt < end
+        rb, nxt, end = rb[more], nxt[more], end[more]
+    return Regions(st.reg_c[:Ns], st.reg_i[:Ns], nreg.to(i32), lay.seed_off,
+                   work, counts)
 
 
 # ------------------------------------------------------------------- kernels
@@ -406,7 +778,8 @@ def _bind(lib):
         [p] * 5 + [i64] + [p, p, i32, i64] + opts + [p] * 4)
     lib.bwamem_chain2aln_launch.restype = ctypes.c_int
     lib.bwamem_chain2aln_launch.argtypes = (
-        [p] * 12 + [i64, p, i32, i32, p, i64, p] + opts + [i64] + [p] * 7 + [p])
+        [p] * 13 + [i64, p, i32, i32, p, i64, p] + opts + [i64, p, i32]
+        + [p] * 12 + [p])
     lib.bwamem_chain2aln_warps_per_sm.restype = ctypes.c_int
     lib.bwamem_chain2aln_warps_per_sm.argtypes = [i32]
     lib.bwamem_chain2aln_max_qlen.restype = ctypes.c_int
@@ -453,12 +826,35 @@ def chain2aln_prep_launch(ctg, chains: Chains, lay: _Layout, qlen, p, rmax, srt,
             stream(ctg.device)))
 
 
-def read_order(n_seed, qlen, run) -> torch.Tensor:
-    """The order in which the loop kernel's warps take the reads: heaviest
-    first by ``n_seed x qlen`` (reads left out of ``run`` last), int32 [B].
-    Scheduling only: no result depends on it."""
+def split_reads(n_seed, n_chain, qlen, run, warps: int) -> torch.Tensor:
+    """The reads whose chains the loop kernel runs on many warps, [B] bool:
+    those of ``run`` with two chains or more whose work estimate (``n_seed
+    x qlen``, as ``work_items`` orders them) is above the batch's total over
+    ``SPLIT_LINE`` times the kernel's resident ``warps``: such a read would
+    outlast the card's fair share of the batch on one warp."""
+    ok = run.bool()
+    est = torch.where(ok, n_seed.long() * qlen.long(), 0)
+    return ok & (n_chain >= 2) & (est * (SPLIT_LINE * warps) > est.sum())
+
+
+def work_items(n_seed, qlen, run, chain_read, split) -> torch.Tensor:
+    """The loop kernel's work items, heaviest first by ``n_seed x qlen``,
+    int32: read b as b, chain ci of a read of ``split`` ([B] bool) as B + ci
+    (a split read's chains in order, at its read's rank), and last a -1 for
+    each split read; B + the split reads' chains items, so B where no read
+    splits.  Reads left out of ``run`` come after the rest (the kernel
+    still writes their counts).  Scheduling only: no result depends on it.
+    One copy to the host (the split reads' chains)."""
     est = torch.where(run.bool(), n_seed.long() * qlen.long(), -1)
-    return torch.sort(est, descending=True, stable=True).indices.to(torch.int32)
+    split = split.bool()
+    ci = split[chain_read.long()].nonzero().squeeze(1)
+    if not ci.numel():
+        return torch.sort(est, descending=True, stable=True).indices.to(torch.int32)
+    B = est.shape[0]
+    key = torch.cat([torch.where(split, -2, est), est[chain_read[ci].long()]])
+    idx = torch.sort(key, descending=True, stable=True).indices
+    item = torch.where(idx < B, idx, B + ci[(idx - B).clamp(min=0)])
+    return torch.where(key[idx] == -2, -1, item).to(torch.int32)
 
 
 def kernel_max_qlen(mat, device) -> int:
@@ -498,25 +894,43 @@ def kernel_query_len(qlen, run, mat) -> int:
 
 def chain2aln_launch(ref, chains: Chains, lay: _Layout, n_chain, n_seed,
                      chain_off, seed_off, rmax, srt, alive, run, qseq, qlen,
-                     mat, p, t_cap, order, Q, reg_c, reg_i, nregs, work, err):
+                     mat, p, t_cap, order, Q, reg_c, reg_i, nregs, work, err,
+                     stats=None):
     """The loop kernel on the reads of the per-read operands (``n_chain``,
     ``n_seed``, ``chain_off``, ``seed_off``, ``run`` uint8, ``qseq``,
-    ``qlen``, all of one length B), the warps taking them in ``order``
-    (int32 [B], ``read_order``); ``Q`` (``kernel_query_len``) bounds the
-    reads it runs."""
-    B = qseq.shape[0]
-    # the warps' read counter, which the launcher zeroes
-    nxt = torch.empty(1, dtype=torch.int32, device=qseq.device)
-    with on_device(qseq.device):
+    ``qlen``, all of one length B), the warps taking the work items of
+    ``order`` (``work_items``); ``Q`` (``kernel_query_len``) bounds the reads
+    it runs.  Where ``order`` holds chain items (it is longer than B then
+    only), the launcher allocates their scratch, and the kernel adds the
+    chains its commits decided otherwise than their own runs and those runs'
+    discarded band cells to ``stats`` (int64 [2], where given)."""
+    B, dev = qseq.shape[0], qseq.device
+    i32, i64 = torch.int32, torch.int64
+    # the warps' item counter, which the launcher zeroes
+    nxt = torch.empty(1, dtype=i32, device=dev)
+    if stats is None:
+        stats = torch.zeros(2, dtype=i64, device=dev)
+    scratch = [0] * 5
+    if order.numel() > B:
+        Nc, Ns = chains.chain_rows.shape[0], chains.seed_rows.shape[0]
+        scratch = [torch.empty((Ns, 3), dtype=i64, device=dev),
+                   torch.empty((Ns, 8), dtype=i32, device=dev),
+                   torch.empty((Ns, 3), dtype=i64, device=dev),
+                   torch.empty(Nc, dtype=torch.uint8, device=dev),
+                   torch.zeros(B, dtype=i32, device=dev)]
+    with on_device(dev):
         _launched("chain2aln", _lib().bwamem_chain2aln_launch(
             chains.chain_rows.data_ptr(), chains.seed_rows.data_ptr(),
             chain_off.data_ptr(), n_chain.data_ptr(), seed_off.data_ptr(),
-            n_seed.data_ptr(), lay.chain_seed_off.data_ptr(), rmax.data_ptr(),
-            srt.data_ptr(), alive.data_ptr(), run.data_ptr(), qseq.data_ptr(),
-            qseq.stride(0), qlen.data_ptr(), B, Q, ref.pac.data_ptr(), ref.l_pac,
-            mat.data_ptr(), *_opts(p), t_cap, order.data_ptr(), nxt.data_ptr(),
-            reg_c.data_ptr(), reg_i.data_ptr(), nregs.data_ptr(), work.data_ptr(),
-            err.data_ptr(), stream(qseq.device)))
+            n_seed.data_ptr(), lay.chain_seed_off.data_ptr(),
+            lay.chain_read.data_ptr(), rmax.data_ptr(), srt.data_ptr(),
+            alive.data_ptr(), run.data_ptr(), qseq.data_ptr(), qseq.stride(0),
+            qlen.data_ptr(), B, Q, ref.pac.data_ptr(), ref.l_pac,
+            mat.data_ptr(), *_opts(p), t_cap, order.data_ptr(), order.numel(),
+            nxt.data_ptr(), reg_c.data_ptr(), reg_i.data_ptr(),
+            nregs.data_ptr(), work.data_ptr(),
+            *(s if isinstance(s, int) else s.data_ptr() for s in scratch),
+            stats.data_ptr(), err.data_ptr(), stream(dev)))
 
 
 def warps_per_sm(Q: int, device="cuda") -> int:
@@ -525,6 +939,23 @@ def warps_per_sm(Q: int, device="cuda") -> int:
     figure); -1 when the card refuses the shared memory that takes."""
     with on_device(device):
         return int(_lib().bwamem_chain2aln_warps_per_sm(Q))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_warps(Q: int, index: int) -> int:
+    dev = torch.device("cuda", index)
+    return (warps_per_sm(Q, dev)
+            * torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+def resident_warps(Q: int, device) -> int:
+    """The loop kernel's warps resident on the whole card ``device`` for
+    reads of up to ``Q`` bases (``warps_per_sm`` x its SMs), the figure
+    ``split_reads`` takes; asked of the card once a card and Q."""
+    device = torch.device(device)
+    index = device.index
+    return _resident_warps(Q, torch.cuda.current_device() if index is None
+                           else index)
 
 
 def prepare(ctg: DeviceContigs, ref: DeviceRef, chains: Chains, qseq, qlen, run):
@@ -557,8 +988,11 @@ def raise_flags(err: int):
 
 def chain2aln_cuda(ctg: DeviceContigs, ref: DeviceRef, chains: Chains, qseq,
                    qlen, run, params: ExtendParams, mat,
-                   t_cap: int = NO_T_CAP) -> Regions:
-    """The chain2aln kernels; same contract as ``chain2aln_torch``."""
+                   t_cap: int = NO_T_CAP, split=None) -> Regions:
+    """The chain2aln kernels; same contract as ``chain2aln_torch``.  The
+    reads whose chains run on many warps are ``split`` where given, else
+    ``split_reads`` of the batch at the loop kernel's resident warps on this
+    card."""
     chains, lay, qseq, qlen, run = prepare(ctg, ref, chains, qseq, qlen, run)
     dev = ctg.device
     i32, i64 = torch.int32, torch.int64
@@ -568,8 +1002,9 @@ def chain2aln_cuda(ctg: DeviceContigs, ref: DeviceRef, chains: Chains, qseq,
     reg_i = torch.zeros((Ns, 8), dtype=i32, device=dev)
     nregs = torch.zeros(B, dtype=i32, device=dev)
     work = torch.zeros((B, 6), dtype=i64, device=dev)
+    counts = torch.zeros(len(SPLIT_COUNTS), dtype=i64, device=dev)
     if not (B and Nc):
-        return Regions(reg_c, reg_i, nregs, lay.seed_off, work)
+        return Regions(reg_c, reg_i, nregs, lay.seed_off, work, counts)
     rmax = torch.empty((Nc, 2), dtype=i64, device=dev)
     srt = torch.empty(Ns, dtype=i32, device=dev)
     alive = torch.empty(Ns, dtype=torch.uint8, device=dev)
@@ -578,14 +1013,21 @@ def chain2aln_cuda(ctg: DeviceContigs, ref: DeviceRef, chains: Chains, qseq,
     if mat.numel() != 25 or mat.device != dev:
         raise ValueError("mat must be [5, 5] on the card")
     Q = kernel_query_len(qlen, run, mat)
+    if split is None:
+        split = split_reads(chains.n_seed, chains.n_chain, qlen, run,
+                            resident_warps(Q, dev))
+    split = split.to(dev).bool() & run.bool()
+    counts[:3] = torch.stack([torch.where(run.bool(), chains.n_chain, 0).sum(),
+                              split.sum(),
+                              torch.where(split, chains.n_chain, 0).sum()])
+    items = work_items(chains.n_seed, qlen, run, lay.chain_read, split)
     chain2aln_prep_launch(ctg, chains, lay, qlen, params, rmax, srt, err)
     chain2aln_launch(ref, chains, lay, chains.n_chain, chains.n_seed,
                      lay.chain_off, lay.seed_off, rmax, srt, alive, run, qseq,
-                     qlen, mat, params, t_cap,
-                     read_order(chains.n_seed, qlen, run), Q, reg_c, reg_i,
-                     nregs, work, err)
+                     qlen, mat, params, t_cap, items, Q, reg_c, reg_i, nregs,
+                     work, err, counts[3:])
     raise_flags(int(err.item()))
-    return Regions(reg_c, reg_i, nregs, lay.seed_off, work)
+    return Regions(reg_c, reg_i, nregs, lay.seed_off, work, counts)
 
 
 def band_width_cuda(qlen, w, end_bonus, max_sc: int, o_del: int, e_del: int,
@@ -607,8 +1049,9 @@ def band_width_cuda(qlen, w, end_bonus, max_sc: int, o_del: int, e_del: int,
 # ---------------------------------------------------------------- dispatcher
 
 def chain2aln(ctg: DeviceContigs, ref: DeviceRef, chains: Chains, qseq, qlen,
-              run, params: ExtendParams, mat, t_cap: int = NO_T_CAP) -> Regions:
+              run, params: ExtendParams, mat, t_cap: int = NO_T_CAP,
+              split=None) -> Regions:
     """CPU tensors -> ``chain2aln_torch``; CUDA tensors -> the kernels."""
     fn = chain2aln_cuda if qseq.device.type == "cuda" else chain2aln_torch
-    return fn(ctg, ref, chains, qseq, qlen, run, params, mat, t_cap)
+    return fn(ctg, ref, chains, qseq, qlen, run, params, mat, t_cap, split)
 

@@ -133,3 +133,68 @@ def options(opt, kw: dict):
     if "a" in kw or "b" in kw:
         opt.refresh_matrix()
     return opt
+
+
+def split_reads_cases(contigs, l_pac: int):
+    """Reads of the first contig of ``chain_cases.genome`` with hand-made
+    chains for the loop kernel's chain items, each chain a list of seeds
+    (rbeg, qbeg, len, score) in the doubled domain of a pac of ``l_pac``
+    bases: (names, reads, chains a read).  The cases: later chains whose
+    seeds an earlier chain's region holds (the read's run prunes them, a
+    chain run alone extends them); two chains on one locus at diagonals 20
+    apart (a deletion), in both orders; chains at the five copies of the
+    repeat unit, which no other copy's region holds; a chain of three seeds
+    after a chain that holds them all; and a reverse-strand read."""
+    c0 = contigs[0]
+    names, reads, chains = [], [], []
+
+    def add(name, read, cl):
+        names.append(name)
+        reads.append(read)
+        chains.append([np.asarray(c, np.int64).reshape(-1, 4) for c in cl])
+
+    s = 15_000
+    add("held_later", c0[s: s + 150].copy(),
+        [[(s, 0, 40, 40)], [(s + 80, 80, 30, 30)], [(s + 100, 100, 25, 25)]])
+    s = 16_000
+    dele = np.concatenate([c0[s: s + 70], c0[s + 90: s + 170]])
+    add("deletion_left_first", dele, [[(s, 0, 60, 60)], [(s + 100, 80, 60, 60)]])
+    add("deletion_right_first", dele.copy(),
+        [[(s + 100, 80, 60, 60)], [(s, 0, 60, 60)]])
+    unit = c0[1_000:1_150].copy()
+    add("repeat_copies", unit,
+        [[(at, 0, 150, 150)] for at in (1_000, 5_000, 12_000, 21_000, 27_500)])
+    s = 17_000
+    r = c0[s: s + 150].copy()
+    r[75] = (r[75] + 1) % 4
+    add("several_seeds", r, [[(s, 0, 70, 70)],
+                    [(s + 10, 10, 50, 50), (s + 90, 90, 60, 60),
+                     (s + 41, 40, 30, 30)]])
+    s = 18_000
+    add("reverse_strand", revcomp(c0[s: s + 150]),
+        [[(2 * l_pac - s - 150, 0, 50, 50)],
+         [(2 * l_pac - s - 150 + 90, 90, 40, 40)],
+         [(2 * l_pac - 20_000 - 150, 0, 30, 30)]])
+    return names, reads, chains
+
+
+def chains_table(chains, device="cpu"):
+    """Hand-made chains (a list a read of seed arrays a chain) as
+    ``ops.chain.Chains`` on ``device``: one contig id 0, no ALT, frac_rep 0."""
+    import torch
+
+    from ..ops.chain import Chains
+
+    flat = [c for cl in chains for c in cl]
+    rows = np.asarray([(0, 0, len(c), 0, int(c[:, 2].sum()), 3, -1)
+                       for c in flat], np.int64).reshape(-1, 7)
+    seeds = np.concatenate(flat).astype(np.int64)
+    n_chain = np.asarray([len(cl) for cl in chains], np.int64)
+    n_seed = np.asarray([sum(len(c) for c in cl) for cl in chains], np.int64)
+    B = len(chains)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return Chains(t(rows), t(seeds), t(n_chain), t(n_seed), t(n_seed),
+                  t(np.zeros(B, bool)), t(n_chain.astype(np.int32)))

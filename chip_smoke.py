@@ -2123,9 +2123,6 @@ def phase_chain2aln_kernels(dev, index, batch):
     Nc, Ns = chains_p.chain_rows.shape[0], chains_p.seed_rows.shape[0]
     rmax = torch.empty((Nc, 2), dtype=i64, device=dev)
     srt = torch.empty(Ns, dtype=i32, device=dev)
-    alive = torch.empty(Ns, dtype=torch.uint8, device=dev)
-    reg_c = torch.zeros((Ns, 3), dtype=i64, device=dev)
-    reg_i = torch.zeros((Ns, 8), dtype=i32, device=dev)
     err = torch.zeros(1, dtype=i32, device=dev)
     mat_c = mat.contiguous()
     Q = fo.kernel_query_len(ql, run8, mat_c)
@@ -2133,21 +2130,34 @@ def phase_chain2aln_kernels(dev, index, batch):
     def prep():
         fo.chain2aln_prep_launch(ctg, chains_p, lay, ql, params, rmax, srt, err)
 
-    def looper(lo=0, hi=B):
-        """The loop kernel on reads [lo, hi), their order taken once."""
-        n = hi - lo
-        order = fo.read_order(chains_p.n_seed[lo:hi], ql[lo:hi], run8[lo:hi])
-        nregs = torch.zeros(n, dtype=i32, device=dev)
-        wk = torch.zeros((n, 6), dtype=i64, device=dev)
+    def looper(idx):
+        """The loop kernel on the reads ``idx`` as a batch of their own, as
+        ``chain2aln_cuda`` runs it (the split set it derives); the operands,
+        their windows and the work items made once.  Returns the launch,
+        which returns (reg_c, reg_i, nregs, work), and the prepared chains,
+        layout, read lengths, rmax and srt."""
+        sub = (ctg, ref, _chains_of(chains, idx), qseq[idx], qlen[idx], run[idx])
+        c, cl, q, qn, rn = fo.prepare(*sub)
+        kq = fo.kernel_query_len(qn, rn, mat_c)
+        n, nc, ns = q.shape[0], c.chain_rows.shape[0], c.seed_rows.shape[0]
+        rm = torch.empty((nc, 2), dtype=i64, device=dev)
+        st = torch.empty(ns, dtype=i32, device=dev)
+        al = torch.empty(ns, dtype=torch.uint8, device=dev)
+        fo.chain2aln_prep_launch(ctg, c, cl, qn, params, rm, st, err)
+        split = fo.split_reads(c.n_seed, c.n_chain, qn, rn,
+                               fo.resident_warps(kq, dev))
+        items = fo.work_items(c.n_seed, qn, rn, cl.chain_read, split)
+        out = (torch.zeros((ns, 3), dtype=i64, device=dev),
+               torch.zeros((ns, 8), dtype=i32, device=dev),
+               torch.zeros(n, dtype=i32, device=dev),
+               torch.zeros((n, 6), dtype=i64, device=dev))
 
         def loop():
             fo.chain2aln_launch(
-                ref, chains_p, lay, chains_p.n_chain[lo:hi],
-                chains_p.n_seed[lo:hi], lay.chain_off[lo:hi], lay.seed_off[lo:hi],
-                rmax, srt, alive, run8[lo:hi], q8[lo:hi], ql[lo:hi], mat_c,
-                params, t_cap, order, Q, reg_c, reg_i, nregs, wk, err)
-            return nregs, wk
-        return loop
+                ref, c, cl, c.n_chain, c.n_seed, cl.chain_off, cl.seed_off, rm,
+                st, al, rn, q, qn, mat_c, params, t_cap, items, kq, *out, err)
+            return out
+        return loop, (c, cl, qn, rm, st)
 
     # the prep kernel's own outputs against the plain version's, on the
     # whole batch, and on the chain with the most seeds alone (device time:
@@ -2166,38 +2176,26 @@ def phase_chain2aln_kernels(dev, index, batch):
         "chain2aln_prep_kernel")
     e_prep = max(e_prep, _prep_err(ctg, c_sub, c_lay, c_ql, params, c_rmax,
                                    c_srt))
-    sizes = {nb: _event_ms(looper(0, nb), 3, dev)
+    sizes = {nb: _event_ms(looper(torch.arange(nb, device=dev))[0], 3, dev)
              for nb in sorted({n for n in (1000, 3000, B // 2) if n < B})}
     top = int(np.argmax(work[:, fo.W_CELLS]))
-    top_ms = _event_ms(looper(top, top + 1), 3, dev)
-    loop = looper()
+    top_ms = _event_ms(looper(torch.tensor([top], device=dev))[0], 3, dev)
+    loop = looper(torch.arange(B, device=dev))[0]
     ms = _event_ms(loop, 5, dev)
     cold_ms = _cold_ms(loop, 5, dev)
-    nregs, wk = loop()
+    l_reg_c, l_reg_i, nregs, wk = loop()
     fo.raise_flags(int(err.item()))
     e_plain = max(e_plain, _diff(nregs, whole.nregs), _diff(wk, whole.work),
-                  _diff(reg_c, whole.reg_c), _diff(reg_i, whole.reg_i))
+                  _diff(l_reg_c, whole.reg_c), _diff(l_reg_i, whole.reg_i))
     # the 100 reads with the most cells alone, as a batch of their own
     heavy = torch.from_numpy(np.argsort(work[:, fo.W_CELLS])[-100:].copy()).to(dev)
-    h_args = (ctg, ref, _chains_of(chains, heavy), qseq[heavy], qlen[heavy],
-              run[heavy])
-    h_chains, h_lay, h_q, h_ql, h_run = fo.prepare(*h_args)
-    h_order = fo.read_order(h_chains.n_seed, h_ql, h_run)
-    kernel_q = fo.kernel_query_len(h_ql, h_run, mat_c)
-    h_out = fo.chain2aln_cuda(*h_args, params, mat, t_cap)
-    h_nregs = torch.zeros(len(heavy), dtype=i32, device=dev)
-    h_wk = torch.zeros((len(heavy), 6), dtype=i64, device=dev)
-    h_reg_c, h_reg_i = torch.zeros_like(h_out.reg_c), torch.zeros_like(h_out.reg_i)
-    h_rmax = torch.empty((h_chains.chain_rows.shape[0], 2), dtype=i64, device=dev)
-    h_srt = torch.empty(h_chains.seed_rows.shape[0], dtype=i32, device=dev)
-    h_alive = torch.empty(h_chains.seed_rows.shape[0], dtype=torch.uint8, device=dev)
-    fo.chain2aln_prep_launch(ctg, h_chains, h_lay, h_ql, params, h_rmax, h_srt, err)
+    h_out = fo.chain2aln_cuda(ctg, ref, _chains_of(chains, heavy), qseq[heavy],
+                              qlen[heavy], run[heavy], params, mat, t_cap)
+    h_loop, (h_chains, h_lay, h_ql, h_rmax, h_srt) = looper(heavy)
     e_prep = max(e_prep, _prep_err(ctg, h_chains, h_lay, h_ql, params, h_rmax,
                                    h_srt))
-    heavy_ms = _event_ms(lambda: fo.chain2aln_launch(
-        ref, h_chains, h_lay, h_chains.n_chain, h_chains.n_seed, h_lay.chain_off,
-        h_lay.seed_off, h_rmax, h_srt, h_alive, h_run, h_q, h_ql, mat_c, params,
-        t_cap, h_order, kernel_q, h_reg_c, h_reg_i, h_nregs, h_wk, err), 3, dev)
+    heavy_ms = _event_ms(h_loop, 3, dev)
+    h_wk = h_loop()[3]
     fo.raise_flags(int(err.item()))
     e_plain = max(e_plain, e_prep, _diff(h_wk, whole.work[heavy]),
                   _diff(h_out.work, whole.work[heavy]),
@@ -2242,8 +2240,9 @@ def phase_chain2aln_kernels(dev, index, batch):
         f"({int(work[heavy.cpu().numpy(), fo.W_CELLS].sum())} cells): "
         f"{heavy_ms:.4f} ms; {warps} warps resident a SM (reads of up to {Q} "
         f"bases); reads of up to {limit} bases fit a block ({at_limit} warps "
-        f"a SM there; longer reads take the staged path); the read order (one "
-        f"torch.sort) not timed")
+        f"a SM there; longer reads take the staged path); each batch as the "
+        f"wrapper runs it, its heavy reads' chains on many warps (the split "
+        f"set and the work items made once, not timed)")
     print(f"  prep kernel's rmax and srt against chain_windows's windows and "
           f"order (the whole batch, the chain with the most seeds alone, the "
           f"100 reads with the most cells): max|diff| {e_prep}")

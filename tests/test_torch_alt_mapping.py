@@ -316,7 +316,8 @@ def test_the_cell_loads_with_its_metrics_and_alt_contigs():
     cell = _cell()
     assert {m["name"] for m in cell["end_to_end"]} == {"card_us_per_read",
                                                        "setup_s"}
-    assert [m["name"] for m in cell["per_layer"]] == ["alt_region_share"]
+    assert [m["name"] for m in cell["per_layer"]] == ["alt_region_share",
+                                                     "chain2aln_split_share"]
     assert cell["workload"]["chips"] == 1
     contigs = cell["config"]["genome"]["contigs"]
     alts = [c for c in contigs if "alt_of" in c]

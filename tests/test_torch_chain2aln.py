@@ -459,6 +459,8 @@ def test_kernel_limits_and_read_order():
     with pytest.raises(ValueError):  # (150 + 1) x 4,000 >= 2^19
         fo.kernel_query_len(qlen, run, torch.where(mat > 0, 4000, mat))
     n_seed = torch.tensor([3, 9, 9, 0, 40])
-    order = fo.read_order(n_seed, torch.tensor([100, 150, 150, 150, 10]),
-                          torch.tensor([True, True, True, True, False]))
+    order = fo.work_items(n_seed, torch.tensor([100, 150, 150, 150, 10]),
+                          torch.tensor([True, True, True, True, False]),
+                          torch.tensor([0, 1, 2, 4], dtype=torch.int32),
+                          torch.zeros(5, dtype=torch.bool))
     assert order.dtype == torch.int32 and order.tolist() == [1, 2, 0, 3, 4]

@@ -689,7 +689,8 @@ def test_cuda_chain2aln_flags_impossible_states(fused_engine):
 
     def launch(rmax, n_seed):
         out = dict(
-            order=fo.read_order(n_seed, qlen, run),
+            order=fo.work_items(n_seed, qlen, run, lay.chain_read,
+                                torch.zeros_like(run, dtype=torch.bool)),
             Q=fo.kernel_query_len(qlen, run, mat),
             reg_c=torch.zeros((Ns, 3), dtype=i64, device="cuda"),
             reg_i=torch.zeros((Ns, 8), dtype=i32, device="cuda"),
@@ -746,7 +747,9 @@ def test_cuda_chain2aln_read_order_does_not_change_results(fused_engine):
     fo.chain2aln_launch(ref, chains_p, lay, chains_p.n_chain, chains_p.n_seed,
                         lay.chain_off, lay.seed_off, rmax, srt, alive, run8, q8,
                         ql, mat.to(i32).contiguous(), p, fo.NO_T_CAP,
-                        fo.read_order(chains_p.n_seed, ql, run8).flip(0),
+                        fo.work_items(chains_p.n_seed, ql, run8, lay.chain_read,
+                                      torch.zeros_like(run8, dtype=torch.bool)
+                                      ).flip(0),
                         fo.kernel_query_len(ql, run8, mat), **out)
     assert int(err.item()) == 0
     for name in ("reg_c", "reg_i", "nregs", "work"):
@@ -755,6 +758,142 @@ def test_cuda_chain2aln_read_order_does_not_change_results(fused_engine):
     per_read = [r for r in _regions_per_read(got)]
     assert _regions_per_read(back) == per_read[::-1]
     assert torch.equal(back.work, got.work.flip(0))
+
+
+def _split_modes(chains, qlen, run):
+    """The split sets the card tests hold the kernel to: derived as the
+    wrapper derives it, every read of two chains or more, and none."""
+    return {"derived": None, "every": chains.n_chain >= 2,
+            "none": torch.zeros_like(run, dtype=torch.bool)}
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("case", fused_cases.CARD_CASES)
+def test_cuda_chain2aln_split_matches_plain(fused_engines, case):
+    """Heavy reads' chains on many warps: with the split set derived, with
+    every read of two chains or more split, and with none, the kernel's
+    rows and ``work`` equal the plain version's field by field, one loop
+    kernel a call, and its counts (the reads and chains split, the chains
+    the commit decided otherwise and their own runs' discarded cells) equal
+    those of the plain version's split route on the same set."""
+    from bwamem_tpu_torch.api.options import MemOptions
+
+    kw, make, genome = fused_cases.CARD_CASES[case]
+    eng, contigs = fused_engines(genome)
+    opt = fused_cases.options(MemOptions(), kw)
+    reads = make(contigs)
+    _, args = _fused_operands(eng, opt, reads)
+    plain = fo.chain2aln_torch(*args, 300)
+    chains, qlen, run = args[2], args[4], args[5]
+    for mode, split in _split_modes(chains, qlen, run).items():
+        before = dict(fo.LAUNCHES)
+        got = fo.chain2aln(*args, 300, split)
+        assert {k: fo.LAUNCHES[k] - before[k] for k in before} == {
+            "chain2aln_prep": 1, "chain2aln": 1}, mode
+        for name in ("reg_c", "reg_i", "nregs", "seed_off", "work"):
+            assert torch.equal(getattr(got, name), getattr(plain, name)), (
+                mode, name)
+        if split is None:
+            continue
+        mirror = fo.chain2aln_torch(*args, 300, split)
+        assert got.split.tolist() == mirror.split.tolist(), mode
+        assert int(got.split[1]) == int(split.sum()), mode
+
+
+@pytest.mark.cuda
+@needs_card
+def test_cuda_chain2aln_split_built_chains(fused_engine):
+    """Hand-made chains (``fused_cases.split_reads_cases``), every read
+    split: later chains whose seeds an earlier chain's region holds are
+    decided otherwise at the commit; the rows and work equal the plain
+    version's, the regions the host oracle's, and the counts those of the
+    plain split route."""
+    from bwamem_tpu_torch.api.options import MemOptions
+    from bwamem_tpu_torch.engine.chain import Chain, Seed
+    from bwamem_tpu_torch.engine.extend import chain2aln
+    from bwamem_tpu_torch.engine.state import (device_contigs, device_ref,
+                                               device_scoring)
+
+    eng, contigs = fused_engine
+    opt = MemOptions()
+    names, reads, cl = fused_cases.split_reads_cases(contigs,
+                                                     eng.idx.bns.l_pac)
+    qseq, qlen = so.pad_reads(reads, "cuda")
+    run = torch.ones(len(reads), dtype=torch.bool, device="cuda")
+    args = (device_contigs(eng.idx.bns, "cuda"), device_ref(eng.idx, "cuda"),
+            fused_cases.chains_table(cl, "cuda"), qseq, qlen, run,
+            fo.ExtendParams.from_opt(opt), device_scoring(opt, "cuda").mat)
+    plain = fo.chain2aln_torch(*args)
+    got = fo.chain2aln(*args, split=run)
+    for name in ("reg_c", "reg_i", "nregs", "seed_off", "work"):
+        assert torch.equal(getattr(got, name), getattr(plain, name)), name
+    mirror = fo.chain2aln_torch(*args, split=run)
+    assert got.split.tolist() == mirror.split.tolist()
+    assert int(got.split[3]) >= 3
+    want = []
+    for q, chains in zip(reads, cl):
+        regs = []
+        for c in chains:
+            chain2aln(opt, eng.idx, len(q), q,
+                      Chain(rid=0, seeds=[Seed(*map(int, s)) for s in c]), regs)
+        want.append([[a.rb, a.re, 0, a.qb, a.qe, a.score, a.truesc, a.w,
+                      a.seedcov, a.seedlen0, a.rid] for a in regs])
+    mine = _regions_per_read(got)
+    assert [[r[:2] + r[3:] for r in rr] for rr in mine] == [
+        [r[:2] + r[3:] for r in rr] for rr in want]
+
+
+@pytest.mark.cuda
+@needs_card
+def test_cuda_chain2aln_split_order_and_flags(fused_engine):
+    """With every read of two chains or more split, the work items taken in
+    the reverse order give the same rows, and the flag bits fire as without
+    a split: a window that does not hold its seeds, fewer region rows than a
+    read needs."""
+    from bwamem_tpu_torch.api.options import MemOptions
+
+    eng, contigs = fused_engine
+    opt = MemOptions()
+    reads = chain_cases.reads(contigs, np.random.default_rng(21), 80)
+    args = _fused_operands(eng, opt, reads)[1]
+    got = fo.chain2aln(*args)
+    ctg, ref, chains, qseq, qlen, run, p, mat = args
+    chains_p, lay, q8, ql, run8 = fo.prepare(ctg, ref, chains, qseq, qlen, run)
+    B, Nc, Ns = q8.shape[0], chains_p.chain_rows.shape[0], chains_p.seed_rows.shape[0]
+    i32, i64 = torch.int32, torch.int64
+    split = chains_p.n_chain >= 2
+    assert int(split.sum()) > 0
+    items = fo.work_items(chains_p.n_seed, ql, run8, lay.chain_read, split)
+    k = int((items >= 0).sum())
+    rmax = torch.empty((Nc, 2), dtype=i64, device="cuda")
+    srt = torch.empty(Ns, dtype=i32, device="cuda")
+    alive = torch.empty(Ns, dtype=torch.uint8, device="cuda")
+    err = torch.zeros(1, dtype=i32, device="cuda")
+    fo.chain2aln_prep_launch(ctg, chains_p, lay, ql, p, rmax, srt, err)
+
+    def launch(order, rmax, n_seed):
+        out = dict(reg_c=torch.zeros((Ns, 3), dtype=i64, device="cuda"),
+                   reg_i=torch.zeros((Ns, 8), dtype=i32, device="cuda"),
+                   nregs=torch.zeros(B, dtype=i32, device="cuda"),
+                   work=torch.zeros((B, 6), dtype=i64, device="cuda"),
+                   err=torch.zeros(1, dtype=i32, device="cuda"))
+        fo.chain2aln_launch(ref, chains_p, lay, chains_p.n_chain, n_seed,
+                            lay.chain_off, lay.seed_off, rmax, srt, alive,
+                            run8, q8, ql, mat.to(i32).contiguous(), p,
+                            fo.NO_T_CAP, order, fo.kernel_query_len(ql, run8, mat),
+                            **out)
+        return out
+
+    for order in (items, torch.cat([items[:k].flip(0), items[k:]])):
+        out = launch(order, rmax, chains_p.n_seed)
+        assert int(out["err"].item()) == 0
+        for name in ("reg_c", "reg_i", "nregs", "work"):
+            assert torch.equal(out[name], getattr(got, name)), name
+    assert int(launch(items, torch.zeros_like(rmax), chains_p.n_seed)[
+        "err"].item()) == fo.ERR_WINDOW
+    assert int(launch(items, rmax, torch.zeros_like(chains_p.n_seed))[
+        "err"].item()) == fo.ERR_ROWS
 
 
 @pytest.mark.cuda
